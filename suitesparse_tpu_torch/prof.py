@@ -1,0 +1,157 @@
+"""Device-time profile of the port's main path on one CUDA card.
+
+    python3 -m suitesparse_tpu_torch.prof
+
+On the model problem ``laplacian_3d(50)`` (n = 125,000, nested dissection,
+fp32, default tile threshold) it profiles three phases: ``factorize``, and
+``solve`` at 1 and at 64 right-hand sides. Each phase gets one warm call,
+the minimum of 3 unprofiled calls (host clock around the call, synchronized),
+then one call under ``torch.profiler``. Per phase it prints one JSON line:
+
+- ``wall_s``: the unprofiled minimum; ``prof_wall_s``: the profiled call;
+- ``device_busy_s``: the union of the device intervals (kernels, copies,
+  memsets) of the profiled call; ``device_idle_share`` = 1 - busy /
+  prof_wall_s;
+- ``n_device_ops`` and ``top``: the 8 largest rows of ``key_averages()``
+  by self device time, as (name, ms, calls).
+
+It then times every ``_group_compute`` of one factorization with a device
+synchronize after each group and prints the 25 slowest groups. The full
+tables go to ``prof_out/`` in the checkout: ``prof_<phase>.txt`` and
+``prof_groups.txt``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from . import DEFAULT, Ordering, analyze, factorize, fixtures, solve
+from .numeric import supernodal_device
+from .numeric.supernodal import supernodal_symbolic
+
+SIZE = 50
+NRHS = 64
+OUT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))), "prof_out")
+# CUPTI bookkeeping rows that the profiler files under the device but that
+# are no device work
+_NOT_DEVICE_WORK = {"Command Buffer Full", "Activity Buffer Request"}
+
+
+def _sync_wall(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _busy_s(events) -> tuple[float, int]:
+    """Seconds covered by the device intervals of ``events`` and their
+    number."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name not in _NOT_DEVICE_WORK)
+    busy, end = 0.0, -np.inf
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e6, len(spans)
+
+
+def profile_phase(name: str, fn) -> dict:
+    fn()
+    wall = min(_sync_wall(fn) for _ in range(3))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        prof_wall = _sync_wall(fn)
+    busy, nops = _busy_s(prof.events())
+    rows = sorted(prof.key_averages(),
+                  key=lambda r: r.self_device_time_total, reverse=True)
+    with open(os.path.join(OUT_DIR, f"prof_{name}.txt"), "w") as f:
+        f.write(prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=60,
+            max_name_column_width=90))
+    rec = {"phase": name, "wall_s": wall, "prof_wall_s": prof_wall,
+           "device_busy_s": busy, "device_idle_share": 1 - busy / prof_wall,
+           "n_device_ops": nops,
+           "top": [(r.key[:70], r.self_device_time_total / 1e3, r.count)
+                   for r in rows[:8]]}
+    print(json.dumps(rec), flush=True)
+    return rec
+
+
+def group_times(A, S, cfg) -> None:
+    """Each group of one factorization, synchronized before and after."""
+    times = []
+    inner = supernodal_device._group_compute
+
+    def timed(g, *args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(g, *args)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return out
+
+    supernodal_device._group_compute = timed
+    try:
+        F = factorize(A, S, cfg, device="cuda")
+    finally:
+        supernodal_device._group_compute = inner
+    assert F.ok
+    plan = F.F.dplan.plan
+    rows = []
+    walk = [(d, gi, g) for d, gl in enumerate(plan.groups)
+            for gi, g in enumerate(gl)]
+    for t, (d, gi, g) in zip(times, walk, strict=True):
+        k1 = supernodal_device._use_potrf_kernel(torch.float32, g.B, g.C)
+        rows.append((t, f"{t:.5f} d={d} gi={gi} B={g.B} R={g.R} C={g.C} "
+                        f"classes={len(g.pairs)} tile={g._tile is not None} "
+                        f"k1={k1}"))
+    rows.sort(reverse=True)
+    text = [f"per-group sum {sum(times):.4f} s over {len(times)} groups"]
+    text += [r for _t, r in rows]
+    with open(os.path.join(OUT_DIR, "prof_groups.txt"), "w") as f:
+        f.write("\n".join(text) + "\n")
+    print("\n".join(text[:26]), flush=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("prof: no CUDA device", file=sys.stderr)
+        return 2
+    os.makedirs(OUT_DIR, exist_ok=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip())
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+
+    A = fixtures.laplacian_3d(SIZE)
+    n = A.ncol
+    cfg = DEFAULT.replace(ordering=Ordering.METIS)
+    Ssim = analyze(A, cfg)
+    supernodal_symbolic(A, Ssim, cfg)
+    F = factorize(A, Ssim, cfg, device="cuda")
+    assert F.ok
+    b = 1.0 + np.arange(n) / n
+    B64 = np.tile(b.reshape(-1, 1), (1, NRHS)) * (1.0 + np.arange(NRHS) / NRHS)
+
+    profile_phase("factor", lambda: factorize(A, Ssim, cfg, device="cuda"))
+    profile_phase("solve1", lambda: solve(F, b, cfg))
+    profile_phase("solve64", lambda: solve(F, B64, cfg))
+    group_times(A, Ssim, cfg)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,97 @@
+"""Port's supernodal factor (CPU, plain kernel versions) vs the reference.
+
+The reference ``factorize_device`` runs as its own tests run it off the
+TPU: tile placement for groups with R >= 32 and both Pallas kernels in
+interpret mode. The port builds the same plan (``tile_rmin=32``) and writes
+the same padded layout, so the factors compare entry by entry.
+
+Tolerances: fp32 at 1e-5 * max|Lx| — the groups that miss the potrf_trsm
+gate factor through LAPACK in two libraries, and sums run in another
+order; fp64 at 1e-10 * max|Lx|."""
+
+import numpy as np
+import pytest
+
+import suitesparse_tpu as sst
+from suitesparse_tpu.io import fixtures
+from suitesparse_tpu.numeric import supernodal_device as ref_device
+from suitesparse_tpu.ordering import nested_dissection_order
+from suitesparse_tpu.symbolic.supernodes import analyze_supernodal
+from suitesparse_tpu_torch.numeric import supernodal_device
+
+FIXTURES = {
+    "laplacian_3d_12": lambda: fixtures.laplacian_3d(12),
+    "aniso_10": lambda: fixtures.anisotropic_laplacian_3d(
+        10, grade=2.0, drop_tol=1e-3),
+    "fem_1500": lambda: fixtures.fem_mesh_spd(1500),
+}
+TOL = {"float32": 1e-5, "float64": 1e-10}
+
+
+def _reference_env(monkeypatch):
+    monkeypatch.setenv("SSTPU_PALLAS", "1")
+    monkeypatch.setenv("SSTPU_PLACE", "tile")
+    monkeypatch.setenv("SSTPU_TILE_RMIN", "32")
+
+
+def _both(A, config, monkeypatch):
+    _reference_env(monkeypatch)
+    S = analyze_supernodal(A, nested_dissection_order(A, sst.DEFAULT))
+    Fj = ref_device.factorize_device(A, S, config)
+    Ft = supernodal_device.factorize_device(A, S, config, device="cpu",
+                                            tile_rmin=32)
+    return S, Fj, Ft
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_factor_matches_reference(name, dtype, monkeypatch):
+    A = FIXTURES[name]()
+    config = sst.DEFAULT.replace(compute_dtype=dtype)
+    S, Fj, Ft = _both(A, config, monkeypatch)
+    assert Fj.ok and Ft.ok
+    assert Ft.Lx.dtype == getattr(__import__("torch"), dtype)
+    groups = [g for gl in Ft.dplan.plan.groups for g in gl]
+    assert any(g._tile is not None for g in groups)
+    lj = np.asarray(Fj.Lx, dtype=np.float64)
+    lt = Ft.Lx.numpy().astype(np.float64)
+    assert lj.shape == lt.shape == (Ft.dplan.plan.dev_size,)
+    tol = TOL[dtype] * np.abs(lj).max()
+    assert np.abs(lt - lj).max() <= tol
+    assert np.abs(Ft.lx_host() - Fj.lx_host()).max() <= tol
+
+
+def test_laplacian_runs_both_kernels_plain(monkeypatch):
+    """At this size the port's plan sends groups through both kernels (the
+    plain versions on the CPU), so the parity above covers them."""
+    import torch
+    A = FIXTURES["laplacian_3d_12"]()
+    S = analyze_supernodal(A, nested_dissection_order(A, sst.DEFAULT))
+    dp = supernodal_device.device_plan(A, S, torch.device("cpu"), 32)
+    groups = [g for gl in dp.plan.groups for g in gl]
+    assert sum(g._tile is not None for g in groups) >= 2
+    assert sum(supernodal_device._use_potrf_kernel(torch.float32, g.B, g.C)
+               for g in groups) >= 2
+
+
+def test_minor_matches_reference(monkeypatch):
+    A = fixtures.laplacian_3d(8, shift=-3.0)      # indefinite
+    S, Fj, Ft = _both(A, sst.DEFAULT, monkeypatch)
+    assert not Fj.ok
+    assert Ft.minor == Fj.minor < S.n
+
+
+def test_plan_cache_keys_on_tile_threshold_and_device():
+    import torch
+    A = FIXTURES["laplacian_3d_12"]()
+    S = analyze_supernodal(A, nested_dissection_order(A, sst.DEFAULT))
+    cpu = torch.device("cpu")
+    p32 = supernodal_device.device_plan(A, S, cpu, 32)
+    assert supernodal_device.device_plan(A, S, cpu, 32) is p32
+    p256 = supernodal_device.device_plan(A, S, cpu)
+    assert p256 is not p32
+    assert p256.device == p32.device == cpu
+    assert set(S._torch_plan) == {(32, "cpu"), (256, "cpu")}
+    assert getattr(S, "_device_plan", None) is None   # reference's slot
+    assert not any(g._tile is not None and g.R < 256
+                   for gl in p256.plan.groups for g in gl)
