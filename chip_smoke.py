@@ -4,20 +4,42 @@
     python3 chip_smoke.py
 
 1. Builds the CUDA kernels from ``suitesparse_tpu_torch/kernels/csrc``.
-2. Kernel phase: builds the plan of the 3-D Laplacian model problem
-   ``laplacian_3d(50)`` (n = 125,000, nested dissection) and runs each kernel and its plain
-   PyTorch version on the card at the shapes that plan gives it, from a
-   numpy seed: potrf_trsm at the three largest groups of its gate, the
-   tiled extend-add on the largest tile manifest. Tolerances (relative to
-   the largest output entry, fp32 sums in another order): 1e-5 and 1e-6.
-3. Main path: ``analyze`` → ``factorize`` → ``solve`` (1 and 64 right-hand
-   sides) through the package's entry points on the card. Both kernels
-   must launch during the factorization; residuals must stay below 1e-5.
-   Also a small problem whose card factor must match the CPU factor entry
-   by entry and whose solution must match the host simplicial solve.
+2. Kernel phase: builds the plans of the 3-D Laplacian model problem
+   ``laplacian_3d(50)`` (n = 125,000, nested dissection) and of a forest of
+   512 independent ``laplacian_3d(6)`` blocks (n = 110,592), and runs each
+   kernel and its plain PyTorch version on the card at the shapes those
+   plans give it, from a numpy seed: potrf_trsm (K1) at the three largest
+   groups of its gate, the tiled extend-add (K2) on the largest tile
+   manifest, the solve steps (K3, forward and backward) at the four largest
+   groups of their gate at 1 and 64 right-hand sides, the batched trisolve
+   (K4) at the forest's (512, 64) root group and the (45, 48) L11 shape,
+   plain and transposed, at 1 and 64 right-hand sides. Tolerances, relative
+   to the largest plain entry (fp32 sums in another order): 1e-5, 1e-6 for
+   K2. Each kernel's time is printed beside its plain version's, the least
+   time the card could take (bytes at 3.35 TB/s or fp32 flops at
+   67 TFLOP/s, whichever is larger; a triangular tile counts its lower
+   triangle only) and, for K4, one
+   ``torch.linalg.solve_triangular`` call.
+3. Main path: ``analyze`` -> ``factorize`` -> ``solve`` (1 and 64
+   right-hand sides, w2 sweep) through the package's entry points on the
+   card. K1 and K2 must launch during the factorization; residuals must
+   stay below 1e-5. ``solve_mode="auto"`` must pick w2 on the fresh factor
+   and classic once the reported free memory leaves no room for W2. Also a
+   small problem whose card factor must match the
+   CPU factor entry by entry and whose solution must match the host
+   simplicial solve.
+4. Classic sweep: the same factor solved with ``solve_mode="classic"`` at 1
+   and 64 right-hand sides; K3 must launch, residuals below 1e-5, x within
+   1e-4 * max|x| of the w2 solve's x.
+5. Forest: the 512-block forest through ``cholsol`` with
+   ``solve_mode="classic"`` and ``factor_kind=SUPERNODAL_LL`` (its
+   flops per nonzero of L, 28.6, sit below the automatic supernodal switch
+   of 40); K3 and K4 must launch, residual below 1e-5.
+6. Refinement: ``solve_refined`` on the model problem, residual below 1e-12.
 
-Any failure raises (exit code != 0). Without a CUDA device the script
-exits with code 2 before doing anything. The last line is the device JSON.
+Every kernel count is set to 0 just before each path and read just after.
+Any failure raises (exit code != 0). Without a CUDA device the script exits
+with code 2 before doing anything. The last line is the device JSON.
 """
 
 from __future__ import annotations
@@ -31,9 +53,16 @@ import numpy as np
 
 K1_TOL = 1e-5
 K2_TOL = 1e-6
+K34_TOL = 1e-5
 RESID_TOL = 1e-5
+REFINED_TOL = 1e-12
 SEED = 0
 SIZE = 50          # laplacian_3d(50): n = 125,000, the model problem
+FOREST = (512, 6)  # 512 blocks of laplacian_3d(6): n = 110,592
+NRHS = 64
+HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
+FP32_FLOP_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
+SRC = "suitesparse_tpu_torch/kernels/csrc/"
 
 
 def _cuda_ms(fn, reps: int, setup=None) -> float:
@@ -72,17 +101,45 @@ def _best_s(fn, reps: int = 3) -> float:
     return best
 
 
-def kernel_phase(dp, dev):
+def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it)."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / FP32_FLOP_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def _rel_err(got, ref) -> tuple[float, float]:
+    """(max abs difference, that over the largest plain entry)."""
+    d = (got - ref).abs().max().item()
+    return d, d / ref.abs().max().item()
+
+
+def forest(k: int, nx: int):
+    """k independent copies of laplacian_3d(nx) on the block diagonal: the
+    many-subdomain systems (block Jacobi, domain decomposition) whose
+    solve tree is a forest."""
+    import suitesparse_tpu_torch as sstt
+
+    A = sstt.fixtures.laplacian_3d(nx)
+    n = A.ncol
+    cols = np.repeat(np.arange(n), np.diff(A.indptr))
+    return sstt.from_triplets(
+        k * n, k * n, np.concatenate([A.indices + i * n for i in range(k)]),
+        np.concatenate([cols + i * n for i in range(k)]), np.tile(A.data, k),
+        sym=1)
+
+
+def factor_kernels(dp, dev, rng):
+    """K1 and K2 against their plain versions on the model plan."""
     import torch
 
     from suitesparse_tpu_torch.kernels.extend_add_tiles import (
-        extend_add_tiles, extend_add_tiles_plain)
+        TILE, extend_add_tiles, extend_add_tiles_plain)
     from suitesparse_tpu_torch.kernels.potrf import (
         potrf_trsm, potrf_trsm_plain)
     from suitesparse_tpu_torch.numeric.supernodal_device import \
         _use_potrf_kernel
 
-    rng = np.random.default_rng(SEED)
     groups = [g for gl in dp.plan.groups for g in gl]
     k1_groups = sorted((g for g in groups
                         if _use_potrf_kernel(torch.float32, g.B, g.C)),
@@ -100,22 +157,25 @@ def kernel_phase(dp, dev):
         L11, L21 = potrf_trsm(f11, f21)
         P11, P21 = potrf_trsm_plain(f11, f21)
         torch.cuda.synchronize()
-        d11 = (L11 - P11).abs().max().item()
-        err = d11 / P11.abs().max().item()
+        d11, err = _rel_err(L11, P11)
         if RU:
-            d21 = (L21 - P21).abs().max().item()
-            err = max(err, d21 / P21.abs().max().item())
-            d11 = max(d11, d21)
+            d21, e21 = _rel_err(L21, P21)
+            err, d11 = max(err, e21), max(d11, d21)
         assert np.isfinite(err) and err <= K1_TOL, \
             f"potrf_trsm disagrees at (B,C,RU)=({B},{C},{RU}): {err}"
         ms = _cuda_ms(lambda: potrf_trsm(f11, f21), 10)
         plain_ms = _cuda_ms(lambda: potrf_trsm_plain(f11, f21), 2)
+        # F11 read and L11 written as lower triangles, F21 read, L21 written
+        bound_ms, bound_by = _bound(4.0 * B * (C * (C + 1) + 2 * RU * C),
+                                    B * (C ** 3 / 3 + RU * C * C))
         print(f"potrf_trsm (B,C,RU)=({B},{C},{RU}) rel_err={err:.3e} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}", flush=True)
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
         k1["err"] = max(k1["err"], err)
         k1["abs"] = max(k1["abs"], d11)
         if i == 0:
-            k1.update(ms=ms, plain_ms=plain_ms, shape=(B, C, RU))
+            k1.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                      bound_by=bound_by)
 
     tg = max((g for g in groups if g._tile is not None),
              key=lambda g: g._tile.man.shape[0])
@@ -134,8 +194,7 @@ def kernel_phase(dp, dev):
     Fk = extend_add_tiles(F0.clone(), U, man, rmap, cmap, runs)
     Fp = extend_add_tiles_plain(F0.clone(), U, man, rmap, cmap)
     torch.cuda.synchronize()
-    k2_abs = (Fk - Fp).abs().max().item()
-    k2_err = k2_abs / Fp.abs().max().item()
+    k2_abs, k2_err = _rel_err(Fk, Fp)
     assert np.isfinite(k2_err) and k2_err <= K2_TOL, \
         f"extend_add_tiles disagrees: {k2_err}"
     k2_ms = _cuda_ms(lambda F: extend_add_tiles(F, U, man, rmap, cmap, runs),
@@ -143,12 +202,135 @@ def kernel_phase(dp, dev):
     k2_plain = _cuda_ms(lambda F: extend_add_tiles_plain(F, U, man, rmap,
                                                          cmap),
                         3, setup=lambda: (F0.clone(),))
+    # this manifest's work: each piece reads its valid child cells and adds
+    # them once; each visited tile of F is read and written once; the step
+    # table and the maps are read once
+    piece_cells = float(((tm.rowmap[:, 0] >= 0).sum(1)
+                         * (tm.colmap[:, 0] >= 0).sum(1)).sum())
+    starts = tm.man[tg._tile_runs[:-1]]
+    tile_cells = float((np.minimum(TILE, tg.R - starts[:, 1] * TILE)
+                        * np.minimum(TILE, tg.R - starts[:, 2] * TILE)).sum())
+    k2_bound, k2_by = _bound(4.0 * piece_cells + 8.0 * tile_cells
+                             + 4.0 * tm.man.size + 8.0 * tm.rowmap.size,
+                             piece_cells)
     print(f"extend_add_tiles (B,R)=({tg.B},{tg.R}) steps={tm.man.shape[0]} "
           f"tiles={len(tg._tile_runs) - 1} RUp={tm.RUp} "
           f"rel_err={k2_err:.3e} kernel_ms={k2_ms:.4f} "
-          f"plain_ms={k2_plain:.4f}", flush=True)
+          f"plain_ms={k2_plain:.4f} bound_ms={k2_bound:.4f} ({k2_by})",
+          flush=True)
     return k1, {"err": k2_err, "abs": k2_abs, "ms": k2_ms,
-                "plain_ms": k2_plain}
+                "plain_ms": k2_plain, "bound_ms": k2_bound, "bound_by": k2_by}
+
+
+def _tri_tiles(rng, B, C, dev):
+    """B well-conditioned lower tiles: diagonal in [1, 2], off-diagonal
+    entries below 1/C."""
+    import torch
+
+    L = np.tril(rng.uniform(-1.0, 1.0, (B, C, C)) / C, -1)
+    L += np.eye(C) * rng.uniform(1.0, 2.0, (B, 1, C))
+    return torch.as_tensor(L.astype(np.float32), device=dev)
+
+
+def solve_kernels(dp, dpf, dev, rng):
+    """K3 (forward, backward) and K4 against their plain versions at the
+    shapes of the model plan and the forest plan."""
+    import torch
+
+    from suitesparse_tpu_torch.kernels.solve_step import (
+        solve_step_bwd, solve_step_bwd_plain, solve_step_fwd,
+        solve_step_fwd_plain)
+    from suitesparse_tpu_torch.kernels.trisolve import (
+        batched_trisolve, batched_trisolve_plain)
+    from suitesparse_tpu_torch.numeric.supernodal_solve import classic_route
+
+    def record(rec, name, shape, err, dabs, ms, plain_ms, nbytes, flops,
+               library_ms=None):
+        bound_ms, bound_by = _bound(nbytes, flops)
+        lib = "" if library_ms is None else f" library_ms={library_ms:.4f}"
+        print(f"{name} {shape} rel_err={err:.3e} kernel_ms={ms:.4f} "
+              f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+              f"({bound_by}){lib}", flush=True)
+        assert np.isfinite(err) and err <= K34_TOL, \
+            f"{name} disagrees at {shape}: {err}"
+        r = rec.setdefault(name, {"err": 0.0, "abs": 0.0})
+        r["err"], r["abs"] = max(r["err"], err), max(r["abs"], dabs)
+        if "ms" not in r:      # the first shape is the reported one
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by, library_ms=library_ms, shape=shape)
+
+    rec: dict = {}
+    groups = [g for gl in dp.plan.groups for g in gl]
+    k3 = sorted((g for g in groups if classic_route(
+        torch.float32, g.B, g.C, g.R - g.C, 1) == "solve_step"),
+        key=lambda g: g.B * g.R * g.C, reverse=True)[:4]
+    assert len(k3) == 4, "fewer than four groups pass the solve_step gate"
+    for g in k3:
+        B, R, C, RU = g.B, g.R, g.C, g.R - g.C
+        # L21 and the (B, RU, NR) vectors as the sweep passes them: views
+        # into a packed (B, R, C) panel and a (B, R, NR) work buffer
+        P = torch.empty(B, R, C, device=dev)
+        L11 = _tri_tiles(rng, B, C, dev)
+        P[:, C:] = torch.as_tensor(rng.uniform(-1.0, 1.0, (B, RU, C))
+                                   .astype(np.float32) / C, device=dev)
+        L21 = P[:, C:]
+        for nr in (1, NRHS):
+            Y = torch.as_tensor(rng.standard_normal((B, C, nr),
+                                                    dtype=np.float32),
+                                device=dev)
+            W = torch.as_tensor(rng.standard_normal((B, R, nr),
+                                                    dtype=np.float32),
+                                device=dev)
+            WB = W[:, C:]
+            shape = f"(B,C,RU,NR)=({B},{C},{RU},{nr})"
+            # L11's lower triangle and L21, read once
+            io = 4.0 * B * (C * (C + 1) / 2 + RU * C)
+            flops = float(B * nr * (C * C + 2 * RU * C))
+            xc, v = solve_step_fwd(L11, L21, Y, WB)
+            pxc, pv = solve_step_fwd_plain(L11, L21, Y, WB)
+            torch.cuda.synchronize()
+            d1, e1 = _rel_err(xc, pxc)
+            d2, e2 = _rel_err(v, pv)
+            record(rec, "solve_step_fwd", shape, max(e1, e2), max(d1, d2),
+                   _cuda_ms(lambda: solve_step_fwd(L11, L21, Y, WB), 10),
+                   _cuda_ms(lambda: solve_step_fwd_plain(L11, L21, Y, WB), 2),
+                   io + 8.0 * (B * C * nr + B * RU * nr), flops)
+            xb = solve_step_bwd(L11, L21, Y, WB)
+            pxb = solve_step_bwd_plain(L11, L21, Y, WB)
+            torch.cuda.synchronize()
+            d, e = _rel_err(xb, pxb)
+            record(rec, "solve_step_bwd", shape, e, d,
+                   _cuda_ms(lambda: solve_step_bwd(L11, L21, Y, WB), 10),
+                   _cuda_ms(lambda: solve_step_bwd_plain(L11, L21, Y, WB), 2),
+                   io + 4.0 * (2 * B * C * nr + B * RU * nr), flops)
+
+    root = [g for gl in dpf.plan.groups for g in gl
+            if classic_route(torch.float32, g.B, g.C, g.R - g.C, 1)
+            == "trisolve"]
+    assert [(g.B, g.C) for g in root] == [(FOREST[0], 64)], root
+    for B, C in ((FOREST[0], 64), (45, 48)):
+        L = _tri_tiles(rng, B, C, dev)
+        for nr in (1, NRHS):
+            Y = torch.as_tensor(rng.standard_normal((B, C, nr),
+                                                    dtype=np.float32),
+                                device=dev)
+            for transpose in (False, True):
+                X = batched_trisolve(L, Y, transpose)
+                PX = batched_trisolve_plain(L, Y, transpose)
+                torch.cuda.synchronize()
+                d, e = _rel_err(X, PX)
+                A_ = L.mT if transpose else L
+                record(rec, "batched_trisolve",
+                       f"(B,C,NR)=({B},{C},{nr}) transpose={transpose}", e, d,
+                       _cuda_ms(lambda: batched_trisolve(L, Y, transpose), 10),
+                       _cuda_ms(lambda: batched_trisolve_plain(L, Y,
+                                                               transpose), 2),
+                       4.0 * B * (C * (C + 1) / 2 + 2 * C * nr),
+                       float(B * nr * C * C),
+                       library_ms=_cuda_ms(
+                           lambda: torch.linalg.solve_triangular(
+                               A_, Y, upper=transpose), 10))
+    return rec
 
 
 def small_check(dev):
@@ -186,6 +368,35 @@ def small_check(dev):
           f"x_rel_err_vs_host={x_err:.3e} indefinite_minor={mg}", flush=True)
 
 
+def auto_fallback(F) -> None:
+    """solve_mode="auto" on a card factor with no W2 built yet: w2 with the
+    card's real free memory, classic once the free memory reported by
+    ``torch.cuda.mem_get_info`` leaves no room for W2 (the capacity gate's
+    own arithmetic, PyTorch's cached blocks included)."""
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.numeric import supernodal_solve
+
+    dev_F = F.F if isinstance(F, sstt.SupernodalFactorAdapter) else F
+    assert not dev_F._solve, "the factor already holds a solve state"
+    assert supernodal_solve.solve_mode(dev_F, sstt.DEFAULT) == "w2"
+    torch.cuda.empty_cache()
+    need = 2 * 4 * dev_F.dplan.plan.dev_size
+    cached = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
+    real = torch.cuda.mem_get_info
+    short = max(need - 1 - cached, 0)     # one byte short of W2's room
+    torch.cuda.mem_get_info = lambda device=None: (short, real(device)[1])
+    try:
+        mode = supernodal_solve.solve_mode(dev_F, sstt.DEFAULT)
+    finally:
+        torch.cuda.mem_get_info = real
+    assert cached < need and mode == "classic", (cached, need, mode)
+    print(f"auto solve_mode: w2 with the card's free memory, classic with "
+          f"{short} B free and {cached} B cached (W2 needs {need} B)",
+          flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -196,7 +407,23 @@ def main() -> int:
     from suitesparse_tpu_torch.kernels.extend_add_tiles import \
         extend_add_tiles
     from suitesparse_tpu_torch.kernels.potrf import potrf_trsm
+    from suitesparse_tpu_torch.kernels.solve_step import (solve_step_bwd,
+                                                          solve_step_fwd)
+    from suitesparse_tpu_torch.kernels.trisolve import batched_trisolve
     from suitesparse_tpu_torch.numeric import supernodal, supernodal_device
+
+    wrappers = {"potrf_trsm": potrf_trsm,
+                "extend_add_tiles": extend_add_tiles,
+                "solve_step_fwd": solve_step_fwd,
+                "solve_step_bwd": solve_step_bwd,
+                "batched_trisolve": batched_trisolve}
+
+    def zero_counts():
+        for w in wrappers.values():
+            w.launches = 0
+
+    def counts():
+        return {k: w.launches for k, w in wrappers.items()}
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -215,6 +442,7 @@ def main() -> int:
     A = sstt.fixtures.laplacian_3d(SIZE)
     n = A.ncol
     cfg = sstt.DEFAULT.replace(ordering=sstt.Ordering.METIS)
+    classic = cfg.replace(solve_mode="classic")
     t0 = time.perf_counter()
     Ssim = sstt.analyze(A, cfg)
     S = supernodal.supernodal_symbolic(A, Ssim, cfg)
@@ -228,57 +456,126 @@ def main() -> int:
           f"tile_groups={sum(g._tile is not None for g in groups)} "
           f"analyze_s={analyze_s:.2f} (first call: includes building the "
           f"host C++ library) plan_s={plan_s:.2f}", flush=True)
+    Af = forest(*FOREST)
+    t0 = time.perf_counter()
+    Sf = supernodal.supernodal_symbolic(Af, sstt.analyze(Af, cfg), cfg)
+    dpf = supernodal_device.device_plan(Af, Sf, dev)
+    print(f"forest {FOREST[0]} x laplacian_3d({FOREST[1]}): n={Af.ncol} "
+          f"fl={Sf.fl:.4g} groups={sum(len(gl) for gl in dpf.plan.groups)} "
+          f"analyze_and_plan_s={time.perf_counter() - t0:.2f}", flush=True)
 
-    k1, k2 = kernel_phase(dp, dev)
+    rng = np.random.default_rng(SEED)
+    k1, k2 = factor_kernels(dp, dev, rng)
+    ks = solve_kernels(dp, dpf, dev, rng)
     small_check(dev)
 
     # ---- main path, through the package's entry points ----
-    potrf_trsm.launches = 0
-    extend_add_tiles.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     F = sstt.factorize(A, Ssim, cfg, device="cuda")
     torch.cuda.synchronize()
     first_factor_s = time.perf_counter() - t0
+    factor_launches = counts()
     assert F.ok, f"factorization failed at column {F.minor}"
+    assert factor_launches["potrf_trsm"] > 0 and \
+        factor_launches["extend_add_tiles"] > 0, factor_launches
+    auto_fallback(F)
     b = 1.0 + np.arange(n) / n
+    B64 = np.tile(b.reshape(-1, 1), (1, NRHS)) * (1.0 + np.arange(NRHS) / NRHS)
     x = sstt.solve(F, b, cfg)
-    NR = 64
-    B64 = np.tile(b.reshape(-1, 1), (1, NR)) * (1.0 + np.arange(NR) / NR)
     x64 = sstt.solve(F, B64, cfg)
-    launches = {"potrf_trsm": potrf_trsm.launches,
-                "extend_add_tiles": extend_add_tiles.launches}
-    assert all(v > 0 for v in launches.values()), launches
     resid = sstt.residual_norm(A, x, b)
     resid64 = sstt.residual_norm(A, x64[:, 0], B64[:, 0])
-    assert x.shape == (n,) and x64.shape == (n, NR)
+    assert x.shape == (n,) and x64.shape == (n, NRHS)
     assert np.isfinite(x).all() and np.isfinite(x64).all()
     assert resid < RESID_TOL and resid64 < RESID_TOL, (resid, resid64)
+
+    # ---- classic sweep on the same factor ----
+    zero_counts()
+    xc = sstt.solve(F, b, classic)
+    xc64 = sstt.solve(F, B64, classic)
+    torch.cuda.synchronize()
+    classic_launches = counts()
+    assert classic_launches["solve_step_fwd"] > 0 and \
+        classic_launches["solve_step_bwd"] > 0, classic_launches
+    cresid = sstt.residual_norm(A, xc, b)
+    cresid64 = max(sstt.residual_norm(A, xc64[:, k], B64[:, k])
+                   for k in (0, NRHS - 1))
+    assert np.isfinite(xc).all() and np.isfinite(xc64).all()
+    assert cresid < RESID_TOL and cresid64 < RESID_TOL, (cresid, cresid64)
+    dx = np.abs(xc - x).max() / np.abs(x).max()
+    dx64 = np.abs(xc64 - x64).max() / np.abs(x64).max()
+    assert dx <= 1e-4 and dx64 <= 1e-4, (dx, dx64)
+
+    # ---- forest through cholsol, classic sweep ----
+    bf = 1.0 + np.arange(Af.ncol) / Af.ncol
+    forest_cfg = classic.replace(factor_kind=sstt.FactorKind.SUPERNODAL_LL)
+    zero_counts()
+    t0 = time.perf_counter()
+    xf = sstt.cholsol(Af, bf, forest_cfg, device="cuda")
+    torch.cuda.synchronize()
+    forest_s = time.perf_counter() - t0
+    forest_launches = counts()
+    assert forest_launches["batched_trisolve"] > 0 and \
+        forest_launches["solve_step_fwd"] > 0 and \
+        forest_launches["solve_step_bwd"] > 0, forest_launches
+    fresid = sstt.residual_norm(Af, xf, bf)
+    assert np.isfinite(xf).all() and fresid < RESID_TOL, fresid
+
+    # ---- refinement ----
+    xr = sstt.solve_refined(F, A, b, config=cfg)
+    rresid = sstt.residual_norm(A, xr, b)
+    assert rresid < REFINED_TOL, rresid
 
     factor_s = _best_s(lambda: sstt.factorize(A, Ssim, cfg, device="cuda"))
     solve_s = _best_s(lambda: sstt.solve(F, b, cfg))
     solve64_s = _best_s(lambda: sstt.solve(F, B64, cfg))
+    classic_solve_s = _best_s(lambda: sstt.solve(F, b, classic))
+    classic_solve64_s = _best_s(lambda: sstt.solve(F, B64, classic))
     print(json.dumps({
         "card": card, "n": n, "flops": S.fl,
         "factor_s": factor_s, "gflops": S.fl / factor_s / 1e9,
         "first_factor_s": first_factor_s, "solve_s": solve_s,
-        "solve64_s": solve64_s, "residual": resid, "residual64": resid64,
-        "launches": launches, "peak_mem_gb":
-            torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+        "solve64_s": solve64_s, "classic_solve_s": classic_solve_s,
+        "classic_solve64_s": classic_solve64_s,
+        # panel bytes the two classic sweeps must read at least
+        "classic_floor_s": 2 * 4 * dp.plan.dev_size / HBM_BYTES_S,
+        "residual": resid, "residual64": resid64,
+        "classic_residual": cresid, "classic_residual64": cresid64,
+        "classic_vs_w2": max(dx, dx64), "refined_residual": rresid,
+        "forest_n": Af.ncol, "forest_cholsol_s": forest_s,
+        "forest_residual": fresid,
+        "launches": {"factor": factor_launches, "classic": classic_launches,
+                     "forest": forest_launches},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
 
-    src = "suitesparse_tpu_torch/kernels/csrc/"
+    def entry(name, replaces, src, k, launches):
+        return {"name": name, "route": "cuda", "source": SRC + src,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": k["abs"], "ms": k["ms"],
+                "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+                "bound_by": k["bound_by"],
+                "library_ms": k.get("library_ms")}
+
     print(json.dumps({"kernels": [
-        {"name": "potrf_trsm", "route": "cuda",
-         "source": src + "potrf_trsm.cu",
-         "replaces": "suitesparse_tpu/kernels/potrf.py:108",
-         "launches": launches["potrf_trsm"], "max_abs_err": k1["abs"],
-         "ms": k1["ms"], "plain_ms": k1["plain_ms"]},
-        {"name": "extend_add_tiles", "route": "cuda",
-         "source": src + "extend_add_tiles.cu",
-         "replaces": "suitesparse_tpu/kernels/extend_add_tiles.py:381",
-         "launches": launches["extend_add_tiles"], "max_abs_err": k2["abs"],
-         "ms": k2["ms"], "plain_ms": k2["plain_ms"]},
+        entry("potrf_trsm", "suitesparse_tpu/kernels/potrf.py:108",
+              "potrf_trsm.cu", k1, factor_launches["potrf_trsm"]),
+        entry("extend_add_tiles",
+              "suitesparse_tpu/kernels/extend_add_tiles.py:381",
+              "extend_add_tiles.cu", k2, factor_launches["extend_add_tiles"]),
+        entry("solve_step_fwd", "suitesparse_tpu/kernels/solve_step.py:96",
+              "solve_step.cu", ks["solve_step_fwd"],
+              classic_launches["solve_step_fwd"]),
+        entry("solve_step_bwd", "suitesparse_tpu/kernels/solve_step.py:108",
+              "solve_step.cu", ks["solve_step_bwd"],
+              classic_launches["solve_step_bwd"]),
+        entry("batched_trisolve", "suitesparse_tpu/kernels/trisolve.py:89",
+              "trisolve.cu", ks["batched_trisolve"],
+              forest_launches["batched_trisolve"]),
     ]}))
-    assert "jax" not in sys.modules, "the port imported jax"
+    leaked = [m for m, v in sys.modules.items() if v is not None
+              and m.split(".")[0] in ("jax", "jaxlib", "suitesparse_tpu")]
+    assert not leaked, f"the port imported {leaked}"
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,9 +1,11 @@
 """suitesparse_tpu_torch — the supernodal Cholesky path on PyTorch and CUDA.
 
-A port of :mod:`suitesparse_tpu` to PyTorch for NVIDIA Hopper cards. The
-host side (orderings, symbolic analysis, plan building, small problems) is
-the reference package's own numpy code, imported; the device side (the
-multifrontal factor and the w2 solve) runs on torch tensors, with the two
+A port of :mod:`suitesparse_tpu` to PyTorch for NVIDIA Hopper cards, and a
+package of its own: it imports neither JAX nor the JAX package. The host
+side (orderings, symbolic analysis, plan building, small problems) is the
+port's own copy of the reference's numpy and C++ code (``native/``, built by
+``g++`` at first use); the device side (the multifrontal factor and the
+multifrontal solve, w2 or classic sweep) runs on torch tensors, with the
 TPU kernels of that path rewritten in CUDA C++ (``kernels/csrc``).
 
     >>> import suitesparse_tpu_torch as sstt
@@ -13,6 +15,8 @@ TPU kernels of that path rewritten in CUDA C++ (``kernels/csrc``).
     >>> S = sstt.analyze(A)
     >>> F = sstt.factorize(A, S, device="cuda")
     >>> x = sstt.solve(F, b)
+    >>> x = sstt.solve(F, b, sstt.DEFAULT.replace(solve_mode="classic"))
+    >>> x = sstt.solve_refined(F, A, b)             # fp64-class residual
 
 The device is CUDA unless the caller passes ``device="cpu"``; asking for
 CUDA where there is none raises ``RuntimeError``.
@@ -22,24 +26,57 @@ from __future__ import annotations
 
 import numpy as np
 
-from suitesparse_tpu import analyze
-from suitesparse_tpu.config import DEFAULT, Config, FactorKind, Ordering
-from suitesparse_tpu.io import fixtures
-from suitesparse_tpu.numeric import simplicial
-from suitesparse_tpu.numeric.simplicial import SymbolicChol, chol_solve
-from suitesparse_tpu.numeric.supernodal import SupernodalFactorAdapter
-from suitesparse_tpu.sparse import CSC, residual_norm
-from suitesparse_tpu.stats import timed
-
+from . import ordering
+from .config import DEFAULT, Config, FactorKind, Ordering
 from .device import resolve_device
-from .numeric import supernodal, supernodal_solve
-from .numeric.supernodal import TorchSupernodalFactor
+from .io import fixtures
+from .numeric import simplicial, supernodal, supernodal_solve
+from .numeric.simplicial import SymbolicChol, chol_solve
+from .numeric.supernodal import SupernodalFactorAdapter, TorchSupernodalFactor
+from .sparse import CSC, from_triplets, residual_norm
+from .stats import GLOBAL_STATS, timed
 
 __all__ = [
     "CSC", "Config", "DEFAULT", "FactorKind", "Ordering", "fixtures",
-    "residual_norm", "resolve_device", "analyze", "factorize", "solve",
-    "cholsol", "lusol", "qrsol",
+    "from_triplets", "residual_norm", "resolve_device", "analyze",
+    "factorize", "solve", "solve_refined", "cholsol", "lusol", "qrsol",
 ]
+
+
+def _fill_reducing_perm(A: CSC, config: Config) -> np.ndarray:
+    if config.ordering is Ordering.NATURAL:
+        return np.arange(A.ncol, dtype=np.int64)
+    if config.ordering is Ordering.AMD:
+        return ordering.amd_order(A, config)
+    if config.ordering in (Ordering.METIS, Ordering.NESDIS):
+        return ordering.nested_dissection_order(A, config)
+    if config.ordering is Ordering.BEST:
+        # AMD and ND, keep the lower nnz(L) (cholmod_analyze.c:451-486)
+        best_perm, best_lnz = None, None
+        for method in (Ordering.AMD, Ordering.NESDIS):
+            p = _fill_reducing_perm(A, config.replace(ordering=method))
+            lnz = simplicial.symbolic_cholesky(A, p).lnz
+            if best_lnz is None or lnz < best_lnz:
+                best_perm, best_lnz = p, lnz
+        return best_perm
+    raise ValueError(f"unsupported ordering {config.ordering}")
+
+
+def analyze(A: CSC, config: Config = DEFAULT,
+            perm: np.ndarray | None = None) -> SymbolicChol:
+    """Symbolic Cholesky analysis: ordering + etree + counts
+    (cholmod_analyze). ``perm`` skips the ordering."""
+    if config.check_inputs and A.sym != 1:
+        raise ValueError("analyze expects upper-stored symmetric (sym=1)")
+    with timed("analyze"):
+        if perm is None:
+            perm = _fill_reducing_perm(A, config)
+        S = simplicial.symbolic_cholesky(A, perm)
+    if config.record_stats:
+        GLOBAL_STATS.record("lnz", S.lnz)
+        GLOBAL_STATS.record("fl", S.fl)
+        GLOBAL_STATS.record("anz", A.nnz)
+    return S
 
 
 def factorize(A: CSC, S: SymbolicChol, config: Config = DEFAULT,
@@ -77,19 +114,36 @@ def factorize(A: CSC, S: SymbolicChol, config: Config = DEFAULT,
 def solve(F, b: np.ndarray, config: Config = DEFAULT,
           sys: str = "A") -> np.ndarray:
     """x from a Cholesky factor (cholmod_solve). A device factor solves
-    A x = b on its device; other factors and systems use the host solvers."""
+    A x = b on its device (the sweep ``config.solve_mode`` picks); other
+    factors and systems use the host solvers."""
+    dev_F = F.F if isinstance(F, SupernodalFactorAdapter) else F
     with timed("solve"):
-        if (isinstance(F, SupernodalFactorAdapter)
-                and isinstance(F.F, TorchSupernodalFactor) and sys == "A"):
-            return supernodal_solve.solve_device(F.F, b, config)
+        if isinstance(dev_F, TorchSupernodalFactor) and sys == "A":
+            return supernodal_solve.solve_device(dev_F, b, config)
         if sys == "A":
             return chol_solve(F, b)
         return simplicial.solve_system(F, b, sys)
 
 
+def solve_refined(F, A: CSC, b: np.ndarray, iters: int = 2,
+                  config: Config = DEFAULT) -> np.ndarray:
+    """x = A \\ b with ``iters`` steps of host-fp64 iterative refinement
+    (the UMFPACK IRSTEP pattern, ``umfpack_solve.c:102``, applied to
+    Cholesky): fp64-class residuals from an fp32 factor."""
+    b = np.asarray(b, dtype=np.float64)
+    x = solve(F, b, config)
+    for _ in range(max(iters, 0)):
+        x = x + solve(F, b - A.matvec(x), config)
+    return x
+
+
 def cholsol(A: CSC, b: np.ndarray, config: Config = DEFAULT,
             device="cuda") -> np.ndarray:
     """One-call SPD solve (cs_cholsol): analyze, factorize, solve."""
+    if np.iscomplexobj(A.data):
+        raise NotImplementedError(
+            "complex Hermitian input is not in the port yet (ROADMAP queue 1 "
+            "item 6)")
     S = analyze(A, config)
     F = factorize(A, S, config, device)
     return solve(F, b, config)

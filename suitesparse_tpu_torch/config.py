@@ -1,0 +1,84 @@
+"""Runtime configuration of the port.
+
+The fields of the JAX package's ``Config`` that the port reads, with the
+same defaults (the reference's numerical contract, ``cholmod_core.h:456-510``),
+plus the port's own knob ``solve_mode``. The port takes no ``SSTPU_*``
+environment variables.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Callable, Sequence
+
+
+class Ordering(enum.Enum):
+    """Fill-reducing ordering method (reference ``cholmod_core.h:599-623``)."""
+
+    NATURAL = "natural"
+    AMD = "amd"
+    METIS = "nd"          # nested dissection (METIS_NodeND analog)
+    NESDIS = "nesdis"     # taken by the same nested dissection here
+    BEST = "best"         # AMD and ND, keep lowest nnz(L)
+
+
+class FactorKind(enum.Enum):
+    """What kind of factorization to compute."""
+
+    SIMPLICIAL_LL = "simplicial_ll"
+    SIMPLICIAL_LDL = "simplicial_ldl"
+    SUPERNODAL_LL = "supernodal_ll"
+    AUTO = "auto"  # supernodal iff flops/nnz(L) >= supernodal_switch
+
+
+SOLVE_MODES = ("auto", "classic")
+
+
+@dataclasses.dataclass
+class Config:
+    """Every knob of the port, with reference-parity defaults."""
+
+    # ----- Cholesky analysis -----
+    ordering: Ordering = Ordering.AMD
+    factor_kind: FactorKind = FactorKind.AUTO
+    # supernodal iff fl/lnz >= this (reference cholmod_core.h:456-463)
+    supernodal_switch: float = 40.0
+    # relaxed supernode amalgamation (reference cholmod_core.h:495-510)
+    nrelax: Sequence[int] = (4, 16, 48)
+    zrelax: Sequence[float] = (0.8, 0.1, 0.05)
+    # bound on D entries for LDL' (cholmod_core.h:420-430)
+    dbound: float = 0.0
+
+    # ----- AMD (reference amd.h:316-320 Control[]) -----
+    amd_dense: float = 10.0          # rows with deg > dense*sqrt(n) postponed
+    amd_aggressive: bool = True      # aggressive absorption
+
+    # ----- nested dissection (reference cholmod_core.h:702-731) -----
+    nd_small: int = 200              # stop dissecting below this many nodes
+
+    # ----- device execution -----
+    compute_dtype: str = "float32"   # factor and solve dtype on the device
+    # "highest": true fp32 matmuls (TF32 off inside each call)
+    precision: str = "highest"
+    # multifrontal solve sweep of a device factor:
+    #   "auto"    the w2 sweep (stacked inverse panels W2 = [L11^-1 ;
+    #             L21 L11^-1], one batched matmul per group and sweep, one
+    #             extra factor-sized copy built at the first solve) where W2
+    #             fits in the device memory, else the classic sweep;
+    #   "classic" triangular solves on the factor's own panels (K3 solve_step
+    #             and K4 trisolve kernels), no extra copy.
+    solve_mode: str = "auto"
+
+    # ----- diagnostics -----
+    check_inputs: bool = True        # assert the analysis input is sym=1
+    record_stats: bool = True        # lnz, fl, anz into stats.GLOBAL_STATS
+
+    # ----- failure handling (reference cholmod_core.h:565-573) -----
+    error_handler: Callable[[str], None] | None = None
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+DEFAULT = Config()

@@ -1,0 +1,180 @@
+"""Synthetic SPD test matrices (upper-stored), the generators of the JAX
+package's ``io/fixtures.py``: the same functions give the same matrices, so
+the port and the reference can be fed identical problems."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..sparse import CSC, from_triplets
+
+__all__ = ["laplacian_2d", "laplacian_3d", "anisotropic_laplacian_3d",
+           "fem_mesh_spd"]
+
+
+def laplacian_2d(nx: int, ny: int | None = None, shift: float = 0.0) -> CSC:
+    """5-point 2D Laplacian (SPD), upper-stored. n = nx*ny."""
+    ny = ny if ny is not None else nx
+    idx = np.arange(nx * ny, dtype=np.int64).reshape(nx, ny)
+    rows = [idx.ravel()]
+    cols = [idx.ravel()]
+    vals = [np.full(nx * ny, 4.0 + shift)]
+    # +x neighbor
+    r = idx[:-1, :].ravel(); c = idx[1:, :].ravel()
+    rows.append(r); cols.append(c); vals.append(np.full(r.size, -1.0))
+    # +y neighbor
+    r = idx[:, :-1].ravel(); c = idx[:, 1:].ravel()
+    rows.append(r); cols.append(c); vals.append(np.full(r.size, -1.0))
+    return from_triplets(nx * ny, nx * ny, np.concatenate(rows),
+                         np.concatenate(cols), np.concatenate(vals), sym=1)
+
+
+def laplacian_3d(nx: int, ny: int | None = None, nz: int | None = None,
+                 shift: float = 0.0) -> CSC:
+    """7-point 3D Laplacian (SPD), upper-stored — the nd3k/nd24k-style workload."""
+    ny = ny if ny is not None else nx
+    nz = nz if nz is not None else nx
+    idx = np.arange(nx * ny * nz, dtype=np.int64).reshape(nx, ny, nz)
+    rows = [idx.ravel()]
+    cols = [idx.ravel()]
+    vals = [np.full(idx.size, 6.0 + shift)]
+    for sl_r, sl_c in (((slice(None, -1), slice(None), slice(None)),
+                        (slice(1, None), slice(None), slice(None))),
+                       ((slice(None), slice(None, -1), slice(None)),
+                        (slice(None), slice(1, None), slice(None))),
+                       ((slice(None), slice(None), slice(None, -1)),
+                        (slice(None), slice(None), slice(1, None)))):
+        r = idx[sl_r].ravel(); c = idx[sl_c].ravel()
+        rows.append(r); cols.append(c); vals.append(np.full(r.size, -1.0))
+    n = nx * ny * nz
+    return from_triplets(n, n, np.concatenate(rows), np.concatenate(cols),
+                         np.concatenate(vals), sym=1)
+
+
+def _edges_to_spd(n: int, ei: np.ndarray, ej: np.ndarray, w: np.ndarray,
+                  shift: float = 1e-3) -> CSC:
+    """Weighted graph Laplacian + diagonal shift, upper-stored (SPD by
+    construction: sum of positive-semidefinite edge terms + shift*I)."""
+    lo = np.minimum(ei, ej)
+    hi = np.maximum(ei, ej)
+    keep = lo != hi
+    lo, hi, w = lo[keep], hi[keep], w[keep]
+    diag = np.full(n, shift)
+    np.add.at(diag, lo, w)
+    np.add.at(diag, hi, w)
+    rows = np.concatenate([lo, np.arange(n, dtype=np.int64)])
+    cols = np.concatenate([hi, np.arange(n, dtype=np.int64)])
+    vals = np.concatenate([-w, diag])
+    return from_triplets(n, n, rows, cols, vals, sym=1)
+
+
+def anisotropic_laplacian_3d(nx: int, ny: int | None = None,
+                             nz: int | None = None,
+                             eps: tuple = (1.0, 1e-2, 1e-4),
+                             grade: float = 0.0,
+                             drop_tol: float = 0.0) -> CSC:
+    """Anisotropic (and optionally graded) 7-point 3-D Laplacian.
+
+    Direction-dependent edge coefficients ``eps`` plus exponential grading
+    ``exp(grade * x / nx)`` along the first axis. With ``drop_tol`` > 0,
+    edges weaker than ``drop_tol * max(eps)`` are removed STRUCTURALLY
+    (strength-of-connection dropping): combined with grading, which
+    direction survives then varies with position, so nested-dissection
+    separators and supernode shapes become genuinely IRREGULAR — the
+    fill/shape regime of FEM matrices rather than the model problem.
+    Assembled from positive edge terms, so SPD for any eps/grade/drop."""
+    ny = ny if ny is not None else nx
+    nz = nz if nz is not None else nx
+    idx = np.arange(nx * ny * nz, dtype=np.int64).reshape(nx, ny, nz)
+    eis, ejs, ws = [], [], []
+    # x-edges
+    r = idx[:-1, :, :]; c = idx[1:, :, :]
+    w = np.full(r.shape, eps[0])
+    if grade:
+        xs = np.arange(nx - 1, dtype=np.float64).reshape(-1, 1, 1)
+        w = w * np.exp(grade * xs / max(nx, 1))
+    eis.append(r.ravel()); ejs.append(c.ravel()); ws.append(w.ravel())
+    # y-edges
+    r = idx[:, :-1, :]; c = idx[:, 1:, :]
+    w = np.full(r.shape, eps[1])
+    if grade:
+        xs = np.arange(nx, dtype=np.float64).reshape(-1, 1, 1)
+        w = w * np.exp(grade * xs / max(nx, 1))
+    eis.append(r.ravel()); ejs.append(c.ravel()); ws.append(w.ravel())
+    # z-edges
+    r = idx[:, :, :-1]; c = idx[:, :, 1:]
+    w = np.full(r.shape, eps[2])
+    eis.append(r.ravel()); ejs.append(c.ravel()); ws.append(w.ravel())
+    ei, ej, w = (np.concatenate(eis), np.concatenate(ejs),
+                 np.concatenate(ws))
+    if drop_tol > 0.0:
+        keep = w >= drop_tol * max(eps)
+        ei, ej, w = ei[keep], ej[keep], w[keep]
+    return _edges_to_spd(nx * ny * nz, ei, ej, w)
+
+
+def fem_mesh_spd(n: int, seed: int = 0, radius: float | None = None,
+                 dim: int = 3) -> CSC:
+    """Random geometric-graph 'FEM mesh' SPD matrix.
+
+    ``n`` random points in the unit cube, edges between pairs within
+    ``radius`` (found via grid buckets — no scipy), random positive edge
+    weights, assembled as a graph Laplacian + shift. Node degrees vary
+    (Poisson-like), giving the irregular row-count / supernode-shape zoo of
+    unstructured FEM discretizations."""
+    rng = np.random.default_rng(seed)
+    pts = rng.random((n, dim))
+    if radius is None:
+        # target ~14 neighbors on average: volume of d-ball * n = 14
+        from math import gamma, pi
+        vball = pi ** (dim / 2) / gamma(dim / 2 + 1)
+        radius = (14.0 / (n * vball)) ** (1.0 / dim)
+    ncell = max(1, int(1.0 / radius))
+    cell = np.floor(pts * ncell).astype(np.int64)
+    cell = np.minimum(cell, ncell - 1)
+    key = cell[:, 0]
+    for d in range(1, dim):
+        key = key * ncell + cell[:, d]
+    order = np.argsort(key, kind="stable")
+    key_s = key[order]
+    # bucket boundaries
+    starts = np.flatnonzero(np.concatenate([[True], key_s[1:] != key_s[:-1]]))
+    bkey = key_s[starts]
+    bptr = np.concatenate([starts, [n]])
+    bucket_of = {int(k): i for i, k in enumerate(bkey)}
+    # neighbor cell offsets (half-space to avoid duplicates)
+    offs = []
+    rng_off = range(-1, 2)
+    for dx in rng_off:
+        for dy in (rng_off if dim >= 2 else [0]):
+            for dz in (rng_off if dim >= 3 else [0]):
+                if (dx, dy, dz) > (0, 0, 0) or (dx, dy, dz) == (0, 0, 0):
+                    offs.append((dx, dy, dz))
+    eis, ejs = [], []
+    r2 = radius * radius
+    for bi in range(bkey.size):
+        ids_a = order[bptr[bi]:bptr[bi + 1]]
+        ca = cell[ids_a[0]]
+        for off in offs:
+            cb = ca + np.array(off[:dim])
+            if np.any(cb < 0) or np.any(cb >= ncell):
+                continue
+            k2 = cb[0]
+            for d in range(1, dim):
+                k2 = k2 * ncell + cb[d]
+            bj = bucket_of.get(int(k2))
+            if bj is None:
+                continue
+            ids_b = order[bptr[bj]:bptr[bj + 1]]
+            da = pts[ids_a][:, None, :] - pts[ids_b][None, :, :]
+            d2 = np.einsum('ijk,ijk->ij', da, da)
+            ii, jj = np.nonzero(d2 <= r2)
+            if bj == bi:
+                keep = ii < jj
+                ii, jj = ii[keep], jj[keep]
+            eis.append(ids_a[ii])
+            ejs.append(ids_b[jj])
+    ei = np.concatenate(eis) if eis else np.empty(0, np.int64)
+    ej = np.concatenate(ejs) if ejs else np.empty(0, np.int64)
+    w = rng.uniform(0.5, 2.0, size=ei.size)
+    return _edges_to_spd(n, ei, ej, w)

@@ -1,15 +1,17 @@
 """Build and bind the hand-written CUDA kernels of ``csrc/``.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
-one shared library with a plain C interface, ``build/libsst_kernels.so``, at
-first use, and bound with ctypes. A content hash of the sources is kept in
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library with a plain C interface, ``build/libsst_kernels.so``, at
+first use, bound with ctypes. A content hash of the sources is kept in
 ``build/build.stamp`` beside the library; a change to any source rebuilds it
-(the same scheme as :mod:`suitesparse_tpu.native`). There is no fallback:
-without ``nvcc`` the build raises.
+(the same scheme as :mod:`suitesparse_tpu_torch.native`). There is no
+fallback: without ``nvcc`` the build raises.
 
 C interface: every pointer and the CUDA stream are ``void*``, every size an
-``int``; each entry point launches on the given stream, does not synchronize,
-and returns ``cudaGetLastError()`` as an int (0 = launched).
+``int`` and every batch stride a 64-bit ``long long``; each entry point
+launches on the given stream, does not synchronize, and returns
+``cudaGetLastError()`` as an int (0 = launched).
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ CUDA_NVCC = "/usr/local/cuda/bin/nvcc"     # where PATH does not name nvcc
 
 _vp = ctypes.c_void_p
 _i = ctypes.c_int
+_ll = ctypes.c_longlong
 
 # entry point -> argtypes (restype is always int: the cudaError_t of the launch)
 _SIGNATURES = {
@@ -38,6 +41,14 @@ _SIGNATURES = {
     "sst_potrf_trsm": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     # F, Ucat, man, rowmap, colmap, run_ptr, nruns, R, RUp, stream
     "sst_extend_add_tiles": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+    # L, Y, X, B, C, NR, transpose, stream
+    "sst_trisolve": [_vp, _vp, _vp, _i, _i, _i, _i, _vp],
+    # L11, L21, l21_bstride, Y, WB, wb_bstride, XC, V, B, C, RU, NR, stream
+    "sst_solve_step_fwd": [_vp, _vp, _ll, _vp, _vp, _ll, _vp, _vp, _i, _i, _i,
+                           _i, _vp],
+    # L11, L21, l21_bstride, Y, XB, xb_bstride, XC, B, C, RU, NR, stream
+    "sst_solve_step_bwd": [_vp, _vp, _ll, _vp, _vp, _ll, _vp, _i, _i, _i, _i,
+                           _vp],
 }
 
 _lock = threading.Lock()
@@ -69,11 +80,34 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def nvcc_command(nvcc: str = "nvcc") -> list[str]:
-    """The one compile-and-link command for every kernel source."""
-    return [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
-            "-o", LIB_PATH, *sources()]
+FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-Xcompiler", "-fPIC"]
+
+
+def nvcc_commands(nvcc: str = "nvcc") -> tuple[list[list[str]], list[str]]:
+    """One compile command per kernel source (run together), then the
+    link command that makes the shared library."""
+    compiles, objects = [], []
+    for src in sources():
+        obj = os.path.join(BUILD_DIR,
+                           os.path.basename(src)[:-len(".cu")] + ".o")
+        compiles.append([nvcc, *FLAGS, "-Xptxas=-v", "-c", src, "-o", obj])
+        objects.append(obj)
+    return compiles, [nvcc, *FLAGS, "-shared", "-o", LIB_PATH, *objects]
+
+
+def _run_all(cmds: list[list[str]], log) -> None:
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate(timeout=600)
+        log.write(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
 
 
 def build() -> None:
@@ -84,12 +118,10 @@ def build() -> None:
             if f.read().strip() == want:
                 return
     os.makedirs(BUILD_DIR, exist_ok=True)
-    cmd = nvcc_command(find_nvcc())
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    with open(LOG_PATH, "w") as f:
-        f.write(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    compiles, link = nvcc_commands(find_nvcc())
+    with open(LOG_PATH, "w") as log:
+        _run_all(compiles, log)
+        _run_all([link], log)
     with open(STAMP_PATH, "w") as f:
         f.write(want)
 

@@ -1,7 +1,8 @@
 """Tiled multifrontal extend-add: CUDA kernel + plain version.
 
 Port of the one-piece form of :mod:`suitesparse_tpu.kernels.extend_add_tiles`.
-The manifest is the reference's own (``build_group_manifest``, 10 columns):
+The manifest (``build_group_manifest``, the reference's host builder,
+copied; 10 columns):
 
     0 slot  1 tr  2 tc  3 init  4 has_piece  5 uslot  6 blkr  7 blkr2
     8 blkc  9 blkc2
@@ -18,15 +19,106 @@ the TPU kernel's input/output aliasing.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from . import _build
 
-__all__ = ["TILE", "run_ptr", "extend_add_tiles", "extend_add_tiles_plain"]
+__all__ = ["TILE", "TileManifest", "build_group_manifest", "run_ptr",
+           "extend_add_tiles", "extend_add_tiles_plain"]
 
 TILE = 128
 _PLAIN_CHUNK = 512     # manifest steps per gather in the plain version
+
+
+@dataclasses.dataclass
+class TileManifest:
+    man: np.ndarray        # (NS, 10) int32 step table (columns above)
+    rowmap: np.ndarray     # (NS, 1, T) int32 in-window row map (-1 = none)
+    colmap: np.ndarray     # (NS, 1, T) int32
+    RUp: int               # Ucat padded child size (TILE multiple)
+    nslots: int            # Ucat slots (total folded pairs)
+    uslices: list          # [(class_i, k0, (src_level, src_gi), RU_c, src)]
+    folded: list           # class indices handled by the kernel
+
+
+def _class_tiles(iv: np.ndarray, T: int):
+    """Touched front tiles and child ranges for one sorted coord row."""
+    tiles = np.unique(iv // T)
+    bounds = np.searchsorted(iv, np.stack([tiles * T, tiles * T + T],
+                                          axis=1).ravel()).reshape(-1, 2)
+    return tiles, bounds
+
+
+def build_group_manifest(g, T: int = TILE, ru_min_frac: float = 0.5):
+    """The one-piece tile manifest of one GroupPlan, or None if no class
+    folds.
+
+    A pair class folds iff RU_c >= ru_min_frac * RUp or RU_c >= 2T
+    (zero-padding every child to the largest folded size must not
+    dominate); the other classes keep their direct placement. Child row
+    maps are monotone, so the child rows landing in one T x T parent tile
+    span at most two T-aligned child blocks (blkr, blkr2). Only lower tiles
+    (tr >= tc) are listed; tiles with no piece are never visited."""
+    R = g.R
+    if not g.pairs:
+        return None
+    RUmax = max(pc.RU_c for pc in g.pairs)
+    RUp = -(-RUmax // T) * T
+    folded = [i for i, pc in enumerate(g.pairs)
+              if pc.RU_c >= ru_min_frac * RUp or pc.RU_c >= 2 * T]
+    if not folded:
+        return None
+    nbr = RUp // T
+    nrt = -(-R // T)
+
+    piece_by_tile: dict = {}
+    uslices = []
+    k0 = 0
+    for ci in folded:
+        pc = g.pairs[ci]
+        src, dst, idx = g._pair_arrays[ci]
+        uslices.append((ci, k0, (pc.src_level, pc.src_gi), pc.RU_c, src))
+        for p in range(dst.size):
+            iv = idx[p][idx[p] >= 0]
+            if iv.size == 0:
+                k0 += 1
+                continue
+            uslot = k0
+            k0 += 1
+            tiles, bounds = _class_tiles(iv, T)
+            rms = {}
+            for t, (a0, a1) in zip(tiles, bounds):
+                blkr = a0 // T
+                rm = np.full(T, -1, np.int32)
+                rm[iv[a0:a1] - t * T] = np.arange(a0, a1) - blkr * T
+                rms[int(t)] = (int(blkr), int(min(blkr + 1, nbr - 1)), rm)
+            d = int(dst[p])
+            for tr in tiles:
+                br, br2, rm = rms[int(tr)]
+                for tc in tiles[tiles <= tr]:
+                    bc, bc2, cm = rms[int(tc)]
+                    piece_by_tile.setdefault((d, int(tr), int(tc)), []) \
+                        .append((uslot, br, br2, bc, bc2, rm, cm))
+
+    man, rmaps, cmaps = [], [], []
+    for slot in range(g.B):
+        for tr in range(nrt):
+            for tc in range(tr + 1):
+                ps = piece_by_tile.get((slot, tr, tc), ())
+                for i, (u, br, br2, bc, bc2, rm, cm) in enumerate(ps):
+                    man.append([slot, tr, tc, 1 if i == 0 else 0, 1,
+                                u, br, br2, bc, bc2])
+                    rmaps.append(rm)
+                    cmaps.append(cm)
+    if not man:
+        return None
+    return TileManifest(man=np.asarray(man, np.int32),
+                        rowmap=np.stack(rmaps)[:, None, :],
+                        colmap=np.stack(cmaps)[:, None, :],
+                        RUp=RUp, nslots=k0, uslices=uslices, folded=folded)
 
 
 def run_ptr(man: np.ndarray) -> np.ndarray:

@@ -1,0 +1,264 @@
+"""Host C++ kernels of the port: orderings, symbolic analysis, host sweeps.
+
+``src/*.cc`` (nested dissection, AMD, etree/postorder/column counts, the
+supernodal symbolic analysis, A+A', symmetric permutation, transpose, and
+the two host triangular sweeps) is compiled by ``g++`` at first use into
+``lib/libsst_host.so`` and bound with ctypes. A content hash of the sources
+in ``lib/build.stamp`` rebuilds the library when a source changes. The
+library is built with ``-march=native``: delete ``lib/`` when the checkout
+comes from another host. There is no Python fallback: without ``g++`` the
+first call raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SRC_DIR = os.path.join(_HERE, "src")
+LIB_DIR = os.path.join(_HERE, "lib")
+LIB_PATH = os.path.join(LIB_DIR, "libsst_host.so")
+STAMP_PATH = os.path.join(LIB_DIR, "build.stamp")
+
+_lock = threading.Lock()
+_dll = None
+
+_i64p = ctypes.POINTER(ctypes.c_int64)
+_f64p = ctypes.POINTER(ctypes.c_double)
+_c = ctypes.c_int64
+_d = ctypes.c_double
+_vp = ctypes.c_void_p
+
+# entry point -> (restype, argtypes)
+_SIGNATURES = {
+    "sstpu_amd": (_c, [_c, _i64p, _i64p, _i64p, _d, _c]),
+    "sstpu_nested_dissection": (_c, [_c, _i64p, _i64p, _i64p, _c, _c]),
+    "sstpu_etree": (None, [_c, _i64p, _i64p, _i64p, _c]),
+    "sstpu_postorder": (None, [_c, _i64p, _i64p]),
+    "sstpu_col_counts": (None, [_c, _c, _i64p, _i64p, _i64p, _i64p, _i64p,
+                                _c]),
+    "sstpu_aat": (_c, [_c, _i64p, _i64p, _i64p, _i64p]),
+    "sstpu_symperm": (None, [_c, _i64p, _i64p, _i64p, _i64p, _i64p, _i64p]),
+    "sstpu_transpose": (None, [_c, _c, _i64p, _i64p, _i64p, _i64p, _i64p]),
+    "sstpu_super_analyze": (_vp, [_c, _i64p, _i64p, _i64p, _i64p, _c, _c, _c,
+                                  _d, _d, _d]),
+    "sstpu_super_result": (_c, [_vp, _c, _i64p]),
+    "sstpu_super_fl": (_d, [_vp]),
+    "sstpu_super_maxcsize": (_c, [_vp]),
+    "sstpu_super_free": (None, [_vp]),
+    "sstpu_lsolve": (_c, [_c, _i64p, _i64p, _f64p, _f64p]),
+    "sstpu_ltsolve": (_c, [_c, _i64p, _i64p, _f64p, _f64p]),
+}
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(SRC_DIR)):
+        if name.endswith((".cc", ".h")):
+            with open(os.path.join(SRC_DIR, name), "rb") as f:
+                h.update(name.encode())
+                h.update(f.read())
+    return h.hexdigest()
+
+
+def build_command(out: str = LIB_PATH) -> list[str]:
+    sources = sorted(os.path.join(SRC_DIR, f) for f in os.listdir(SRC_DIR)
+                     if f.endswith(".cc"))
+    return ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-march=native",
+            "-funroll-loops", "-o", out, *sources]
+
+
+def _build() -> None:
+    """Compile unless the stamp matches the sources. The library and its
+    stamp are written under temporary names and renamed into place, so
+    processes that build at the same time never load a partial file."""
+    want = source_hash()
+    if os.path.exists(LIB_PATH) and os.path.exists(STAMP_PATH):
+        with open(STAMP_PATH) as f:
+            if f.read().strip() == want:
+                return
+    os.makedirs(LIB_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    try:
+        res = subprocess.run(build_command(tmp), capture_output=True,
+                             text=True, timeout=600)
+    except FileNotFoundError as e:
+        raise RuntimeError("g++ not found: the host library of "
+                           "suitesparse_tpu_torch cannot be built") from e
+    if res.returncode != 0:
+        raise RuntimeError(f"g++ failed ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, LIB_PATH)
+    with open(f"{STAMP_PATH}.{os.getpid()}.tmp", "w") as f:
+        f.write(want)
+    os.replace(f"{STAMP_PATH}.{os.getpid()}.tmp", STAMP_PATH)
+
+
+def _load() -> ctypes.CDLL:
+    """The bound host library (built on first use)."""
+    global _dll
+    with _lock:
+        if _dll is None:
+            _build()
+            dll = ctypes.CDLL(LIB_PATH)
+            for name, (restype, argtypes) in _SIGNATURES.items():
+                fn = getattr(dll, name)
+                fn.restype = restype
+                fn.argtypes = argtypes
+            _dll = dll
+        return _dll
+
+
+def _i64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.int64)
+
+
+def _p(a: np.ndarray):
+    return a.ctypes.data_as(_i64p)
+
+
+def amd(indptr, indices, n: int, dense: float = 10.0,
+        aggressive: bool = True) -> np.ndarray:
+    """AMD over the off-diagonal pattern of A+A' given in CSC (general)."""
+    indptr, indices = _i64(indptr), _i64(indices)
+    perm = np.empty(n, dtype=np.int64)
+    rc = _load().sstpu_amd(n, _p(indptr), _p(indices), _p(perm),
+                           ctypes.c_double(dense), 1 if aggressive else 0)
+    if rc != 0:
+        raise RuntimeError(f"native amd failed rc={rc}")
+    return perm
+
+
+def nested_dissection(indptr, indices, n: int, nd_small: int = 200,
+                      seed: int = 1) -> np.ndarray:
+    """Multilevel ND over the off-diagonal pattern of A+A' in CSC."""
+    indptr, indices = _i64(indptr), _i64(indices)
+    perm = np.empty(n, dtype=np.int64)
+    rc = _load().sstpu_nested_dissection(n, _p(indptr), _p(indices),
+                                         _p(perm), nd_small, seed)
+    if rc == -3:
+        raise ValueError("pattern exceeds int32 ND internals "
+                         "(n or nnz >= 2^31)")
+    if rc != 0:
+        raise RuntimeError(f"native nested dissection failed rc={rc}")
+    return perm
+
+
+def etree(n: int, indptr, indices) -> np.ndarray:
+    """Elimination tree of symmetric A from its upper triangle."""
+    indptr, indices = _i64(indptr), _i64(indices)
+    parent = np.empty(n, dtype=np.int64)
+    _load().sstpu_etree(n, _p(indptr), _p(indices), _p(parent), -1)
+    return parent
+
+
+def postorder(parent) -> np.ndarray:
+    parent = _i64(parent)
+    post = np.empty(parent.size, dtype=np.int64)
+    _load().sstpu_postorder(parent.size, _p(parent), _p(post))
+    return post
+
+
+def col_counts(n: int, indptr, indices, parent, post) -> np.ndarray:
+    """nnz per column of L from the lower-triangle pattern by columns."""
+    indptr, indices = _i64(indptr), _i64(indices)
+    parent, post = _i64(parent), _i64(post)
+    counts = np.empty(n, dtype=np.int64)
+    _load().sstpu_col_counts(n, n, _p(indptr), _p(indices), _p(parent),
+                             _p(post), _p(counts), 0)
+    return counts
+
+
+def super_analyze(n: int, Cp, Ci, parent, cc, nrelax, zrelax) -> dict:
+    """Supernodal symbolic analysis (cholmod_super_symbolic analog).
+
+    ``Cp/Ci`` = LOWER-triangle pattern by columns of the postordered
+    permuted matrix. Returns the analysis as numpy arrays."""
+    dll = _load()
+    Cp, Ci, parent, cc = _i64(Cp), _i64(Ci), _i64(parent), _i64(cc)
+    h = dll.sstpu_super_analyze(
+        n, _p(Cp), _p(Ci), _p(parent), _p(cc),
+        int(nrelax[0]), int(nrelax[1]), int(nrelax[2]),
+        ctypes.c_double(zrelax[0]), ctypes.c_double(zrelax[1]),
+        ctypes.c_double(zrelax[2]))
+    if not h:
+        raise RuntimeError("native super_analyze failed")
+    try:
+        out = {}
+        names = ["super_first", "snode_of_col", "sparent", "level_of",
+                 "rows_ptr", "rows", "lpx"]
+        for what, name in enumerate(names):
+            ln = dll.sstpu_super_result(h, what, None)
+            arr = np.empty(ln, dtype=np.int64)
+            dll.sstpu_super_result(h, what, _p(arr))
+            out[name] = arr
+        out["fl"] = float(dll.sstpu_super_fl(h))
+        out["maxcsize"] = int(dll.sstpu_super_maxcsize(h))
+    finally:
+        dll.sstpu_super_free(h)
+    return out
+
+
+def aat(n: int, indptr, indices) -> tuple:
+    """Pattern of A + A' minus the diagonal (amd_aat analog), sorted and
+    deduplicated; input may be the full pattern or one stored triangle."""
+    dll = _load()
+    indptr, indices = _i64(indptr), _i64(indices)
+    tmp = np.zeros(n + 1, dtype=np.int64)
+    cap = dll.sstpu_aat(n, _p(indptr), _p(indices), _p(tmp), None)
+    outp = np.zeros(n + 1, dtype=np.int64)
+    outi = np.empty(cap, dtype=np.int64)
+    nnz = dll.sstpu_aat(n, _p(indptr), _p(indices), _p(outp), _p(outi))
+    return outp, outi[:nnz]
+
+
+def symperm(n: int, indptr, indices, pinv) -> tuple:
+    """Sorted upper pattern of P A P' for upper-stored A plus a position map
+    into the input entries (``~pos`` marks entries that changed triangle).
+    O(nnz), cs_symperm.c analog."""
+    indptr, indices, pinv = _i64(indptr), _i64(indices), _i64(pinv)
+    nnz = int(indptr[n])
+    outp = np.empty(n + 1, dtype=np.int64)
+    outi = np.empty(nnz, dtype=np.int64)
+    outpos = np.empty(nnz, dtype=np.int64)
+    _load().sstpu_symperm(n, _p(indptr), _p(indices), _p(pinv), _p(outp),
+                          _p(outi), _p(outpos))
+    return outp, outi, outpos
+
+
+def transpose(nrow: int, ncol: int, indptr, indices) -> tuple:
+    """Sorted transpose pattern plus position map, one counting pass
+    (cs_transpose.c analog)."""
+    indptr, indices = _i64(indptr), _i64(indices)
+    nnz = int(indptr[ncol])
+    outp = np.empty(nrow + 1, dtype=np.int64)
+    outi = np.empty(nnz, dtype=np.int64)
+    outpos = np.empty(nnz, dtype=np.int64)
+    _load().sstpu_transpose(nrow, ncol, _p(indptr), _p(indices), _p(outp),
+                            _p(outi), _p(outpos))
+    return outp, outi, outpos
+
+
+def lsolve(n: int, indptr, indices, data, x: np.ndarray) -> None:
+    """In place x = L \\ x (diagonal first per column; cs_lsolve analog)."""
+    _tri("sstpu_lsolve", n, indptr, indices, data, x)
+
+
+def ltsolve(n: int, indptr, indices, data, x: np.ndarray) -> None:
+    """In place x = L' \\ x."""
+    _tri("sstpu_ltsolve", n, indptr, indices, data, x)
+
+
+def _tri(name: str, n: int, indptr, indices, data, x: np.ndarray) -> None:
+    if x.dtype != np.float64 or not x.flags.c_contiguous:
+        raise ValueError(f"{name}: x must be a contiguous float64 vector")
+    indptr, indices = _i64(indptr), _i64(indices)
+    data = np.ascontiguousarray(data, dtype=np.float64)
+    getattr(_load(), name)(n, _p(indptr), _p(indices),
+                           data.ctypes.data_as(_f64p),
+                           x.ctypes.data_as(_f64p))

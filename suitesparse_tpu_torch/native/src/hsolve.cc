@@ -1,0 +1,28 @@
+// Host CSC triangular solves (cs_lsolve/cs_ltsolve analogs,
+// CSparse/Source/cs_*solve.c semantics) for the port's simplicial factors:
+// L lower triangular with the DIAGONAL FIRST in each column; lsolve solves
+// L x = b, ltsolve L' x = b. x is one RHS (f64), solved in place. Returns 0.
+
+#include "common.h"
+
+SSTPU_API i64 sstpu_lsolve(i64 n, const i64* Lp, const i64* Li,
+                           const double* Lx, double* x) {
+  for (i64 j = 0; j < n; j++) {
+    i64 p0 = Lp[j], p1 = Lp[j + 1];
+    double xj = x[j] / Lx[p0];
+    x[j] = xj;
+    for (i64 p = p0 + 1; p < p1; p++) x[Li[p]] -= Lx[p] * xj;
+  }
+  return 0;
+}
+
+SSTPU_API i64 sstpu_ltsolve(i64 n, const i64* Lp, const i64* Li,
+                            const double* Lx, double* x) {
+  for (i64 j = n - 1; j >= 0; j--) {
+    i64 p0 = Lp[j], p1 = Lp[j + 1];
+    double acc = x[j];
+    for (i64 p = p0 + 1; p < p1; p++) acc -= Lx[p] * x[Li[p]];
+    x[j] = acc / Lx[p0];
+  }
+  return 0;
+}

@@ -1,10 +1,11 @@
-"""Supernodal Cholesky factor of the port, and the factorize dispatcher.
+"""Supernodal Cholesky factors of the port, and the factorize dispatcher.
 
 Port of :mod:`suitesparse_tpu.numeric.supernodal`. Problems with enough
 flops (``S.fl >= 5e6``, the reference's rule) factor on the device through
-:mod:`.supernodal_device`; smaller ones take the reference's numpy
-``factorize_host``. Either result is wrapped in the reference's
-``SupernodalFactorAdapter``, so the host solvers and ``to_csc`` read it.
+:mod:`.supernodal_device` into a :class:`TorchSupernodalFactor`; smaller
+ones take the numpy multifrontal :func:`factorize_host` into a
+:class:`SupernodalFactor` (CHOLMOD px layout). Either is wrapped in a
+:class:`SupernodalFactorAdapter`, so the host solvers and ``to_csc`` read it.
 """
 
 from __future__ import annotations
@@ -14,18 +15,45 @@ import dataclasses
 import numpy as np
 import torch
 
-from suitesparse_tpu.config import DEFAULT, Config
-from suitesparse_tpu.numeric.supernodal import (
-    SupernodalFactorAdapter, _should_use_device, factorize_host)
-from suitesparse_tpu.sparse import CSC
-from suitesparse_tpu.symbolic.supernodes import (
-    SupernodalSymbolic, analyze_supernodal)
-
+from ..config import DEFAULT, Config
 from ..device import resolve_device
+from ..sparse import CSC
+from ..symbolic.supernodes import SupernodalSymbolic, analyze_supernodal
 from . import supernodal_device
 
-__all__ = ["TorchSupernodalFactor", "factorize", "from_jax_factor",
-           "supernodal_symbolic"]
+__all__ = ["SupernodalFactor", "TorchSupernodalFactor",
+           "SupernodalFactorAdapter", "factorize", "factorize_host",
+           "factor_from_arrays", "supernodal_symbolic", "to_csc"]
+
+
+def _panel(F, s: int) -> np.ndarray:
+    S = F.S
+    nr, nc = S.nrows(s), S.ncols(s)
+    return F.lx_host()[S.Lpx[s]:S.Lpx[s + 1]].reshape(nr, nc, order="F")
+
+
+@dataclasses.dataclass
+class SupernodalFactor:
+    """Host supernodal factor A(p,p) = L L': panel s is column-major
+    (nrows, ncols) at ``S.Lpx[s] : S.Lpx[s+1]`` of ``Lx`` (reference
+    ``L->px`` layout, ``cholmod_core.h:1659-1668``)."""
+
+    S: SupernodalSymbolic
+    Lx: np.ndarray
+    minor: int      # = n on success
+
+    @property
+    def ok(self) -> bool:
+        return self.minor == self.S.n
+
+    @property
+    def perm(self) -> np.ndarray:
+        return self.S.perm
+
+    def lx_host(self) -> np.ndarray:
+        return self.Lx
+
+    panel = _panel
 
 
 @dataclasses.dataclass
@@ -38,7 +66,8 @@ class TorchSupernodalFactor:
     minor: int
     dplan: "supernodal_device.DevicePlan"
     _lx_px: np.ndarray | None = None
-    _w2: tuple | None = None     # (Lx, dtype, W2 panels) of the solve
+    # per-mode solve state, see supernodal_solve.solve_device
+    _solve: dict = dataclasses.field(default_factory=dict)
 
     @property
     def ok(self) -> bool:
@@ -58,11 +87,112 @@ class TorchSupernodalFactor:
             self._lx_px = px
         return self._lx_px
 
-    def panel(self, s: int) -> np.ndarray:
-        S = self.S
-        nr, nc = S.nrows(s), S.ncols(s)
-        return self.lx_host()[S.Lpx[s]:S.Lpx[s + 1]].reshape(nr, nc,
-                                                             order="F")
+    panel = _panel
+
+
+def to_csc(F) -> CSC:
+    """Supernodal panels -> CSC lower-triangular L (diagonal first)."""
+    S = F.S
+    n = S.n
+    counts = np.zeros(n, dtype=np.int64)
+    for s in range(S.nsuper):
+        f, l = S.super_first[s], S.super_first[s + 1]
+        counts[f:l] = S.nrows(s) - np.arange(l - f)
+    indptr = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    indices = np.empty(indptr[-1], dtype=np.int64)
+    data = np.empty(indptr[-1])
+    for s in range(S.nsuper):
+        f, l = S.super_first[s], S.super_first[s + 1]
+        P = F.panel(s)
+        rr = S.rows[s]
+        for k, j in enumerate(range(f, l)):
+            lo = indptr[j]
+            m = len(rr) - k
+            indices[lo:lo + m] = rr[k:]
+            data[lo:lo + m] = P[k:, k]
+    return CSC(n, n, indptr, indices, data, 0)
+
+
+def _assemble_front_host(C_low: CSC, S: SupernodalSymbolic, s: int,
+                         updates: dict) -> np.ndarray:
+    """Frontal matrix of supernode s: A's entries + children's extend-add."""
+    rows = S.rows[s]
+    f, l = S.super_first[s], S.super_first[s + 1]
+    pos = {int(r): i for i, r in enumerate(rows)}
+    Fm = np.zeros((len(rows), len(rows)))
+    for k, j in enumerate(range(f, l)):
+        lo, hi = C_low.indptr[j], C_low.indptr[j + 1]
+        for r, v in zip(C_low.indices[lo:hi], C_low.data[lo:hi]):
+            Fm[pos[int(r)], k] += v
+    for (rows_c, U) in updates.pop(s, []):
+        idx = np.searchsorted(rows, rows_c)
+        Fm[np.ix_(idx, idx)] += U
+    return Fm
+
+
+def factorize_host(A: CSC, S: SupernodalSymbolic,
+                   config: Config = DEFAULT) -> SupernodalFactor:
+    """Numpy multifrontal factorization (the small-problem path)."""
+    C_low = A.symperm(S.perm).transpose()
+    Lx = np.zeros(S.lnz)
+    updates: dict = {}
+    minor = S.n
+    for s in range(S.nsuper):
+        nc = S.ncols(s)
+        Fm = _assemble_front_host(C_low, S, s, updates)
+        F11 = np.tril(Fm[:nc, :nc]) + np.tril(Fm[:nc, :nc], -1).T
+        try:
+            L11 = np.linalg.cholesky(F11)
+        except np.linalg.LinAlgError:
+            minor = int(S.super_first[s])
+            break
+        F21 = Fm[nc:, :nc]
+        L21 = np.linalg.solve(L11, F21.T).T if F21.size else F21
+        Lx[S.Lpx[s]:S.Lpx[s + 1]] = np.concatenate([L11, L21]).ravel(
+            order="F")
+        p = S.sparent[s]
+        if p != -1 and len(S.rows[s]) > nc:
+            updates.setdefault(p, []).append(
+                (S.rows[s][nc:], Fm[nc:, nc:] - L21 @ L21.T))
+    return SupernodalFactor(S=S, Lx=Lx, minor=minor)
+
+
+def _should_use_device(S: SupernodalSymbolic, config: Config) -> bool:
+    """The device pays off once panels carry real flops; below this the
+    numpy multifrontal wins on dispatch overhead (the reference makes the
+    same call with its GPU thresholds, cholmod_gpu.h:33-35)."""
+    return S.fl >= 5e6
+
+
+@dataclasses.dataclass
+class SupernodalFactorAdapter:
+    """A supernodal factor behind the simplicial Factor solve interface."""
+
+    F: SupernodalFactor | TorchSupernodalFactor
+    _Lcsc: CSC | None = None
+
+    @property
+    def ok(self) -> bool:
+        return self.F.ok
+
+    @property
+    def minor(self) -> int:
+        return self.F.minor
+
+    @property
+    def perm(self) -> np.ndarray:
+        return self.F.perm
+
+    @property
+    def d(self):
+        return None
+
+    @property
+    def L(self) -> CSC:
+        if self._Lcsc is None:
+            self._Lcsc = to_csc(self.F)
+        return self._Lcsc
 
 
 def supernodal_symbolic(A: CSC, S_or_simpl,
@@ -93,27 +223,18 @@ def factorize(A: CSC, S_or_simpl, config: Config = DEFAULT,
     return SupernodalFactorAdapter(F)
 
 
-def from_jax_factor(F_jax, A: CSC, device="cuda",
-                    tile_rmin: int = supernodal_device.TILE_RMIN
-                    ) -> TorchSupernodalFactor:
-    """Carry a reference device-layout ``SupernodalFactor`` of ``A`` across.
-
-    Its ``Lx`` becomes a tensor on ``device``; the port's plan for the same
-    symbolic analysis must have the same groups and size (the tile placement
-    does not change the layout)."""
-    if F_jax.layout != "device":
-        raise ValueError("from_jax_factor: needs a device-layout factor")
-    S = F_jax.S
+def factor_from_arrays(A: CSC, S: SupernodalSymbolic, Lx: np.ndarray,
+                       minor: int, device="cuda",
+                       tile_rmin: int = supernodal_device.TILE_RMIN
+                       ) -> TorchSupernodalFactor:
+    """A device factor of ``A`` from the padded-layout values ``Lx`` of the
+    port's plan for the analysis ``S`` (``dev_size`` entries), e.g. a factor
+    computed elsewhere and carried across as a numpy array."""
     dp = supernodal_device.device_plan(A, S, resolve_device(device),
                                        tile_rmin)
-    ref = S._device_plan
-
-    def shapes(plan):
-        return [[(g.R, g.C, g.B, g.panel_base) for g in gl]
-                for gl in plan.groups]
-
-    if shapes(dp.plan) != shapes(ref) or dp.plan.dev_size != ref.dev_size:
-        raise ValueError("from_jax_factor: the port's plan does not match "
-                         "the reference factor's layout")
-    Lx = torch.as_tensor(np.array(F_jax.Lx), device=dp.device)
-    return TorchSupernodalFactor(S=S, Lx=Lx, minor=F_jax.minor, dplan=dp)
+    Lx = np.asarray(Lx)
+    if Lx.shape != (dp.plan.dev_size,):
+        raise ValueError(f"factor_from_arrays: Lx has shape {Lx.shape}, the "
+                         f"plan's layout holds {dp.plan.dev_size} entries")
+    return TorchSupernodalFactor(S=S, Lx=torch.tensor(Lx, device=dp.device),
+                                 minor=int(minor), dplan=dp)

@@ -1,12 +1,13 @@
 """Supernodal multifrontal Cholesky factor on torch tensors (CUDA or CPU).
 
 Port of :mod:`suitesparse_tpu.numeric.supernodal_device` (the one-shot
-``factorize_device`` → ``_run_plan`` → ``_group_compute`` path). The host
-plan is the reference's own: the same level/shape-bucket groups, the same
-pair classes and the same tile manifests, built by the reference's numpy
-helpers. The factor keeps the reference's padded device layout (each group's
-(B, R, C) panels at ``panel_base``, ``dev_size`` cells in all), so the two
-factors compare entry by entry.
+``factorize_device`` -> ``_run_plan`` -> ``_group_compute`` path), with its
+numpy plan builder copied here: the supernodes of each elimination-tree
+level are bucketed by padded shape into groups, and each group's pair
+classes (child group -> parent slot extend-adds) and tile manifests are
+precomputed on the host. The factor keeps the reference's padded device
+layout (each group's (B, R, C) panels at ``panel_base``, ``dev_size`` cells
+in all), so the two factors compare entry by entry.
 
 Per group: A's values are scattered into the fronts F; child updates whose
 parent group has a tile manifest are added by the tiled extend-add kernel,
@@ -23,26 +24,336 @@ import dataclasses
 import numpy as np
 import torch
 
-from suitesparse_tpu.config import DEFAULT, Config
-from suitesparse_tpu.kernels.extend_add_tiles import build_group_manifest
-from suitesparse_tpu.numeric.supernodal_device import (
-    _C_LADDER, _R_LADDER, Plan, _build_groups_vectorized, _clow_data,
-    _find_minor, _mark_symmetrize, _pad_to, _update_consumers)
-from suitesparse_tpu.sparse import CSC
-from suitesparse_tpu.symbolic.supernodes import SupernodalSymbolic
-
+from ..config import DEFAULT, Config
 from ..device import fp32_precision, resolve_device
-from ..kernels.extend_add_tiles import extend_add_tiles, run_ptr
+from ..kernels.extend_add_tiles import build_group_manifest, extend_add_tiles, \
+    run_ptr
 from ..kernels.potrf import MAX_C, potrf_trsm
+from ..sparse import CSC
+from ..symbolic.supernodes import SupernodalSymbolic
 
-__all__ = ["TILE_RMIN", "build_plan", "device_plan", "factorize_device"]
+__all__ = ["TILE_RMIN", "Plan", "build_plan", "device_plan",
+           "factorize_device"]
 
 TILE_RMIN = 256     # groups with R >= this assemble through the tile kernel
+
+_R_LADDER = [8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512, 768, 1024,
+             1536, 2048, 3072, 4096, 6144, 8192]
+_C_LADDER = [4, 8, 16, 24, 32, 48, 64, 96, 128, 192, 256, 384, 512]
+
+
+def _pad_to(x: int, ladder) -> int:
+    for v in ladder:
+        if x <= v:
+            return v
+    step = ladder[-1]
+    return ((x + step - 1) // step) * step
+
+
+@dataclasses.dataclass
+class PairClass:
+    """All (child of group src -> parent slot of this group) extend-adds."""
+
+    src_level: int
+    src_gi: int
+    RU_c: int              # child update block size (padded, = source group RU)
+    npairs: int
+
+
+@dataclasses.dataclass
+class GroupPlan:
+    """One (level, shape-bucket) batched step."""
+
+    R: int
+    C: int
+    B: int
+    snodes: np.ndarray
+    asrc: np.ndarray       # [nnz_g] gather into Cdata (original entries)
+    adst: np.ndarray       # [nnz_g] flat dst into (B*R*R), sorted, unique
+    nc: np.ndarray         # per-slot actual column counts
+    pairs: list            # [PairClass]; per-class arrays live in the idx dict
+    panel_base: int        # offset of this group's panels in the device factor
+    # per class (src, dst, idx) index arrays, aligned with ``pairs``
+    _pair_arrays: list = dataclasses.field(default_factory=list)
+    _tile: object = None   # TileManifest of the tiled extend-add, or None
+    _tile_runs: np.ndarray | None = None   # run_ptr offsets of the manifest
+    _symm_u: bool = False  # symmetrize U before a full-reading consumer
+
+
+@dataclasses.dataclass
+class Plan:
+    groups: list           # groups[level] = [GroupPlan, ...]
+    lnz: int               # CHOLMOD px-layout size (host materialization)
+    dev_size: int          # total device factor size (sum of B*R*C)
+    _S: object = None      # symbolic handle for lazy map construction
+    _px: tuple | None = None
+
+    # host-side materialization map Lx_px[px_dst] = Lx_dev[px_src] — built
+    # LAZILY (it is lnz-sized; only host materialization needs it, and
+    # building it eagerly dominated plan time on big problems)
+    def px_maps(self):
+        if self._px is None:
+            self._px = _build_px_maps(self._S, self)
+        return self._px
+
+    @property
+    def px_src(self):
+        return self.px_maps()[0]
+
+    @property
+    def px_dst(self):
+        return self.px_maps()[1]
+
+
+def _build_px_maps(S, plan):
+    """px-layout materialization maps, fully vectorized over all lnz entries
+    (per-supernode Python loops took minutes at audikw-class sizes)."""
+    # per-supernode metadata in group order
+    s_all, base_all, C_all = [], [], []
+    for glist in plan.groups:
+        for g in glist:
+            s_all.append(g.snodes)
+            base_all.append(g.panel_base
+                            + np.arange(g.B, dtype=np.int64) * g.R * g.C)
+            C_all.append(np.full(g.B, g.C, dtype=np.int64))
+    if not s_all:
+        e = np.empty(0, np.int64)
+        return e, e
+    s_all = np.concatenate(s_all)
+    base_all = np.concatenate(base_all)
+    C_all = np.concatenate(C_all)
+    nr_s = np.array([S.nrows(int(s)) for s in s_all], dtype=np.int64)
+    nc_s = S.super_first[s_all + 1] - S.super_first[s_all]
+    Lpx_s = S.Lpx[s_all]
+
+    # per-column vectors (total ncols = n): local col index k, owner supernode
+    k_col = _ranges(np.zeros(s_all.size, np.int64), nc_s)     # 0..nc_s-1 runs
+    owner = np.repeat(np.arange(s_all.size, dtype=np.int64), nc_s)
+    len_col = nr_s[owner] - k_col                              # entries per col
+    # per-entry vectors (total = sum of panel triangles)
+    rp = _ranges(k_col, nr_s[owner])                           # k..nr-1 runs
+    kk = np.repeat(k_col, len_col)
+    own_e = np.repeat(owner, len_col)
+    nc_e = nc_s[own_e]
+    rloc = np.where(rp < nc_e, rp, C_all[own_e] + (rp - nc_e))
+    src = base_all[own_e] + rloc * C_all[own_e] + kk
+    dst = Lpx_s[own_e] + kk * nr_s[own_e] + rp
+    return src, dst
+
+
+def _build_groups_vectorized(S: SupernodalSymbolic, C_low: CSC,
+                             level_layouts, place):
+    """All GroupPlans in one sweep: one global searchsorted over
+    (snode, row) keys, no per-supernode or per-child Python loops."""
+    n = S.n
+    nsuper = S.nsuper
+    nc_of = (S.super_first[1:] - S.super_first[:-1]).astype(np.int64)
+    nr_of = np.array([len(S.rows[s]) for s in range(nsuper)], dtype=np.int64)
+    rows_ptr = np.zeros(nsuper + 1, dtype=np.int64)
+    np.cumsum(nr_of, out=rows_ptr[1:])
+    rows_cat = (np.concatenate(S.rows) if nsuper
+                else np.empty(0, np.int64))
+
+    # per-snode placement -> flat arrays; gid = global group index
+    slot_of = np.zeros(nsuper, dtype=np.int64)
+    gid_of = np.zeros(nsuper, dtype=np.int64)
+    R_of = np.zeros(nsuper, dtype=np.int64)
+    C_of = np.zeros(nsuper, dtype=np.int64)
+    gid_meta = []              # (level, gi, R, C, ss, pbase)
+    gid_key = {}               # (level, gi) -> gid
+    gid = 0
+    for d, placed in enumerate(level_layouts):
+        for gi, (R, C, ss, pbase) in enumerate(placed):
+            arr = np.asarray(ss, dtype=np.int64)
+            slot_of[arr] = np.arange(len(ss), dtype=np.int64)
+            gid_of[arr] = gid
+            R_of[arr] = R
+            C_of[arr] = C
+            gid_key[(d, gi)] = gid
+            gid_meta.append((d, gi, R, C, arr, pbase))
+            gid += 1
+    ngid = gid
+    RU_of_gid = np.array([m[2] - m[3] for m in gid_meta], dtype=np.int64)
+
+    # sorted global row-list key: snode blocks ascending, rows sorted within
+    stride = n + 1
+    rowkey = np.repeat(np.arange(nsuper, dtype=np.int64), nr_of) * stride \
+        + rows_cat
+
+    # ---- A entries: position of each C_low entry within its snode panel ----
+    ecols = np.repeat(np.arange(n, dtype=np.int64), np.diff(C_low.indptr))
+    esn = S.snode_of_col[ecols]
+    colk = ecols - S.super_first[esn]
+    pos = np.searchsorted(rowkey, esn * stride + C_low.indices) \
+        - rows_ptr[esn]
+    fc = np.where(pos < nc_of[esn], pos, C_of[esn] + (pos - nc_of[esn]))
+    adst_all = slot_of[esn] * R_of[esn] * R_of[esn] + fc * R_of[esn] + colk
+    egid = gid_of[esn]
+    order = np.lexsort((adst_all, egid))
+    asrc_all = order.astype(np.int32)            # source = entry index
+    adst_all = adst_all[order]
+    egid_sorted = egid[order]
+    e_counts = np.bincount(egid_sorted, minlength=ngid)
+    e_splits = np.zeros(ngid + 1, dtype=np.int64)
+    np.cumsum(e_counts, out=e_splits[1:])
+
+    # ---- extend-add pairs: child update rows -> parent front coords ----
+    ch = np.flatnonzero((S.sparent >= 0) & (nr_of > nc_of))
+    par = S.sparent[ch]
+    mu = nr_of[ch] - nc_of[ch]
+    seg = _ranges(rows_ptr[ch] + nc_of[ch], rows_ptr[ch + 1])
+    rows_c = rows_cat[seg] if seg.size else np.empty(0, np.int64)
+    par_rep = np.repeat(par, mu)
+    posp = np.searchsorted(rowkey, par_rep * stride + rows_c) \
+        - rows_ptr[par_rep]
+    fcp = np.where(posp < nc_of[par_rep], posp,
+                   C_of[par_rep] + (posp - nc_of[par_rep])).astype(np.int32)
+    # order children by (parent gid, child gid, parent slot)
+    pgid, cgid = gid_of[par], gid_of[ch]
+    ch_order = np.lexsort((slot_of[par], cgid, pgid))
+    mu_o = mu[ch_order]
+    # class boundaries over the sorted (pgid, cgid) pairs
+    pk = pgid[ch_order] * ngid + cgid[ch_order]
+    if pk.size:
+        cls_start = np.flatnonzero(np.concatenate([[True], pk[1:] != pk[:-1]]))
+        cls_end = np.concatenate([cls_start[1:], [pk.size]])
+    else:
+        cls_start = cls_end = np.empty(0, np.int64)
+    # fcp re-gathered into ch_order (one flat gather, no per-child slices)
+    seg_off = np.zeros(ch.size + 1, dtype=np.int64)
+    np.cumsum(mu, out=seg_off[1:])
+    if ch.size:
+        gidx = _ranges(seg_off[ch_order], seg_off[ch_order] + mu[ch_order])
+        fcp_sorted_flat = fcp[gidx]
+    else:
+        fcp_sorted_flat = np.empty(0, np.int32)
+    flat_off = np.zeros(ch.size + 1, dtype=np.int64)
+    np.cumsum(mu[ch_order] if ch.size else mu, out=flat_off[1:])
+
+    src_sorted = slot_of[ch][ch_order]
+    dst_sorted = slot_of[par][ch_order]
+    cgid_sorted = cgid[ch_order]
+    pgid_sorted = pgid[ch_order]
+
+    # assemble GroupPlans
+    groups_all = [[] for _ in level_layouts]
+    cls_by_pgid: dict = {}
+    for a, b in zip(cls_start, cls_end):
+        cls_by_pgid.setdefault(int(pgid_sorted[a]), []).append((int(a),
+                                                                int(b)))
+    cap_cells = 16 << 20
+    for g_id, (d, gi, R, C, ss, pbase) in enumerate(gid_meta):
+        B = len(ss)
+        lo, hi = int(e_splits[g_id]), int(e_splits[g_id + 1])
+        nc_arr = nc_of[ss].astype(np.int32)
+        pairs, pair_arrays = [], []
+        chunk = max(1, cap_cells // max(R * R, 1))
+        for (a, b) in cls_by_pgid.get(g_id, []):
+            c_gid = int(cgid_sorted[a])
+            dc, gic = gid_meta[c_gid][0], gid_meta[c_gid][1]
+            RU_c = int(RU_of_gid[c_gid])
+            npc = b - a
+            idx = np.full((npc, RU_c), -1, dtype=np.int32)
+            mus = mu_o[a:b]
+            rows_flat = np.repeat(np.arange(npc, dtype=np.int64), mus) * RU_c \
+                + _ranges(np.zeros(npc, np.int64), mus)
+            idx.ravel()[rows_flat] = \
+                fcp_sorted_flat[flat_off[a]:flat_off[b]]
+            src = src_sorted[a:b].astype(np.int32)
+            dst = dst_sorted[a:b].astype(np.int32)
+            for clo in range(0, npc, chunk):
+                chi = min(clo + chunk, npc)
+                pairs.append(PairClass(src_level=dc, src_gi=gic,
+                                       RU_c=RU_c, npairs=chi - clo))
+                pair_arrays.append((src[clo:chi], dst[clo:chi],
+                                    idx[clo:chi]))
+        g = GroupPlan(R=R, C=C, B=B, snodes=ss,
+                      asrc=asrc_all[lo:hi], adst=adst_all[lo:hi],
+                      nc=nc_arr, pairs=pairs, panel_base=pbase,
+                      _pair_arrays=pair_arrays)
+        groups_all[d].append(g)
+    return groups_all
+
+
+def _mark_symmetrize(plan: "Plan") -> None:
+    """Flag tile-assembled groups whose update block is read FULL by some
+    consumer (a non-tile parent, or a class the parent's manifest did not
+    fold): such groups must symmetrize their update from its valid lower
+    triangle before handing it up (lower-only assembly leaves the upper
+    tiles of F22 — hence of U — unspecified)."""
+    gmap = {}
+    for d, glist in enumerate(plan.groups):
+        for gi, g in enumerate(glist):
+            gmap[(d, gi)] = g
+            g._symm_u = False
+    for glist in plan.groups:
+        for g in glist:
+            folded = set(g._tile.folded) if g._tile is not None else ()
+            for i, pc in enumerate(g.pairs):
+                if i not in folded:
+                    src = gmap[(pc.src_level, pc.src_gi)]
+                    if src._tile is not None:
+                        src._symm_u = True
+
+
+def _ranges(starts: np.ndarray, stops: np.ndarray) -> np.ndarray:
+    """Concatenated [starts[i], stops[i]) ranges (vectorized)."""
+    lens = stops - starts
+    total = int(lens.sum())
+    if total == 0:
+        return np.empty(0, dtype=np.int64)
+    out = np.ones(total, dtype=np.int64)
+    nz = lens > 0
+    srt, lns = starts[nz], lens[nz]
+    e = np.cumsum(lns)
+    out[0] = srt[0]
+    out[e[:-1]] = srt[1:] - (srt[:-1] + lns[:-1] - 1)
+    return np.cumsum(out)
+
+
+def _update_consumers(plan: Plan):
+    """last_seg_consumer[(d,gi)] = index of the LAST group (in schedule
+    order) whose pairs read update (d,gi)."""
+    order = {}
+    pos = 0
+    last = {}
+    for d, glist in enumerate(plan.groups):
+        for gi, g in enumerate(glist):
+            order[(d, gi)] = pos
+            for pc in g.pairs:
+                last[(pc.src_level, pc.src_gi)] = pos
+            pos += 1
+    return order, last
+
+
+def _clow_data(A: CSC, S: SupernodalSymbolic) -> np.ndarray:
+    """Values of symperm(A, perm).transpose() via a cached position map —
+    the steady-state factor-many path does NO per-call symbolic work."""
+    key = A.pattern_key()
+    cache = getattr(S, "_clow_map", None)
+    if cache is None or cache[0] != key:
+        trace = CSC(A.nrow, A.ncol, A.indptr, A.indices,
+                    np.arange(A.nnz, dtype=np.float64), A.sym)
+        C_low = trace.symperm(S.perm).transpose()
+        S._clow_map = (key, C_low.data.astype(np.int64))
+    return A.data[S._clow_map[1]]
+
+
+def _find_minor(S, plan, Lxdev) -> int:
+    """First non-finite column (cholmod L->minor contract) from the device
+    factor buffer."""
+    Lh = np.asarray(Lxdev, dtype=np.float64)
+    Lpx_h = np.zeros(plan.lnz)
+    Lpx_h[plan.px_dst] = Lh[plan.px_src]
+    for s in range(S.nsuper):
+        if not np.all(np.isfinite(Lpx_h[S.Lpx[s]:S.Lpx[s + 1]])):
+            return int(S.super_first[s])
+    return S.n
 
 
 def build_plan(S: SupernodalSymbolic, C_low: CSC,
                tile_rmin: int = TILE_RMIN) -> Plan:
-    """The reference's device plan with tile manifests attached explicitly.
+    """The device plan, with tile manifests attached explicitly.
 
     Groups with ``R >= tile_rmin`` get the one-piece manifest that folds
     every pair class (the reference's defaults for its tile placement);
@@ -73,11 +384,8 @@ def build_plan(S: SupernodalSymbolic, C_low: CSC,
     plan = Plan(groups=groups, lnz=S.lnz, dev_size=panel_off, _S=S)
     for glist in plan.groups:
         for g in glist:
-            g._tile = None
-            g._tile_runs = None
             if g.R >= tile_rmin:
-                g._tile = build_group_manifest(g, T=128, ru_min_frac=0.0,
-                                               npiece=1)
+                g._tile = build_group_manifest(g, T=128, ru_min_frac=0.0)
                 if g._tile is not None:
                     g._tile_runs = run_ptr(g._tile.man)
     _mark_symmetrize(plan)
@@ -140,9 +448,8 @@ def device_plan(A: CSC, S: SupernodalSymbolic, device: torch.device,
     """The plan for ``S`` (the analysis of ``A``) on ``device``, built and
     uploaded once.
 
-    Cached on ``S._torch_plan`` (never on the reference's ``_device_plan``,
-    whose contents depend on the JAX backend), keyed by everything that
-    changes it: the tile threshold and the device."""
+    Cached on ``S._torch_plan``, keyed by everything that changes it: the
+    tile threshold and the device."""
     cache = getattr(S, "_torch_plan", None)
     if cache is None:
         cache = {}
@@ -252,10 +559,6 @@ def _run_plan(dp: DevicePlan, Cdata: torch.Tensor, dtype: torch.dtype):
 
 def compute_dtype(config: Config) -> torch.dtype:
     """The factor's and the solve's dtype under ``config``."""
-    if config.update_dtype != "float32":
-        raise NotImplementedError(
-            "update_dtype other than float32 is not in the port yet "
-            "(ROADMAP queue 1)")
     return torch.float64 if config.compute_dtype == "float64" \
         else torch.float32
 

@@ -3,10 +3,12 @@
     python3 -m suitesparse_tpu_torch.prof
 
 On the model problem ``laplacian_3d(50)`` (n = 125,000, nested dissection,
-fp32, default tile threshold) it profiles three phases: ``factorize``, and
-``solve`` at 1 and at 64 right-hand sides. Each phase gets one warm call,
-the minimum of 3 unprofiled calls (host clock around the call, synchronized),
-then one call under ``torch.profiler``. Per phase it prints one JSON line:
+fp32, default tile threshold) it profiles five phases: ``factorize``, and
+``solve`` at 1 and at 64 right-hand sides through the w2 sweep (the
+default) and through the classic sweep (``solve_mode="classic"``). Each
+phase gets one warm call, the minimum of 3 unprofiled calls (host clock
+around the call, synchronized), then one call under ``torch.profiler``.
+Per phase it prints one JSON line:
 
 - ``wall_s``: the unprofiled minimum; ``prof_wall_s``: the profiled call;
 - ``device_busy_s``: the union of the device intervals (kernels, copies,
@@ -149,6 +151,9 @@ def main() -> int:
     profile_phase("factor", lambda: factorize(A, Ssim, cfg, device="cuda"))
     profile_phase("solve1", lambda: solve(F, b, cfg))
     profile_phase("solve64", lambda: solve(F, B64, cfg))
+    classic = cfg.replace(solve_mode="classic")
+    profile_phase("classic1", lambda: solve(F, b, classic))
+    profile_phase("classic64", lambda: solve(F, B64, classic))
     group_times(A, Ssim, cfg)
     return 0
 

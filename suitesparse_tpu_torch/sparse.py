@@ -1,0 +1,174 @@
+"""Host-side sparse matrix container and the structural ops the port uses.
+
+``CSC`` mirrors the JAX package's container (the ``cholmod_sparse`` CSC
+struct, reference ``cholmod_core.h:1214-1263``): int64 indices, sorted
+unique rows per column, ``sym`` as cholmod's ``stype`` (0 general, 1 upper
+stored symmetric). The structural kernels run in the port's host C++
+library (:mod:`.native`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import zlib
+
+import numpy as np
+
+from . import native
+
+__all__ = ["CSC", "from_triplets", "invert_permutation", "residual_norm"]
+
+
+def _as_index(a) -> np.ndarray:
+    return np.ascontiguousarray(np.asarray(a, dtype=np.int64))
+
+
+def _col_ids(indptr: np.ndarray) -> np.ndarray:
+    return np.repeat(np.arange(indptr.size - 1, dtype=np.int64),
+                     np.diff(indptr))
+
+
+@dataclasses.dataclass
+class CSC:
+    """Compressed sparse column matrix, ``nrow x ncol``.
+
+    ``indices[indptr[j]:indptr[j+1]]`` are the row indices of column j,
+    sorted ascending with no duplicates; ``data`` holds matching values."""
+
+    nrow: int
+    ncol: int
+    indptr: np.ndarray   # int64, size ncol+1
+    indices: np.ndarray  # int64, size nnz
+    data: np.ndarray     # float, size nnz
+    sym: int = 0
+
+    @property
+    def nnz(self) -> int:
+        return int(self.indptr[-1])
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return (self.nrow, self.ncol)
+
+    def pattern_key(self) -> tuple:
+        """(nnz, sym, crc32(indptr||indices)): the cache key of the
+        analyze-once/factor-many value maps, memoized per indices array."""
+        memo = getattr(self, "_pat_key", None)
+        if memo is None or memo[0] is not self.indices:
+            crc = zlib.crc32(np.ascontiguousarray(self.indptr))
+            crc = zlib.crc32(np.ascontiguousarray(self.indices), crc)
+            memo = (self.indices, (self.nnz, self.sym, crc))
+            self._pat_key = memo
+        return memo[1]
+
+    def to_dense(self) -> np.ndarray:
+        A = np.zeros((self.nrow, self.ncol), dtype=self.data.dtype)
+        A[self.indices, _col_ids(self.indptr)] = self.data
+        if self.sym != 0:
+            full = A + A.T
+            d = np.arange(min(self.nrow, self.ncol))
+            full[d, d] = A[d, d]
+            return full
+        return A
+
+    def transpose(self, values: bool = True) -> "CSC":
+        """A' in CSC form (cs_transpose.c analog), one counting pass."""
+        outp, outi, pos = native.transpose(self.nrow, self.ncol,
+                                           self.indptr, self.indices)
+        data = (self.data[pos] if values
+                else np.zeros(len(outi), self.data.dtype))
+        return CSC(self.ncol, self.nrow, outp, outi, data, -self.sym)
+
+    def symperm(self, p: np.ndarray) -> "CSC":
+        """C = P A P' keeping only the upper triangle, for symmetric A stored
+        upper (``sym=1``); cs_symperm.c analog."""
+        if self.sym != 1:
+            raise ValueError("symperm expects upper-stored symmetric (sym=1)")
+        outp, outi, pos = native.symperm(self.ncol, self.indptr,
+                                         self.indices, invert_permutation(p))
+        pos = np.where(pos < 0, ~pos, pos)
+        return CSC(self.ncol, self.ncol, outp, outi, self.data[pos], 1)
+
+    def to_full_storage(self) -> "CSC":
+        """Symmetric-stored (sym=1) -> general storage, both triangles."""
+        if self.sym == 0:
+            return self
+        cols = _col_ids(self.indptr)
+        off = self.indices != cols
+        return from_triplets(
+            self.nrow, self.ncol,
+            np.concatenate([self.indices, cols[off]]),
+            np.concatenate([cols, self.indices[off]]),
+            np.concatenate([self.data, self.data[off]]), sym=0)
+
+    def matvec(self, x: np.ndarray) -> np.ndarray:
+        """y = A @ x for dense x (n,) or (n, k); cholmod_sdmult analog."""
+        A = self.to_full_storage()
+        x = np.asarray(x)
+        cols = _col_ids(A.indptr)
+        y = np.zeros((A.nrow,) + x.shape[1:],
+                     dtype=np.result_type(A.data, x))
+        vals = A.data if x.ndim == 1 else A.data[:, None]
+        np.add.at(y, A.indices, vals * x[cols])
+        return y
+
+    def norm1(self) -> float:
+        """max column sum of |A| (cholmod_norm analog)."""
+        A = self.to_full_storage()
+        if A.nnz == 0:
+            return 0.0
+        sums = np.bincount(_col_ids(A.indptr), weights=np.abs(A.data),
+                           minlength=A.ncol)
+        return float(sums.max())
+
+    def aat_pattern(self) -> "CSC":
+        """Pattern of A + A' minus the diagonal, general CSC with data=1
+        (the ordering input, reference ``AMD/Source/amd_aat.c``)."""
+        n = self.ncol
+        if self.nrow != n:
+            raise ValueError("aat_pattern needs a square matrix")
+        outp, outi = native.aat(n, self.indptr, self.indices)
+        return CSC(n, n, outp, outi, np.ones(outi.size), 0)
+
+
+def from_triplets(nrow: int, ncol: int, rows, cols, vals, sym: int = 0) -> CSC:
+    """Triplet -> CSC with duplicates summed (cs_compress + cs_dupl analog)."""
+    rows = _as_index(rows)
+    cols = _as_index(cols)
+    vals = np.asarray(vals)
+    if vals.dtype.kind != "f":
+        vals = vals.astype(np.float64)
+    if not rows.size == cols.size == vals.size:
+        raise ValueError("from_triplets: rows, cols and vals differ in size")
+    if rows.size == 0:
+        return CSC(nrow, ncol, np.zeros(ncol + 1, np.int64),
+                   np.empty(0, np.int64), np.empty(0, vals.dtype), sym)
+    if rows.min() < 0 or rows.max() >= nrow or cols.min() < 0 \
+            or cols.max() >= ncol:
+        raise ValueError("from_triplets: index out of range")
+    order = np.lexsort((rows, cols))
+    r, c, x = rows[order], cols[order], vals[order]
+    new_grp = np.ones(r.size, dtype=bool)
+    new_grp[1:] = (r[1:] != r[:-1]) | (c[1:] != c[:-1])
+    x_sum = np.bincount(np.cumsum(new_grp) - 1, weights=x)
+    counts = np.bincount(c[new_grp], minlength=ncol)
+    indptr = np.zeros(ncol + 1, dtype=np.int64)
+    np.cumsum(counts, out=indptr[1:])
+    return CSC(nrow, ncol, indptr, r[new_grp], x_sum.astype(vals.dtype), sym)
+
+
+def invert_permutation(p) -> np.ndarray:
+    p = _as_index(p)
+    pinv = np.empty_like(p)
+    pinv[p] = np.arange(p.size, dtype=np.int64)
+    return pinv
+
+
+def residual_norm(A: CSC, x: np.ndarray, b: np.ndarray) -> float:
+    """norm(Ax-b,inf) / (norm(A,1)*norm(x,inf) + norm(b,inf)), the
+    reference acceptance criterion (``CSparse/Demo/cs_demo.c:52``)."""
+    r = A.matvec(x) - b
+    denom = A.norm1() * np.abs(x).max(initial=0.0) + np.abs(b).max(initial=0.0)
+    if denom == 0.0:
+        return float(np.abs(r).max(initial=0.0))
+    return float(np.abs(r).max(initial=0.0) / denom)

@@ -1,0 +1,60 @@
+"""Elimination-tree machinery: etree, postorder, column counts, ereach.
+
+Reference analogs: ``cholmod_etree.c:81`` / ``cs_etree.c`` (Liu's algorithm),
+``cholmod_postorder.c`` / ``cs_post.c``, ``cholmod_rowcolcounts.c:184`` /
+``cs_counts.c`` (Gilbert–Ng–Peyton), ``cs_ereach.c``. The first three run in
+the host C++ library; ``ereach`` is the simplicial factor's per-row step.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from .. import native
+from ..sparse import CSC
+
+__all__ = ["etree", "postorder", "col_counts", "ereach"]
+
+
+def etree(A: CSC) -> np.ndarray:
+    """Elimination tree of symmetric A from its upper triangle;
+    parent[root] = -1."""
+    return native.etree(A.ncol, A.indptr, A.indices)
+
+
+def postorder(parent: np.ndarray) -> np.ndarray:
+    """post[k] = node visited k-th; children in ascending node order."""
+    return native.postorder(parent)
+
+
+def col_counts(A: CSC, parent: np.ndarray, post: np.ndarray) -> np.ndarray:
+    """nnz per column of the Cholesky factor of A (diagonal included)."""
+    Alow = A.transpose(values=False) if A.sym == 1 else A
+    return native.col_counts(A.ncol, Alow.indptr, Alow.indices, parent,
+                             post)
+
+
+def ereach(A: CSC, k: int, parent: np.ndarray, mark: np.ndarray,
+           out: np.ndarray) -> int:
+    """Pattern of row k of L (nonzeros of L[k, :k]) in topological order.
+
+    ``mark`` is an int workspace (size n, holding the current column number
+    when visited); ``out`` a size-n int64 output buffer. Returns ``top`` such
+    that ``out[top:]`` holds the pattern (cs_ereach.c analog)."""
+    n = A.ncol
+    top = n
+    mark[k] = k
+    for t in range(A.indptr[k], A.indptr[k + 1]):
+        i = A.indices[t]
+        if i > k:
+            continue
+        path_len = 0
+        while mark[i] != k:
+            out[path_len] = i
+            path_len += 1
+            mark[i] = k
+            i = parent[i]
+        for s in range(path_len - 1, -1, -1):
+            top -= 1
+            out[top] = out[s]
+    return top

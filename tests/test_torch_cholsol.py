@@ -23,17 +23,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_cholsol_cpu_matches_reference():
-    A = fixtures.laplacian_3d(12)
-    n = A.ncol
+    n = fixtures.laplacian_3d(12).ncol
     b = 1.0 + np.arange(n) / n
-    x_ref = sst.cholsol(A, b)
+    x_ref = sst.cholsol(fixtures.laplacian_3d(12), b)
+    A = sstt.fixtures.laplacian_3d(12)
     x = sstt.cholsol(A, b, device="cpu")
     assert np.abs(x - x_ref).max() <= 1e-4 * np.abs(x_ref).max()
-    assert sst.residual_norm(A, x, b) < 1e-5
+    assert sstt.residual_norm(A, x, b) < 1e-5
 
 
 def test_factorize_takes_the_device_path_and_exposes_L():
-    A = fixtures.laplacian_3d(12)
+    A = sstt.fixtures.laplacian_3d(12)
     S = sstt.analyze(A)
     F = sstt.factorize(A, S, device="cpu")
     assert isinstance(F.F, TorchSupernodalFactor) and F.ok
@@ -45,17 +45,17 @@ def test_factorize_takes_the_device_path_and_exposes_L():
 
 
 def test_small_problem_stays_on_the_host():
-    A = fixtures.laplacian_3d(5)
+    A = sstt.fixtures.laplacian_3d(5)
     b = np.ones(A.ncol)
     S = sstt.analyze(A)
     F = sstt.factorize(A, S, device="cpu")
     assert not isinstance(getattr(F, "F", None), TorchSupernodalFactor)
-    assert sst.residual_norm(A, sstt.solve(F, b), b) < 1e-10
+    assert sstt.residual_norm(A, sstt.solve(F, b), b) < 1e-10
 
 
 def test_cuda_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    A = fixtures.laplacian_3d(12)
+    A = sstt.fixtures.laplacian_3d(12)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         sstt.cholsol(A, np.ones(A.ncol))            # device="cuda" default
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -63,12 +63,12 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 
 def test_routes_outside_the_slice_raise():
-    A = fixtures.laplacian_3d(4)
+    A = sstt.fixtures.laplacian_3d(4)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sstt.lusol(A, np.ones(A.ncol))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sstt.qrsol(A, np.ones(A.ncol))
-    Ac = fixtures.laplacian_3d(4)
+    Ac = sstt.fixtures.laplacian_3d(4)
     Ac.data = Ac.data.astype(np.complex128)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sstt.cholsol(Ac, np.ones(Ac.ncol), device="cpu")
@@ -77,6 +77,7 @@ def test_routes_outside_the_slice_raise():
 def test_imports_and_solves_with_jax_blocked():
     code = (
         "import sys; sys.modules['jax'] = None\n"
+        "sys.modules['suitesparse_tpu'] = None\n"
         "import numpy as np, suitesparse_tpu_torch as sstt\n"
         "A = sstt.fixtures.laplacian_3d(12)\n"
         "b = 1.0 + np.arange(A.ncol) / A.ncol\n"
@@ -94,18 +95,28 @@ def test_imports_and_solves_with_jax_blocked():
 
 
 def test_nvcc_command_targets_sm90a_into_the_ignored_build_dir():
-    cmd = _build.nvcc_command("cuda-12/nvcc")
-    assert cmd[0] == "cuda-12/nvcc"
-    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    for flag in ("-std=c++17", "-O3", "-shared"):
-        assert flag in cmd
-    assert cmd[cmd.index("-Xcompiler") + 1] == "-fPIC"
-    out = cmd[cmd.index("-o") + 1]
-    assert out == os.path.join(REPO, "suitesparse_tpu_torch", "kernels",
-                               "build", "libsst_kernels.so")
-    srcs = [c for c in cmd if c.endswith(".cu")]
+    compiles, link = _build.nvcc_commands("cuda-12/nvcc")
+    build_dir = os.path.join(REPO, "suitesparse_tpu_torch", "kernels",
+                             "build")
+    for cmd in compiles + [link]:
+        assert cmd[0] == "cuda-12/nvcc"
+        assert cmd[cmd.index("-gencode") + 1] == \
+            "arch=compute_90a,code=sm_90a"
+        for flag in ("-std=c++17", "-O3"):
+            assert flag in cmd
+        assert cmd[cmd.index("-Xcompiler") + 1] == "-fPIC"
+        assert os.path.dirname(cmd[cmd.index("-o") + 1]) == build_dir
+    # one compile per source, run together, then one link of the objects
+    srcs = [c for cmd in compiles for c in cmd if c.endswith(".cu")]
     assert sorted(os.path.basename(s) for s in srcs) == [
-        "extend_add_tiles.cu", "potrf_trsm.cu"]
+        "extend_add_tiles.cu", "potrf_trsm.cu", "solve_step.cu",
+        "trisolve.cu"]
+    assert all("-c" in cmd for cmd in compiles)
+    assert "-shared" in link
+    assert link[link.index("-o") + 1] == os.path.join(build_dir,
+                                                      "libsst_kernels.so")
+    assert sorted(c for c in link if c.endswith(".o")) == sorted(
+        cmd[cmd.index("-o") + 1] for cmd in compiles)
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "suitesparse_tpu_torch/kernels/build/" in f.read().split()
 

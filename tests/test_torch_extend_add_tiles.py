@@ -1,7 +1,7 @@
 """Port's tiled extend-add (plain version on the CPU) vs the Pallas kernel.
 
-Real manifests from the port's ``build_plan`` (``tile_rmin=32`` so small
-problems have tile groups), seeded fronts and child updates with NaN in some
+Real manifests from the port's ``build_plan`` on its own analysis
+(``tile_rmin=32`` so small problems have tile groups), seeded fronts and child updates with NaN in some
 upper child cells. The reference kernel runs in Pallas interpret mode. Both
 add the same child cells into the same parent cells; only the order of the
 additions differs (the reference adds piece by piece into F, the port sums
@@ -13,12 +13,11 @@ import pytest
 import jax.numpy as jnp
 import torch
 
-import suitesparse_tpu as sst
-from suitesparse_tpu.io import fixtures
 from suitesparse_tpu.kernels.extend_add_tiles import \
     extend_add_tiles as extend_add_tiles_pallas
-from suitesparse_tpu.ordering import nested_dissection_order
-from suitesparse_tpu.symbolic.supernodes import analyze_supernodal
+import suitesparse_tpu_torch as sstt
+from suitesparse_tpu_torch.ordering import nested_dissection_order
+from suitesparse_tpu_torch.symbolic.supernodes import analyze_supernodal
 from suitesparse_tpu_torch.kernels.extend_add_tiles import (
     TILE, extend_add_tiles, extend_add_tiles_plain, run_ptr)
 from suitesparse_tpu_torch.numeric.supernodal_device import build_plan
@@ -27,8 +26,8 @@ RTOL = 1e-6
 
 
 def _tile_groups(nx):
-    A = fixtures.laplacian_3d(nx)
-    S = analyze_supernodal(A, nested_dissection_order(A, sst.DEFAULT))
+    A = sstt.fixtures.laplacian_3d(nx)
+    S = analyze_supernodal(A, nested_dissection_order(A, sstt.DEFAULT))
     plan = build_plan(S, A.symperm(S.perm).transpose(), tile_rmin=32)
     return [g for gl in plan.groups for g in gl if g._tile is not None]
 

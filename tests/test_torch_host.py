@@ -1,0 +1,159 @@
+"""The port's host side is its own: no import of JAX or of the JAX package,
+and its own copies of the orderings, the supernodal analysis, the device
+plan and the tile manifests give what the JAX package's give.
+
+The equality checks analyze the same matrix with each package's own code
+(ordering included) and compare the results exactly; the reference builds
+its tile manifests as its tests do off the TPU (``SSTPU_PLACE=tile``,
+``SSTPU_TILE_RMIN=32``), the port with ``tile_rmin=32``."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import suitesparse_tpu as sst
+from suitesparse_tpu.numeric import supernodal_device as ref_device
+from suitesparse_tpu.ordering import nested_dissection_order
+from suitesparse_tpu.symbolic.supernodes import analyze_supernodal
+import suitesparse_tpu_torch as sstt
+from suitesparse_tpu_torch import native
+from suitesparse_tpu_torch.numeric import supernodal_device
+from suitesparse_tpu_torch.symbolic.supernodes import \
+    analyze_supernodal as port_analyze_supernodal
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "suitesparse_tpu_torch")
+
+
+def forest(pkg, k: int, nx: int):
+    """k independent copies of laplacian_3d(nx) on the block diagonal."""
+    A = pkg.io.fixtures.laplacian_3d(nx)
+    n = A.ncol
+    cols = np.repeat(np.arange(n), np.diff(A.indptr))
+    return pkg.from_triplets(
+        k * n, k * n, np.concatenate([A.indices + i * n for i in range(k)]),
+        np.concatenate([cols + i * n for i in range(k)]), np.tile(A.data, k),
+        sym=1)
+
+
+PROBLEMS = {
+    "laplacian_3d_12": lambda pkg: pkg.io.fixtures.laplacian_3d(12),
+    "forest_40x6": lambda pkg: forest(pkg, 40, 6),
+}
+
+
+def _imports(path):
+    """Every absolute module name ``path`` imports."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_module_of_the_port_imports_jax_or_the_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, names in os.walk(PORT):
+        files += [os.path.join(root, f) for f in names if f.endswith(".py")]
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, REPO), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("jax", "jaxlib", "suitesparse_tpu")]
+    assert bad == []
+
+
+def test_cholsol_runs_with_jax_and_the_jax_package_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['suitesparse_tpu'] = None\n"
+        "import numpy as np, suitesparse_tpu_torch as sstt\n"
+        "for nx, mode in ((12, 'auto'), (12, 'classic'), (5, 'auto')):\n"
+        "    A = sstt.fixtures.laplacian_3d(nx)\n"
+        "    b = 1.0 + np.arange(A.ncol) / A.ncol\n"
+        "    cfg = sstt.DEFAULT.replace(solve_mode=mode)\n"
+        "    S = sstt.analyze(A, cfg)\n"
+        "    x = sstt.cholsol(A, b, cfg, device='cpu')\n"
+        "    r = sstt.residual_norm(A, x, b)\n"
+        "    assert r < 1e-5, r\n"
+        "    print(nx, mode, S.fl >= 5e6, r)\n"
+        "loaded = [m for m, v in sys.modules.items() if v is not None and\n"
+        "          m.split('.')[0] in ('jax', 'jaxlib', 'suitesparse_tpu')]\n"
+        "assert loaded == [], loaded\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stderr
+    lines = res.stdout.split("\n")
+    assert lines[0].startswith("12 auto True")       # the device path
+    assert lines[1].startswith("12 classic True")
+    assert lines[2].startswith("5 auto False")       # the host path
+
+
+@pytest.mark.parametrize("name", sorted(PROBLEMS))
+def test_ordering_analysis_plan_and_manifests_equal_the_reference(
+        name, monkeypatch):
+    monkeypatch.setenv("SSTPU_PLACE", "tile")
+    monkeypatch.setenv("SSTPU_TILE_RMIN", "32")
+    Aj, A = PROBLEMS[name](sst), PROBLEMS[name](sstt)
+    pj = nested_dissection_order(Aj, sst.DEFAULT)
+    p = sstt.ordering.nested_dissection_order(A, sstt.DEFAULT)
+    assert np.array_equal(p, pj)
+    Sj, S = analyze_supernodal(Aj, pj), port_analyze_supernodal(A, p)
+    assert np.array_equal(S.perm, Sj.perm)
+    assert np.array_equal(S.super_first, Sj.super_first)
+    assert len(S.rows) == len(Sj.rows) and all(
+        np.array_equal(r, rj) for r, rj in zip(S.rows, Sj.rows))
+    assert len(S.levels) == len(Sj.levels) and all(
+        np.array_equal(v, vj) for v, vj in zip(S.levels, Sj.levels))
+    assert (S.lnz, S.fl) == (Sj.lnz, Sj.fl)
+
+    Pj = ref_device.build_plan(Sj, Aj.symperm(Sj.perm).transpose())
+    P = supernodal_device.build_plan(S, A.symperm(S.perm).transpose(),
+                                     tile_rmin=32)
+    groups_j = [g for gl in Pj.groups for g in gl]
+    groups = [g for gl in P.groups for g in gl]
+    assert [len(gl) for gl in P.groups] == [len(gl) for gl in Pj.groups]
+    assert [(g.R, g.C, g.B, g.panel_base) for g in groups] == \
+        [(g.R, g.C, g.B, g.panel_base) for g in groups_j]
+    assert P.dev_size == Pj.dev_size
+    n_tiles = 0
+    for g, gj in zip(groups, groups_j):
+        assert (g._tile is None) == (gj._tile is None)
+        if g._tile is None:
+            continue
+        n_tiles += 1
+        for field in ("man", "rowmap", "colmap"):
+            assert np.array_equal(getattr(g._tile, field),
+                                  getattr(gj._tile, field))
+        assert g._tile.folded == gj._tile.folded
+        assert (g._tile.RUp, g._tile.nslots) == (gj._tile.RUp,
+                                                  gj._tile.nslots)
+        assert g._symm_u == gj._symm_u
+    assert n_tiles >= 2
+
+
+def test_amd_and_best_orderings_equal_the_reference():
+    Aj = sst.io.fixtures.fem_mesh_spd(800)
+    A = sstt.fixtures.fem_mesh_spd(800)
+    assert np.array_equal(sstt.analyze(A).perm, sst.analyze(Aj).perm)
+    best = sstt.Ordering.BEST
+    assert np.array_equal(
+        sstt.analyze(A, sstt.DEFAULT.replace(ordering=best)).perm,
+        sst.analyze(Aj, sst.DEFAULT.replace(ordering=sst.Ordering.BEST)).perm)
+
+
+def test_host_library_builds_into_the_ignored_lib_dir():
+    cmd = native.build_command()
+    assert cmd[0] == "g++" and "-march=native" in cmd and "-shared" in cmd
+    assert cmd[cmd.index("-o") + 1] == os.path.join(PORT, "native", "lib",
+                                                    "libsst_host.so")
+    assert sorted(os.path.basename(c) for c in cmd if c.endswith(".cc")) == [
+        "amd.cc", "hsolve.cc", "nd.cc", "super.cc", "symbolic.cc"]
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        assert "suitesparse_tpu_torch/native/lib/" in f.read().split()

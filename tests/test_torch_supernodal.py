@@ -2,7 +2,9 @@
 
 The reference ``factorize_device`` runs as its own tests run it off the
 TPU: tile placement for groups with R >= 32 and both Pallas kernels in
-interpret mode. The port builds the same plan (``tile_rmin=32``) and writes
+interpret mode. Each side analyzes the same matrix with its own code; the
+port takes the reference's ordering (``perm``) so that the two factor the
+same permuted matrix, builds the same plan (``tile_rmin=32``) and writes
 the same padded layout, so the factors compare entry by entry.
 
 Tolerances: fp32 at 1e-5 * max|Lx| — the groups that miss the potrf_trsm
@@ -17,13 +19,17 @@ from suitesparse_tpu.io import fixtures
 from suitesparse_tpu.numeric import supernodal_device as ref_device
 from suitesparse_tpu.ordering import nested_dissection_order
 from suitesparse_tpu.symbolic.supernodes import analyze_supernodal
+import suitesparse_tpu_torch as sstt
 from suitesparse_tpu_torch.numeric import supernodal_device
+from suitesparse_tpu_torch.symbolic.supernodes import \
+    analyze_supernodal as port_analyze_supernodal
 
+# each fixture built by both packages' generators (same matrix)
 FIXTURES = {
-    "laplacian_3d_12": lambda: fixtures.laplacian_3d(12),
-    "aniso_10": lambda: fixtures.anisotropic_laplacian_3d(
+    "laplacian_3d_12": lambda fx: fx.laplacian_3d(12),
+    "aniso_10": lambda fx: fx.anisotropic_laplacian_3d(
         10, grade=2.0, drop_tol=1e-3),
-    "fem_1500": lambda: fixtures.fem_mesh_spd(1500),
+    "fem_1500": lambda fx: fx.fem_mesh_spd(1500),
 }
 TOL = {"float32": 1e-5, "float64": 1e-10}
 
@@ -34,21 +40,33 @@ def _reference_env(monkeypatch):
     monkeypatch.setenv("SSTPU_TILE_RMIN", "32")
 
 
-def _both(A, config, monkeypatch):
+def _port_analysis(name):
+    """The port's own analysis of fixture ``name`` on the port's ordering."""
+    At = FIXTURES[name](sstt.fixtures)
+    S = port_analyze_supernodal(
+        At, sstt.ordering.nested_dissection_order(At, sstt.DEFAULT))
+    return At, S
+
+
+def _both(make, dtype, monkeypatch):
+    """Reference and port factors of the matrix ``make(fixtures)``."""
     _reference_env(monkeypatch)
+    A = make(fixtures)
     S = analyze_supernodal(A, nested_dissection_order(A, sst.DEFAULT))
-    Fj = ref_device.factorize_device(A, S, config)
-    Ft = supernodal_device.factorize_device(A, S, config, device="cpu",
-                                            tile_rmin=32)
-    return S, Fj, Ft
+    Fj = ref_device.factorize_device(
+        A, S, sst.DEFAULT.replace(compute_dtype=dtype))
+    At = make(sstt.fixtures)
+    St = port_analyze_supernodal(At, S.perm)
+    Ft = supernodal_device.factorize_device(
+        At, St, sstt.DEFAULT.replace(compute_dtype=dtype), device="cpu",
+        tile_rmin=32)
+    return St, Fj, Ft
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
 @pytest.mark.parametrize("name", sorted(FIXTURES))
 def test_factor_matches_reference(name, dtype, monkeypatch):
-    A = FIXTURES[name]()
-    config = sst.DEFAULT.replace(compute_dtype=dtype)
-    S, Fj, Ft = _both(A, config, monkeypatch)
+    S, Fj, Ft = _both(FIXTURES[name], dtype, monkeypatch)
     assert Fj.ok and Ft.ok
     assert Ft.Lx.dtype == getattr(__import__("torch"), dtype)
     groups = [g for gl in Ft.dplan.plan.groups for g in gl]
@@ -65,8 +83,7 @@ def test_laplacian_runs_both_kernels_plain(monkeypatch):
     """At this size the port's plan sends groups through both kernels (the
     plain versions on the CPU), so the parity above covers them."""
     import torch
-    A = FIXTURES["laplacian_3d_12"]()
-    S = analyze_supernodal(A, nested_dissection_order(A, sst.DEFAULT))
+    A, S = _port_analysis("laplacian_3d_12")
     dp = supernodal_device.device_plan(A, S, torch.device("cpu"), 32)
     groups = [g for gl in dp.plan.groups for g in gl]
     assert sum(g._tile is not None for g in groups) >= 2
@@ -75,16 +92,15 @@ def test_laplacian_runs_both_kernels_plain(monkeypatch):
 
 
 def test_minor_matches_reference(monkeypatch):
-    A = fixtures.laplacian_3d(8, shift=-3.0)      # indefinite
-    S, Fj, Ft = _both(A, sst.DEFAULT, monkeypatch)
+    S, Fj, Ft = _both(lambda fx: fx.laplacian_3d(8, shift=-3.0),  # indefinite
+                      "float32", monkeypatch)
     assert not Fj.ok
     assert Ft.minor == Fj.minor < S.n
 
 
 def test_plan_cache_keys_on_tile_threshold_and_device():
     import torch
-    A = FIXTURES["laplacian_3d_12"]()
-    S = analyze_supernodal(A, nested_dissection_order(A, sst.DEFAULT))
+    A, S = _port_analysis("laplacian_3d_12")
     cpu = torch.device("cpu")
     p32 = supernodal_device.device_plan(A, S, cpu, 32)
     assert supernodal_device.device_plan(A, S, cpu, 32) is p32
@@ -92,6 +108,5 @@ def test_plan_cache_keys_on_tile_threshold_and_device():
     assert p256 is not p32
     assert p256.device == p32.device == cpu
     assert set(S._torch_plan) == {(32, "cpu"), (256, "cpu")}
-    assert getattr(S, "_device_plan", None) is None   # reference's slot
     assert not any(g._tile is not None and g.R < 256
                    for gl in p256.plan.groups for g in gl)
