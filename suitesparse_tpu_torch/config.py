@@ -2,8 +2,9 @@
 
 The fields of the JAX package's ``Config`` that the port reads, with the
 same defaults (the reference's numerical contract, ``cholmod_core.h:456-510``),
-plus the port's own knob ``solve_mode``. The port takes no ``SSTPU_*``
-environment variables.
+plus the port's own knob ``solve_mode`` and the fields that stand for the
+reference's opt-in kernel switches (``tile_pair``, ``solve_pmv``,
+``solve_bmv``). The port takes no ``SSTPU_*`` environment variables.
 """
 
 from __future__ import annotations
@@ -69,6 +70,16 @@ class Config:
     #   "classic" triangular solves on the factor's own panels (K3 solve_step
     #             and K4 trisolve kernels), no extra copy.
     solve_mode: str = "auto"
+    # opt-in kernel routes, the counterparts of the reference's
+    # SSTPU_TILE_PAIR, SSTPU_SOLVE_PMV and SSTPU_SOLVE_BMV (all default off):
+    #   tile_pair  two pieces per tiled extend-add step (K2b kernel);
+    #   solve_pmv  w2 groups with B <= 32 and big panels apply W2 through
+    #              the streaming panel matvec (K5; keeps W2^T as well);
+    #   solve_bmv  w2 groups with B >= 32 apply W2 through the batched
+    #              matvec (K6).
+    tile_pair: bool = False
+    solve_pmv: bool = False
+    solve_bmv: bool = False
 
     # ----- diagnostics -----
     check_inputs: bool = True        # assert the analysis input is sym=1

@@ -41,6 +41,15 @@ _SIGNATURES = {
     "sst_potrf_trsm": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
     # F, Ucat, man, rowmap, colmap, run_ptr, nruns, R, RUp, stream
     "sst_extend_add_tiles": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+    # the same, two pieces per step
+    "sst_extend_add_tiles_pair": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
+                                  _vp],
+    # F, child, idx, dst, np, B, R, RU, stream
+    "sst_extend_add": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
+    # M, X, Z, B, I, J, NR, transpose, stream
+    "sst_bmatvec": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+    # M, X, Z, B, K, N, NR, stream
+    "sst_pmatvec": [_vp, _vp, _vp, _i, _i, _i, _i, _vp],
     # L, Y, X, B, C, NR, transpose, stream
     "sst_trisolve": [_vp, _vp, _vp, _i, _i, _i, _i, _vp],
     # L11, L21, l21_bstride, Y, WB, wb_bstride, XC, V, B, C, RU, NR, stream

@@ -1,20 +1,26 @@
-"""Tiled multifrontal extend-add: CUDA kernel + plain version.
+"""Tiled multifrontal extend-add: CUDA kernels + plain version.
 
-Port of the one-piece form of :mod:`suitesparse_tpu.kernels.extend_add_tiles`.
-The manifest (``build_group_manifest``, the reference's host builder,
-copied; 10 columns):
+Port of :mod:`suitesparse_tpu.kernels.extend_add_tiles`, both forms. The
+manifest (``build_group_manifest``, the reference's host code, copied)
+has one piece per step (10 columns):
 
     0 slot  1 tr  2 tc  3 init  4 has_piece  5 uslot  6 blkr  7 blkr2
     8 blkc  9 blkc2
 
-Each step adds one child update ("piece") into one lower 128 x 128 tile
-(slot, tr, tc) of the parent fronts F: tile row i takes Ucat row
-``(rm[i] < 128 ? blkr : blkr2) * 128 + rm[i] % 128`` of child slot ``uslot``,
-columns likewise; -1 in a map means no entry, and a non-finite child cell
-counts as zero. Steps of one tile are consecutive; ``run_ptr`` holds the
-first step of each tile's run (``man[:, 3] == 1``) and, last, the step count.
-F is updated IN PLACE: unvisited tiles keep their content, which replaces
-the TPU kernel's input/output aliasing.
+or, with ``npiece=2`` (``_pair_manifest``), two pieces per step
+(14 columns):
+
+    0 slot  1 tr  2 tc  3 init
+    4 u0  5 br0  6 br20  7 bc0  8 bc20   9 u1  10 br1  11 br21  12 bc1  13 bc21
+
+where a dead second piece has all-(-1) maps. Each piece adds one child
+update into one lower 128 x 128 tile (slot, tr, tc) of the parent fronts F:
+tile row i takes Ucat row ``(rm[i] < 128 ? blkr : blkr2) * 128 + rm[i] % 128``
+of child slot ``uslot``, columns likewise; -1 in a map means no entry, and a
+non-finite child cell counts as zero. Steps of one tile are consecutive;
+``run_ptr`` holds the first step of each tile's run (``man[:, 3] == 1``)
+and, last, the step count. F is updated IN PLACE: unvisited tiles keep
+their content, which replaces the TPU kernel's input/output aliasing.
 """
 
 from __future__ import annotations
@@ -35,9 +41,9 @@ _PLAIN_CHUNK = 512     # manifest steps per gather in the plain version
 
 @dataclasses.dataclass
 class TileManifest:
-    man: np.ndarray        # (NS, 10) int32 step table (columns above)
-    rowmap: np.ndarray     # (NS, 1, T) int32 in-window row map (-1 = none)
-    colmap: np.ndarray     # (NS, 1, T) int32
+    man: np.ndarray        # (NS, 10 or 14) int32 step table (columns above)
+    rowmap: np.ndarray     # (NS, npiece, T) int32 in-window row map, -1 none
+    colmap: np.ndarray     # (NS, npiece, T) int32
     RUp: int               # Ucat padded child size (TILE multiple)
     nslots: int            # Ucat slots (total folded pairs)
     uslices: list          # [(class_i, k0, (src_level, src_gi), RU_c, src)]
@@ -52,9 +58,11 @@ def _class_tiles(iv: np.ndarray, T: int):
     return tiles, bounds
 
 
-def build_group_manifest(g, T: int = TILE, ru_min_frac: float = 0.5):
-    """The one-piece tile manifest of one GroupPlan, or None if no class
-    folds.
+def build_group_manifest(g, T: int = TILE, ru_min_frac: float = 0.5,
+                         npiece: int = 1):
+    """The tile manifest of one GroupPlan, or None if no class folds;
+    ``npiece=2`` merges consecutive same-tile pieces into two-piece steps
+    (:func:`_pair_manifest`).
 
     A pair class folds iff RU_c >= ru_min_frac * RUp or RU_c >= 2T
     (zero-padding every child to the largest folded size must not
@@ -115,14 +123,41 @@ def build_group_manifest(g, T: int = TILE, ru_min_frac: float = 0.5):
                     cmaps.append(cm)
     if not man:
         return None
+    if npiece == 2:
+        return _pair_manifest(man, rmaps, cmaps, T, RUp, k0, uslices, folded)
     return TileManifest(man=np.asarray(man, np.int32),
                         rowmap=np.stack(rmaps)[:, None, :],
                         colmap=np.stack(cmaps)[:, None, :],
                         RUp=RUp, nslots=k0, uslices=uslices, folded=folded)
 
 
+def _pair_manifest(man, rmaps, cmaps, T, RUp, k0, uslices, folded):
+    """Merge consecutive same-tile pieces into two-piece steps (14 columns,
+    maps (NS, 2, T)); the second piece of an odd tail is dead: zero block
+    coordinates and all-(-1) maps, so it adds nothing."""
+    dead = np.full(T, -1, np.int32)
+    man2, rm2, cm2 = [], [], []
+    i = 0
+    while i < len(man):
+        a = man[i]
+        if i + 1 < len(man) and man[i + 1][:3] == a[:3]:
+            b = man[i + 1]
+            man2.append(a[:4] + a[5:] + b[5:])
+            rm2.append(np.stack([rmaps[i], rmaps[i + 1]]))
+            cm2.append(np.stack([cmaps[i], cmaps[i + 1]]))
+            i += 2
+        else:
+            man2.append(a[:4] + a[5:] + [0, 0, 0, 0, 0])
+            rm2.append(np.stack([rmaps[i], dead]))
+            cm2.append(np.stack([cmaps[i], dead]))
+            i += 1
+    return TileManifest(man=np.asarray(man2, np.int32),
+                        rowmap=np.stack(rm2), colmap=np.stack(cm2),
+                        RUp=RUp, nslots=k0, uslices=uslices, folded=folded)
+
+
 def run_ptr(man: np.ndarray) -> np.ndarray:
-    """CSR offsets of the tile runs of a one-piece manifest (int32)."""
+    """CSR offsets of the tile runs of a manifest of either form (int32)."""
     starts = np.flatnonzero(man[:, 3] == 1)
     return np.concatenate([starts, [man.shape[0]]]).astype(np.int32)
 
@@ -131,8 +166,22 @@ def _child_index(v, blk, blk2):
     return torch.where(v < TILE, blk, blk2) * TILE + v % TILE
 
 
+def _one_piece(man, rowmap, colmap):
+    """A two-piece manifest as one piece per row (10 columns; a dead piece
+    keeps its all-(-1) maps and adds nothing)."""
+    NS = man.shape[0]
+    head = torch.cat([man[:, :4], torch.ones_like(man[:, :1])], dim=1)
+    pieces = [torch.cat([head, man[:, 4 + 5 * p:9 + 5 * p]], dim=1)
+              for p in range(2)]
+    return (torch.stack(pieces, dim=1).reshape(2 * NS, 10),
+            rowmap.reshape(2 * NS, 1, TILE), colmap.reshape(2 * NS, 1, TILE))
+
+
 def extend_add_tiles_plain(F, Ucat, man, rowmap, colmap):
-    """The manifest's extend-add with index tensors (in place; returns F)."""
+    """The manifest's extend-add with index tensors, either form (in place;
+    returns F)."""
+    if man.shape[1] == 14:
+        man, rowmap, colmap = _one_piece(man, rowmap, colmap)
     B, R, _ = F.shape
     RUp = Ucat.shape[1]
     Ff = F.view(-1)
@@ -163,13 +212,14 @@ def extend_add_tiles_plain(F, Ucat, man, rowmap, colmap):
 def extend_add_tiles(F, Ucat, man, rowmap, colmap, runs):
     """F (B, R, R) += the manifest's pieces of Ucat (K, RUp, RUp), in place.
 
-    ``man`` (NS, 10), ``rowmap``/``colmap`` (NS, 1, 128) and ``runs`` (the
-    :func:`run_ptr` offsets) are int32 tensors on F's device. A CPU F takes
-    :func:`extend_add_tiles_plain`; a CUDA F launches the kernel, one block
-    per visited tile, or raises."""
+    ``man`` (NS, 10) with ``rowmap``/``colmap`` (NS, 1, 128), or ``man``
+    (NS, 14) with maps (NS, 2, 128), and ``runs`` (the :func:`run_ptr`
+    offsets) are int32 tensors on F's device. A CPU F takes
+    :func:`extend_add_tiles_plain`; a CUDA F launches the one-piece or the
+    two-piece kernel, one block per visited tile, or raises."""
     if F.device.type == "cpu":
         return extend_add_tiles_plain(F, Ucat, man, rowmap, colmap)
-    NS = man.shape[0]
+    NS, ncols = man.shape
     B, R, R2 = F.shape
     K, RUp, RUp2 = Ucat.shape
     if F.device.type != "cuda" or F.dtype != torch.float32 \
@@ -181,9 +231,13 @@ def extend_add_tiles(F, Ucat, man, rowmap, colmap, runs):
         raise ValueError(f"extend_add_tiles: F {tuple(F.shape)} and Ucat "
                          f"{tuple(Ucat.shape)} must be contiguous square "
                          f"blocks, RUp a multiple of {TILE}")
-    for name, t, shape in (("man", man, (NS, 10)),
-                           ("rowmap", rowmap, (NS, 1, TILE)),
-                           ("colmap", colmap, (NS, 1, TILE))):
+    if ncols not in (10, 14):
+        raise ValueError(f"extend_add_tiles: man has {ncols} columns, not 10 "
+                         f"(one piece a step) or 14 (two)")
+    npiece = 1 if ncols == 10 else 2
+    for name, t, shape in (("man", man, (NS, ncols)),
+                           ("rowmap", rowmap, (NS, npiece, TILE)),
+                           ("colmap", colmap, (NS, npiece, TILE))):
         if t.dtype != torch.int32 or tuple(t.shape) != shape \
                 or not t.is_contiguous() or t.device != F.device:
             raise ValueError(f"extend_add_tiles: {name} must be contiguous "
@@ -196,14 +250,19 @@ def extend_add_tiles(F, Ucat, man, rowmap, colmap, runs):
     if nruns <= 0:
         return F
     lib = _build.load()
+    entry = lib.sst_extend_add_tiles if npiece == 1 \
+        else lib.sst_extend_add_tiles_pair
     with torch.cuda.device(F.device):
-        err = lib.sst_extend_add_tiles(
-            F.data_ptr(), Ucat.data_ptr(), man.data_ptr(), rowmap.data_ptr(),
-            colmap.data_ptr(), runs.data_ptr(), nruns, R, RUp,
-            torch.cuda.current_stream().cuda_stream)
+        err = entry(F.data_ptr(), Ucat.data_ptr(), man.data_ptr(),
+                    rowmap.data_ptr(), colmap.data_ptr(), runs.data_ptr(),
+                    nruns, R, RUp, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "extend_add_tiles")
-    extend_add_tiles.launches += 1
+    if npiece == 1:
+        extend_add_tiles.launches += 1
+    else:
+        extend_add_tiles.pair_launches += 1
     return F
 
 
-extend_add_tiles.launches = 0
+extend_add_tiles.launches = 0        # one-piece kernel (K2)
+extend_add_tiles.pair_launches = 0   # two-piece kernel (K2b)

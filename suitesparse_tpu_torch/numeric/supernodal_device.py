@@ -10,8 +10,9 @@ layout (each group's (B, R, C) panels at ``panel_base``, ``dev_size`` cells
 in all), so the two factors compare entry by entry.
 
 Per group: A's values are scattered into the fronts F; child updates whose
-parent group has a tile manifest are added by the tiled extend-add kernel,
-the other pair classes by direct indexing; the fronts are factored by the
+parent group has a tile manifest are added by the tiled extend-add kernel
+(one piece per manifest step, or two with ``Config.tile_pair``), the
+other pair classes by direct indexing; the fronts are factored by the
 fused potrf+trsm kernel where its gate passes (B >= 32, C <= 96, fp32) and
 by ``cholesky_ex`` + ``solve_triangular`` elsewhere; the update
 U = F22 - L21 L21^T goes up to the parent group.
@@ -352,12 +353,13 @@ def _find_minor(S, plan, Lxdev) -> int:
 
 
 def build_plan(S: SupernodalSymbolic, C_low: CSC,
-               tile_rmin: int = TILE_RMIN) -> Plan:
+               tile_rmin: int = TILE_RMIN, tile_pair: bool = False) -> Plan:
     """The device plan, with tile manifests attached explicitly.
 
-    Groups with ``R >= tile_rmin`` get the one-piece manifest that folds
-    every pair class (the reference's defaults for its tile placement);
-    ``g._tile_runs`` holds the manifest's :func:`run_ptr` offsets."""
+    Groups with ``R >= tile_rmin`` get the manifest that folds every pair
+    class (the reference's defaults for its tile placement), one piece per
+    step, or two with ``tile_pair``; ``g._tile_runs`` holds the manifest's
+    :func:`run_ptr` offsets."""
     level_layouts = []
     place = {}
     panel_off = 0
@@ -385,7 +387,8 @@ def build_plan(S: SupernodalSymbolic, C_low: CSC,
     for glist in plan.groups:
         for g in glist:
             if g.R >= tile_rmin:
-                g._tile = build_group_manifest(g, T=128, ru_min_frac=0.0)
+                g._tile = build_group_manifest(g, T=128, ru_min_frac=0.0,
+                                               npiece=2 if tile_pair else 1)
                 if g._tile is not None:
                     g._tile_runs = run_ptr(g._tile.man)
     _mark_symmetrize(plan)
@@ -444,20 +447,22 @@ def _upload(plan: Plan, device: torch.device) -> DevicePlan:
 
 
 def device_plan(A: CSC, S: SupernodalSymbolic, device: torch.device,
-                tile_rmin: int = TILE_RMIN) -> DevicePlan:
+                tile_rmin: int = TILE_RMIN,
+                tile_pair: bool = False) -> DevicePlan:
     """The plan for ``S`` (the analysis of ``A``) on ``device``, built and
     uploaded once.
 
     Cached on ``S._torch_plan``, keyed by everything that changes it: the
-    tile threshold and the device."""
+    tile threshold, the manifest form and the device."""
     cache = getattr(S, "_torch_plan", None)
     if cache is None:
         cache = {}
         S._torch_plan = cache
-    key = (int(tile_rmin), str(device))
+    key = (int(tile_rmin), bool(tile_pair), str(device))
     if key not in cache:
         C_low = A.symperm(S.perm).transpose()
-        cache[key] = _upload(build_plan(S, C_low, tile_rmin), device)
+        cache[key] = _upload(build_plan(S, C_low, tile_rmin, tile_pair),
+                             device)
     return cache[key]
 
 
@@ -567,13 +572,14 @@ def factorize_device(A: CSC, S: SupernodalSymbolic, config: Config = DEFAULT,
                      device="cuda", tile_rmin: int = TILE_RMIN):
     """A(p,p) = L L^T on ``device``; a TorchSupernodalFactor (device layout).
 
-    ``minor`` follows the cholmod contract: the first column of the first
+    ``config.tile_pair`` picks the two-piece tile manifests. ``minor``
+    follows the cholmod contract: the first column of the first
     supernode whose panel is not finite, or n on success."""
     from .supernodal import TorchSupernodalFactor
 
     dev = resolve_device(device)
     dtype = compute_dtype(config)
-    dp = device_plan(A, S, dev, tile_rmin)
+    dp = device_plan(A, S, dev, tile_rmin, config.tile_pair)
     Cdata = torch.as_tensor(_clow_data(A, S), device=dev).to(dtype)
     with fp32_precision(config.precision):
         Lx = _run_plan(dp, Cdata, dtype)

@@ -8,8 +8,13 @@ sweeps walk the factor plan's groups leaves -> root (forward) and back
 
 * ``w2`` (the reference's default on its accelerator): once per factor,
   every group gets the stacked panel W2 = [W ; L21 W] with W = L11^-1
-  (identity on padding), and each step is one batched matmul:
-  forward ``[xc ; v] = W2 yc``, backward ``xc = W2^T [yc ; -xb]``.
+  (identity on padding), and each step is one batched matvec:
+  forward ``[xc ; v] = W2 yc``, backward ``xc = W2^T [yc ; -xb]``. Per call
+  and group, ``w2_route`` picks the code: ``torch.bmm`` (the reference's
+  plain matmul), or with ``Config.solve_pmv`` / ``solve_bmv`` at nrhs <= 8
+  the streaming panel matvec K5 (``kernels/pmatvec``, big panels of small
+  batch; W2^T is kept beside W2 for its forward step) or the batched matvec
+  K6 (``kernels/bmatvec``, large batch; reads W2 in both directions).
 * ``classic`` (the reference's solve everywhere else, and its fallback
   where W2 does not fit): triangular solves on the factor's own panels.
   A group with below rows, B >= 8, C <= 96 and fp32 runs the fused K3
@@ -21,8 +26,9 @@ sweeps walk the factor plan's groups leaves -> root (forward) and back
 Contributions move child -> parent along the factor plan's pair classes:
 forward, each class's pass-up rows are added into the parent's vector with
 ``index_add_``; backward, each child gathers its rows of the parent's x.
-The reference's class-sorted routing and its opt-in solve modes are not
-ported (see ROADMAP).
+The reference's class-sorted routing and its other opt-in solve modes
+(inverse panels without W2, the coarse plans) are not ported (see
+ROADMAP).
 """
 
 from __future__ import annotations
@@ -34,13 +40,20 @@ import torch
 
 from ..config import DEFAULT, SOLVE_MODES, Config
 from ..device import fp32_precision
+from ..kernels.bmatvec import bmatvec, bmv_fits
+from ..kernels.pmatvec import pmatvec_t
 from ..kernels.solve_step import solve_step_bwd, solve_step_fwd, step_fits
 from ..kernels.trisolve import batched_trisolve, trisolve_fits
 from ..symbolic.supernodes import SupernodalSymbolic
 from .supernodal_device import DevicePlan, _use_potrf_kernel, compute_dtype
 
-__all__ = ["SolvePlan", "build_solve_plan", "build_w2", "classic_route",
-           "solve_device", "solve_mode"]
+__all__ = ["BMV_MIN_BATCH", "PMV_MIN_CELLS", "SolvePlan", "build_solve_plan",
+           "build_w2", "classic_route", "solve_device", "solve_mode",
+           "w2_route"]
+
+# the reference's defaults of SSTPU_PMV_MIN_CELLS and SSTPU_BMV_BMIN
+PMV_MIN_CELLS = 1 << 20   # K5 takes a group of at least this many cells
+BMV_MIN_BATCH = 32        # K6 takes a group of at least this batch
 
 
 @dataclasses.dataclass
@@ -147,7 +160,9 @@ def build_w2(splan: SolvePlan, Lx: torch.Tensor, dtype) -> list:
     """W2[d][gi] = [W ; L21 W] (B, R, C), W = L11^{-1}, for every group.
 
     Built once per factor in true fp32 whatever the configured precision:
-    an error baked into W2 reaches every later solve."""
+    an error baked into W2 reaches every later solve. Each W2 is contiguous
+    (``solve_triangular`` returns column-major W), as the K5 and K6 kernels
+    read it."""
     out = []
     with fp32_precision("highest"):
         for sglist in splan.groups:
@@ -158,9 +173,29 @@ def build_w2(splan: SolvePlan, Lx: torch.Tensor, dtype) -> list:
                 W = torch.linalg.solve_triangular(
                     L11, eye.expand(sg.B, sg.C, sg.C), upper=False)
                 row.append(torch.cat([W, torch.bmm(L21, W)], dim=1)
-                           if sg.R > sg.C else W)
+                           if sg.R > sg.C else W.contiguous())
             out.append(row)
     return out
+
+
+def w2_route(B: int, R: int, C: int, nrhs: int,
+             config: Config = DEFAULT) -> str:
+    """Which code applies a group's W2 (B, R, C) in the w2 sweep:
+    ``"pmv"`` (K5), ``"bmv"`` (K6) or ``"matmul"`` (``torch.bmm``).
+
+    The reference's gates in its order, pmv first (``build_winv``): pmv
+    needs ``config.solve_pmv``, B <= 32, nrhs <= 8 and B*R*C >=
+    ``PMV_MIN_CELLS``; bmv needs ``config.solve_bmv``, B >=
+    ``BMV_MIN_BATCH``, nrhs <= 8 and :func:`bmv_fits`. Both kernels are
+    fp32. The reference's padding-ratio and VMEM clauses (``_use_pmv``,
+    ``_use_bmv``) are TPU layout and are dropped."""
+    if compute_dtype(config) != torch.float32 or nrhs > 8:
+        return "matmul"
+    if config.solve_pmv and B <= 32 and B * R * C >= PMV_MIN_CELLS:
+        return "pmv"
+    if config.solve_bmv and B >= BMV_MIN_BATCH and bmv_fits(R, C, nrhs):
+        return "bmv"
+    return "matmul"
 
 
 def classic_route(dtype: torch.dtype, B: int, C: int, RU: int,
@@ -186,15 +221,40 @@ def _trisolve(route: str, L11, Y, transpose: bool):
     return torch.linalg.solve_triangular(L11, Y, upper=False)
 
 
-def _w2_steps(W2: list):
-    """(forward, backward) group steps of the w2 sweep."""
+def build_w2t(splan: SolvePlan, W2: list, config: Config) -> list:
+    """W2t[d][gi] = W2^T (B, C, R) for the groups ``w2_route`` sends to K5
+    at nrhs = 1 (the route of every nrhs <= 8), else None: K5 reduces over
+    the panel's leading axis, so its forward step reads W2^T."""
+    return [[W2[d][gi].mT.contiguous()
+             if w2_route(sg.B, sg.R, sg.C, 1, config) == "pmv" else None
+             for gi, sg in enumerate(sglist)]
+            for d, sglist in enumerate(splan.groups)]
+
+
+def _w2_steps(splan: SolvePlan, W2: list, W2t: list, nrhs: int,
+              config: Config):
+    """(forward, backward) group steps of the w2 sweep at ``nrhs``."""
+    routes = [[w2_route(sg.B, sg.R, sg.C, nrhs, config) for sg in sglist]
+              for sglist in splan.groups]
+
     def fwd(d, gi, yc, wb):
-        z = torch.bmm(W2[d][gi], yc)
+        route = routes[d][gi]
+        if route == "pmv":
+            z = pmatvec_t(W2t[d][gi], yc)
+        elif route == "bmv":
+            z = bmatvec(W2[d][gi], yc)
+        else:
+            z = torch.bmm(W2[d][gi], yc)
         C = yc.shape[1]
         return z[:, :C], (None if wb is None else z[:, C:] + wb)
 
     def bwd(d, gi, yc, xb):
         yin = yc if xb is None else torch.cat([yc, -xb], dim=1)
+        route = routes[d][gi]
+        if route == "pmv":
+            return pmatvec_t(W2[d][gi], yin)
+        if route == "bmv":
+            return bmatvec(W2[d][gi], yin, transpose=True)
         return torch.bmm(W2[d][gi].mT, yin)
 
     return fwd, bwd
@@ -283,16 +343,25 @@ def _mf_solve_fn(dp: DevicePlan, rt: SolveRouting, pb: torch.Tensor,
                       for gi in range(len(plan.groups[d]))])
 
 
-def _w2_fits(F, dtype) -> bool:
+def _w2_need(plan, dtype, config: Config) -> int:
+    """Bytes the w2 state asks of the device: W2 (one more factor-sized
+    buffer) plus the W2^T copies of the K5 groups, each counted twice (as
+    much again must stay free for their build and the sweeps)."""
+    cells = sum(g.B * g.R * g.C * (
+        2 if w2_route(g.B, g.R, g.C, 1, config) == "pmv" else 1)
+        for glist in plan.groups for g in glist)
+    return 2 * cells * torch.empty((), dtype=dtype).itemsize
+
+
+def _w2_fits(F, dtype, config: Config) -> bool:
     """The reference's W2 capacity gate (``_winv_fits`` and
-    ``SSTPU_W2_MAX_CELLS``) on the card's memory: W2 is one more
-    factor-sized buffer, and as much again must stay free for its build and
-    the sweeps, out of the card's free memory (PyTorch's cached free blocks
-    included). A CPU factor always fits."""
+    ``SSTPU_W2_MAX_CELLS``) on the card's memory: :func:`_w2_need` out of
+    the card's free memory (PyTorch's cached free blocks included). A CPU
+    factor always fits."""
     dev = F.Lx.device
     if dev.type != "cuda":
         return True
-    need = 2 * F.dplan.plan.dev_size * torch.empty((), dtype=dtype).itemsize
+    need = _w2_need(F.dplan.plan, dtype, config)
     free, _total = torch.cuda.mem_get_info(dev)
     return need <= free + torch.cuda.memory_reserved(dev) \
         - torch.cuda.memory_allocated(dev)
@@ -309,26 +378,46 @@ def solve_mode(F, config: Config = DEFAULT) -> str:
     if mode == "classic":
         return mode
     dtype = compute_dtype(config)
-    built = F._solve.get(("w2", dtype))
-    if built is not None and built[0] is F.Lx:
+    if all(k in F._solve and F._solve[k][0] is F.Lx
+           for k in _w2_keys(dtype, config)):
         return "w2"
-    return "w2" if _w2_fits(F, dtype) else "classic"
+    return "w2" if _w2_fits(F, dtype, config) else "classic"
 
 
-def _solve_state(F, mode: str, dtype, splan: SolvePlan) -> list:
-    """Per-factor state of a sweep, cached on ``F._solve`` keyed on the mode
-    and the dtype and tied to the factor tensor: W2 for ``w2``, the
-    identity-padded L11 copies for ``classic``."""
-    key = (mode, dtype)
+def _w2_keys(dtype, config: Config) -> list:
+    """``F._solve`` keys of the w2 state: W2, and with ``solve_pmv`` the
+    W2^T copies, keyed on what picks their groups (the K5 threshold; K6
+    reads W2 as it is, so its threshold changes no state)."""
+    keys = [("w2", dtype)]
+    if config.solve_pmv:
+        keys.append(("w2t", dtype, PMV_MIN_CELLS))
+    return keys
+
+
+def _cached(F, key, build):
+    """``build()``, cached on ``F._solve[key]`` and tied to the factor
+    tensor."""
     c = F._solve.get(key)
     if c is None or c[0] is not F.Lx:
-        if mode == "w2":
-            state = build_w2(splan, F.Lx, dtype)
-        else:
-            state = [[_group_panels(F.Lx, sg, dtype)[0].contiguous()
-                      for sg in sglist] for sglist in splan.groups]
-        F._solve[key] = (F.Lx, state)
+        F._solve[key] = (F.Lx, build())
     return F._solve[key][1]
+
+
+def _solve_state(F, mode: str, dtype, splan: SolvePlan, config: Config):
+    """Per-factor state of a sweep, cached on ``F._solve``: for ``w2`` the
+    pair (W2, W2^T copies or None), for ``classic`` the identity-padded L11
+    copies. Every nrhs reads the same state; the routes are picked per
+    call."""
+    if mode == "classic":
+        return _cached(F, ("classic", dtype), lambda: [
+            [_group_panels(F.Lx, sg, dtype)[0].contiguous() for sg in sglist]
+            for sglist in splan.groups])
+    W2 = _cached(F, ("w2", dtype), lambda: build_w2(splan, F.Lx, dtype))
+    W2t = None
+    if config.solve_pmv:
+        W2t = _cached(F, _w2_keys(dtype, config)[1],
+                      lambda: build_w2t(splan, W2, config))
+    return W2, W2t
 
 
 def solve_device(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
@@ -342,12 +431,13 @@ def solve_device(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
     dtype = compute_dtype(config)
     rt = _routing(S, dp)
     mode = solve_mode(F, config)
-    state = _solve_state(F, mode, dtype, rt.splan)
-    steps = _w2_steps(state) if mode == "w2" else \
-        _classic_steps(rt.splan, F.Lx.to(dtype), state, dtype)
+    state = _solve_state(F, mode, dtype, rt.splan, config)
     b = np.asarray(b, dtype=np.float64)
     one_d = b.ndim == 1
     bb = b.reshape(-1, 1) if one_d else b
+    steps = _w2_steps(rt.splan, *state, bb.shape[1], config) \
+        if mode == "w2" else \
+        _classic_steps(rt.splan, F.Lx.to(dtype), state, dtype)
     pbp = np.concatenate([bb[S.perm], np.zeros((1, bb.shape[1]))], axis=0)
     with fp32_precision(config.precision):
         pb = torch.as_tensor(pbp, device=dp.device).to(dtype)

@@ -3,9 +3,14 @@
     python3 -m suitesparse_tpu_torch.prof
 
 On the model problem ``laplacian_3d(50)`` (n = 125,000, nested dissection,
-fp32, default tile threshold) it profiles five phases: ``factorize``, and
+fp32, default tile threshold) it profiles ``factorize`` (``factor``, and
+``factor_pair`` with the two-piece tile steps, ``tile_pair=True``), and
 ``solve`` at 1 and at 64 right-hand sides through the w2 sweep (the
-default) and through the classic sweep (``solve_mode="classic"``). Each
+default; ``solve1``, ``solve64``) and through the classic sweep
+(``solve_mode="classic"``; ``classic1``, ``classic64``), and at 1 and 8
+through the w2 sweep with its plain matmul (``solve8``) and with the K5 and
+K6 kernel routes (``solve_pmv=True, solve_bmv=True``; ``w2k1``, ``w2k8``).
+Each
 phase gets one warm call, the minimum of 3 unprofiled calls (host clock
 around the call, synchronized), then one call under ``torch.profiler``.
 Per phase it prints one JSON line:
@@ -149,11 +154,19 @@ def main() -> int:
     B64 = np.tile(b.reshape(-1, 1), (1, NRHS)) * (1.0 + np.arange(NRHS) / NRHS)
 
     profile_phase("factor", lambda: factorize(A, Ssim, cfg, device="cuda"))
+    pair = cfg.replace(tile_pair=True)
+    profile_phase("factor_pair",
+                  lambda: factorize(A, Ssim, pair, device="cuda"))
     profile_phase("solve1", lambda: solve(F, b, cfg))
     profile_phase("solve64", lambda: solve(F, B64, cfg))
     classic = cfg.replace(solve_mode="classic")
     profile_phase("classic1", lambda: solve(F, b, classic))
     profile_phase("classic64", lambda: solve(F, B64, classic))
+    kernels = cfg.replace(solve_pmv=True, solve_bmv=True)
+    B8 = B64[:, :8].copy()
+    profile_phase("solve8", lambda: solve(F, B8, cfg))
+    profile_phase("w2k1", lambda: solve(F, b, kernels))
+    profile_phase("w2k8", lambda: solve(F, B8, kernels))
     group_times(A, Ssim, cfg)
     return 0
 

@@ -109,8 +109,8 @@ def test_nvcc_command_targets_sm90a_into_the_ignored_build_dir():
     # one compile per source, run together, then one link of the objects
     srcs = [c for cmd in compiles for c in cmd if c.endswith(".cu")]
     assert sorted(os.path.basename(s) for s in srcs) == [
-        "extend_add_tiles.cu", "potrf_trsm.cu", "solve_step.cu",
-        "trisolve.cu"]
+        "bmatvec.cu", "extend_add.cu", "extend_add_tiles.cu", "pmatvec.cu",
+        "potrf_trsm.cu", "solve_step.cu", "trisolve.cu"]
     assert all("-c" in cmd for cmd in compiles)
     assert "-shared" in link
     assert link[link.index("-o") + 1] == os.path.join(build_dir,

@@ -136,7 +136,8 @@ def test_auto_gives_w2_and_the_cache_keys_on_the_mode(factors, monkeypatch):
     assert np.abs(x_auto - x_classic).max() <= X_TOL * np.abs(x_auto).max()
     # a card whose memory has no room for W2: auto takes the classic sweep
     # on a factor without W2, but keeps the W2 that is already built
-    monkeypatch.setattr(supernodal_solve, "_w2_fits", lambda F, dtype: False)
+    monkeypatch.setattr(supernodal_solve, "_w2_fits",
+                        lambda F, dtype, config: False)
     assert supernodal_solve.solve_mode(F, sstt.DEFAULT) == "w2"
     F2 = supernodal_device.factorize_device(A, F0.S, sstt.DEFAULT, "cpu",
                                             tile_rmin=32)

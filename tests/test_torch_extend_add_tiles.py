@@ -1,11 +1,19 @@
 """Port's tiled extend-add (plain version on the CPU) vs the Pallas kernel.
 
 Real manifests from the port's ``build_plan`` on its own analysis
-(``tile_rmin=32`` so small problems have tile groups), seeded fronts and child updates with NaN in some
-upper child cells. The reference kernel runs in Pallas interpret mode. Both
-add the same child cells into the same parent cells; only the order of the
-additions differs (the reference adds piece by piece into F, the port sums
-the pieces first), so lower tiles inside R are held to 1e-6 relative."""
+(``tile_rmin=32`` so small problems have tile groups), seeded fronts and
+child updates with NaN in some upper child cells. The reference kernel runs
+in Pallas interpret mode. Both add the same child cells into the same parent
+cells; only the order of the additions differs (the reference adds piece by
+piece into F, the port sums the pieces first), so lower tiles inside R are
+held to 1e-6 relative.
+
+The two-piece form (``tile_pair``): the port's manifests equal the
+reference's ``build_group_manifest(..., npiece=2)`` bit for bit, its plain
+extend-add equals the one-piece one, and the port's factor with
+``tile_pair=True`` matches the reference's with ``SSTPU_TILE_PAIR=1``
+within 2e-6 * max|Lx|, the reference's own tolerance for that form
+(``tests/test_extend_add_tiles.py``)."""
 
 import numpy as np
 import pytest
@@ -13,22 +21,33 @@ import pytest
 import jax.numpy as jnp
 import torch
 
+import suitesparse_tpu as sst
+from suitesparse_tpu.kernels.extend_add_tiles import \
+    build_group_manifest as build_group_manifest_ref
 from suitesparse_tpu.kernels.extend_add_tiles import \
     extend_add_tiles as extend_add_tiles_pallas
+from suitesparse_tpu.numeric import supernodal_device as ref_device
+from suitesparse_tpu.ordering import \
+    nested_dissection_order as ref_nested_dissection_order
+from suitesparse_tpu.symbolic.supernodes import \
+    analyze_supernodal as ref_analyze_supernodal
 import suitesparse_tpu_torch as sstt
 from suitesparse_tpu_torch.ordering import nested_dissection_order
 from suitesparse_tpu_torch.symbolic.supernodes import analyze_supernodal
 from suitesparse_tpu_torch.kernels.extend_add_tiles import (
     TILE, extend_add_tiles, extend_add_tiles_plain, run_ptr)
+from suitesparse_tpu_torch.numeric import supernodal_device
 from suitesparse_tpu_torch.numeric.supernodal_device import build_plan
 
 RTOL = 1e-6
+PAIR_TOL = 2e-6
 
 
-def _tile_groups(nx):
+def _tile_groups(nx, tile_pair=False):
     A = sstt.fixtures.laplacian_3d(nx)
     S = analyze_supernodal(A, nested_dissection_order(A, sstt.DEFAULT))
-    plan = build_plan(S, A.symperm(S.perm).transpose(), tile_rmin=32)
+    plan = build_plan(S, A.symperm(S.perm).transpose(), tile_rmin=32,
+                      tile_pair=tile_pair)
     return [g for gl in plan.groups for g in gl if g._tile is not None]
 
 
@@ -109,3 +128,75 @@ def test_run_ptr_marks_each_tile_run(nx):
         starts = man[rp[:-1], :3]
         assert len({tuple(r) for r in starts}) == len(starts)  # disjoint
         assert (man[:, 2] <= man[:, 1]).all()          # lower tiles only
+
+
+@pytest.mark.parametrize("nx", [10, 12])
+def test_pair_manifests_equal_the_reference(nx):
+    groups = _tile_groups(nx, tile_pair=True)
+    assert groups
+    for g in groups:
+        tm = g._tile
+        ref = build_group_manifest_ref(g, T=TILE, ru_min_frac=0.0, npiece=2)
+        assert tm.man.shape[1] == 14 and tm.rowmap.shape[1] == 2
+        for field in ("man", "rowmap", "colmap"):
+            got, want = getattr(tm, field), getattr(ref, field)
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+        assert (tm.RUp, tm.nslots, tm.folded) == (ref.RUp, ref.nslots,
+                                                  ref.folded)
+        assert np.array_equal(g._tile_runs, run_ptr(tm.man))
+
+
+@pytest.mark.parametrize("nx", [10, 12])
+def test_plain_pair_equals_plain_one_piece(nx):
+    one = {(g.R, g.B, g.panel_base): g for g in _tile_groups(nx)}
+    for k, g2 in enumerate(_tile_groups(nx, tile_pair=True)):
+        g1 = one[(g2.R, g2.B, g2.panel_base)]
+        assert g2._tile.man.shape[0] < g1._tile.man.shape[0] or \
+            g1._tile.man.shape[0] == 1
+        F, U = _inputs(g1, seed=7 * nx + k)
+        got = [extend_add_tiles_plain(
+            torch.from_numpy(F.copy()), torch.from_numpy(U),
+            *(torch.from_numpy(a) for a in (g._tile.man, g._tile.rowmap,
+                                            g._tile.colmap))).numpy()
+            for g in (g1, g2)]
+        low = _lower_tiles(g1.R)[None].repeat(g1.B, 0)
+        scale = np.abs(got[0][low]).max()
+        assert np.abs(got[1] - got[0]).max() <= RTOL * scale
+        assert np.array_equal(got[1][~low], F[~low])
+
+
+def test_pair_wrapper_takes_plain_version_on_cpu():
+    g = _tile_groups(10, tile_pair=True)[0]
+    tm = g._tile
+    F, U = _inputs(g, seed=3)
+    args = [torch.from_numpy(a) for a in (U, tm.man, tm.rowmap, tm.colmap)]
+    before = (extend_add_tiles.launches, extend_add_tiles.pair_launches)
+    Ft = torch.from_numpy(F.copy())
+    out = extend_add_tiles(Ft, *args, torch.from_numpy(g._tile_runs))
+    assert out is Ft
+    assert torch.equal(out, extend_add_tiles_plain(torch.from_numpy(F.copy()),
+                                                   *args))
+    assert (extend_add_tiles.launches,
+            extend_add_tiles.pair_launches) == before
+
+
+def test_pair_factor_matches_reference(monkeypatch):
+    for k, v in (("SSTPU_PALLAS", "1"), ("SSTPU_PLACE", "tile"),
+                 ("SSTPU_TILE_RMIN", "32"), ("SSTPU_TILE_PAIR", "1")):
+        monkeypatch.setenv(k, v)
+    Aj = sst.io.fixtures.laplacian_3d(12)
+    Sj = ref_analyze_supernodal(Aj, ref_nested_dissection_order(
+        Aj, sst.DEFAULT))
+    Fj = ref_device.factorize_device(Aj, Sj, sst.DEFAULT)
+    A = sstt.fixtures.laplacian_3d(12)
+    S = analyze_supernodal(A, Sj.perm)
+    cfg = sstt.DEFAULT.replace(tile_pair=True)
+    F = supernodal_device.factorize_device(A, S, cfg, "cpu", tile_rmin=32)
+    groups = [g for gl in F.dplan.plan.groups for g in gl
+              if g._tile is not None]
+    assert groups and all(g._tile.man.shape[1] == 14 for g in groups)
+    assert Fj.ok and F.ok
+    lj = np.asarray(Fj.Lx, dtype=np.float64)
+    lt = F.Lx.numpy().astype(np.float64)
+    assert lt.shape == lj.shape
+    assert np.abs(lt - lj).max() <= PAIR_TOL * np.abs(lj).max()

@@ -107,6 +107,12 @@ def test_plan_cache_keys_on_tile_threshold_and_device():
     p256 = supernodal_device.device_plan(A, S, cpu)
     assert p256 is not p32
     assert p256.device == p32.device == cpu
-    assert set(S._torch_plan) == {(32, "cpu"), (256, "cpu")}
+    assert set(S._torch_plan) == {(32, False, "cpu"), (256, False, "cpu")}
     assert not any(g._tile is not None and g.R < 256
                    for gl in p256.plan.groups for g in gl)
+    # the manifest form is part of the key: two-piece steps, same layout
+    pair = supernodal_device.device_plan(A, S, cpu, 32, tile_pair=True)
+    assert pair is not p32 and (32, True, "cpu") in S._torch_plan
+    assert pair.plan.dev_size == p32.plan.dev_size
+    assert {g._tile.man.shape[1] for gl in pair.plan.groups for g in gl
+            if g._tile is not None} == {14}
