@@ -18,14 +18,20 @@
    with K2 on the same inputs; the streaming panel matvec (K5) at the four
    largest groups of its w2 route, with M = W2^T and M = W2, and the
    batched matvec (K6) at the four largest groups of its route, forward and
-   transposed, both at 1 and 8 right-hand sides; the extend-add (K7) on
+   transposed, both at 1 and 8 right-hand sides, and at three shapes off
+   the plan's ladders at 1 and 3 (``K6_OFF_PLAN``: one whose rows take K6's
+   plain-load path, one of few long panels that takes its cluster and its
+   ring of stages, one of wide panels whose forward X (at NR 3) stays in
+   device memory and whose transposed columns span several blocks); the
+   extend-add (K7) on
    three pair classes of the factor's slowest placement group,
    (B, R) = (114, 224), padded by ``pad_pairs``. Tolerances, relative to the largest plain entry (fp32
    sums in another order): 1e-5, 1e-6 for K2 and K2b. Each kernel's time is
    printed beside its plain version's, the least time the card could take
    (bytes at 3.35 TB/s or fp32 flops at 67 TFLOP/s, whichever is larger; a
    triangular tile counts its lower triangle only) and one PyTorch call
-   that computes the same function where there is one:
+   that computes the same function where there is one (and the kernel's
+   time over that call's):
    ``torch.linalg.solve_triangular`` for K4, ``torch.bmm`` for K5 and K6,
    the factor's ``_place`` (one ``index_put_``, on the class's real pairs)
    for K7. K5, K6 and their library calls are timed with the L2 cache
@@ -63,6 +69,7 @@ with code 2 before doing anything. The last line is the device JSON.
 
 from __future__ import annotations
 
+import gc
 import json
 import subprocess
 import sys
@@ -83,6 +90,12 @@ NRHS = 64
 NRHS_K = 8         # right-hand sides of the w2 kernel routes (K5, K6)
 K7_GROUP = (114, 224)   # (B, R) of the factor's slowest placement group
 K7_CLASSES = ((75, 128), (15, 168), (59, 64))   # its (npairs, RU) classes
+# (B, R, C) of K6 off the plan's ladders, at 1 and 3 right-hand sides: rows
+# that are not 16-byte multiples (plain loads); few long panels
+# (transposed: a cluster of 8 blocks a panel, a ring of stages); wide
+# panels (forward: slices of each row, a ring, X read from device memory
+# at NR 3; transposed: 24 column tiles)
+K6_OFF_PLAN = ((37, 45, 13), (4, 6000, 52), (16, 16, 6000))
 L2_FLUSH_BYTES = 64 << 20   # more than the H100's 50 MB L2 cache
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin before each timed call
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
@@ -95,21 +108,27 @@ def _cuda_ms(fn, reps: int, setup=None) -> float:
     call), timed with CUDA events around each call. A spin kernel queued
     just before the start event keeps the device busy while the host
     enqueues the call, so a call whose host side takes less than the spin
-    is timed without its launch overhead."""
+    is timed without its launch overhead. Python's garbage collector is
+    held off meanwhile: a host stall between the two events that outlasts
+    the spin would be timed as device time."""
     import torch
 
     fn(*(setup() if setup else ()))
     total = 0.0
-    for _ in range(reps):
-        args = setup() if setup else ()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(SPIN_CYCLES)
-        start.record()
-        fn(*args)
-        end.record()
-        torch.cuda.synchronize()
-        total += start.elapsed_time(end)
+    gc.disable()
+    try:
+        for _ in range(reps):
+            args = setup() if setup else ()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES)
+            start.record()
+            fn(*args)
+            end.record()
+            torch.cuda.synchronize()
+            total += start.elapsed_time(end)
+    finally:
+        gc.enable()
     return total / reps
 
 
@@ -149,7 +168,8 @@ def _record(rec, name, shape, err, dabs, ms, plain_ms, nbytes, flops,
     into ``rec[name]`` (largest errors; the first shape is the reported
     one)."""
     bound_ms, bound_by = _bound(nbytes, flops)
-    lib = "" if library_ms is None else f" library_ms={library_ms:.4f}"
+    lib = "" if library_ms is None else \
+        f" library_ms={library_ms:.4f} kernel/library={ms / library_ms:.2f}"
     print(f"{name} {shape} rel_err={err:.3e} kernel_ms={ms:.4f} "
           f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
           f"({bound_by}){lib}", flush=True)
@@ -446,13 +466,14 @@ def w2_kernels(dp, dev, rng):
                     2.0 * B * K * N * nr,
                     library_ms=_cuda_ms(lambda: torch.bmm(M.mT, X), 10,
                                         cold), tol=K567_TOL)
-    for g in top("bmv"):
-        B, R, C = g.B, g.R, g.C
+    k6 = [((g.B, g.R, g.C), (1, NRHS_K)) for g in top("bmv")] + \
+        [(shape, (1, 3)) for shape in K6_OFF_PLAN]
+    for (B, R, C), nrs in k6:
         W2 = randn(B, R, C)
         for transpose in (False, True):
             K, N = (R, C) if transpose else (C, R)
             Mk = W2.mT if transpose else W2
-            for nr in (1, NRHS_K):
+            for nr in nrs:
                 X = randn(B, K, nr)
                 Z = bmatvec(W2, X, transpose)
                 P = bmatvec_plain(W2, X, transpose)

@@ -46,8 +46,10 @@ _SIGNATURES = {
                                   _vp],
     # F, child, idx, dst, np, B, R, RU, stream
     "sst_extend_add": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
-    # M, X, Z, B, I, J, NR, transpose, stream
-    "sst_bmatvec": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+    # M, X, Z, B, I, J, NR, transpose, then bmv_geometry's epb, split,
+    # part, chunk, stages, xsmem, smem; stream
+    "sst_bmatvec": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                    _i, _i, _vp],
     # M, X, Z, B, K, N, NR, stream
     "sst_pmatvec": [_vp, _vp, _vp, _i, _i, _i, _i, _vp],
     # L, Y, X, B, C, NR, transpose, stream
