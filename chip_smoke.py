@@ -13,7 +13,11 @@
    manifest, the solve steps (K3, forward and backward) at the four largest
    groups of their gate at 1 and 64 right-hand sides, the batched trisolve
    (K4) at the forest's (512, 64) root group and the (45, 48) L11 shape,
-   plain and transposed, at 1 and 64 right-hand sides; the two-piece
+   plain and transposed, at 1 and 64 right-hand sides, and at three
+   shapes off the plans (``K4_OFF_PLAN``: the widest tile at the most
+   right-hand sides its gate admits, many tiny tiles packed two a block at
+   NR 3, an odd tile width at NR 5), every K4 tile with NaN above its
+   diagonal, which the kernel must not read; the two-piece
    extend-add (K2b) on the two-piece manifest of K2's group, timed in turns
    with K2 on the same inputs; the streaming panel matvec (K5) at the four
    largest groups of its w2 route, with M = W2^T and M = W2, and the
@@ -52,7 +56,11 @@
 5. Forest: the 512-block forest through ``cholsol`` with
    ``solve_mode="classic"`` and ``factor_kind=SUPERNODAL_LL`` (its
    flops per nonzero of L, 28.6, sit below the automatic supernodal switch
-   of 40); K3 and K4 must launch, residual below 1e-5.
+   of 40); K3 and K4 must launch, residual below 1e-5. Then the forest
+   factored once more through ``factorize`` (reusing the kernel phase's
+   analysis) and solved by the classic sweep at 64 right-hand sides: K4
+   must launch, columns 0 and 63 below 1e-5, x within 1e-4 * max|x| of a
+   w2 solve of the same factor.
 6. Refinement: ``solve_refined`` on the model problem, residual below 1e-12.
 7. Kernel path: the model problem factored with ``tile_pair=True`` (K2b and
    K1 must launch, L within 1e-5 * max|L| of the default factor's), then
@@ -96,6 +104,11 @@ K7_CLASSES = ((75, 128), (15, 168), (59, 64))   # its (npairs, RU) classes
 # panels (forward: slices of each row, a ring, X read from device memory
 # at NR 3; transposed: 24 column tiles)
 K6_OFF_PLAN = ((37, 45, 13), (4, 6000, 52), (16, 16, 6000))
+# (B, C, NR) of K4 off the plans: three rows a lane and 64 column chunks
+# of 8 a tile, over 8 blocks; many tiny tiles, two a block, each with 3
+# warps of one column; an odd width at NR 5, whose X moves by 4-byte loads
+# and stores
+K4_OFF_PLAN = ((37, 96, 508), (8735, 8, 3), (33, 45, 5))
 L2_FLUSH_BYTES = 64 << 20   # more than the H100's 50 MB L2 cache
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin before each timed call
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
@@ -329,7 +342,8 @@ def _tri_tiles(rng, B, C, dev):
 
 def solve_kernels(dp, dpf, dev, rng):
     """K3 (forward, backward) and K4 against their plain versions at the
-    shapes of the model plan and the forest plan."""
+    shapes of the model plan and the forest plan. Returns the records and
+    K4's device ms by (B, C, NR, transpose)."""
     import torch
 
     from suitesparse_tpu_torch.kernels.solve_step import (
@@ -390,30 +404,49 @@ def solve_kernels(dp, dpf, dev, rng):
             if classic_route(torch.float32, g.B, g.C, g.R - g.C, 1)
             == "trisolve"]
     assert [(g.B, g.C) for g in root] == [(FOREST[0], 64)], root
+    k4_ms = {}
+
+    def k4_row(L, Y, transpose):
+        B, C, nr = Y.shape
+        X = batched_trisolve(L, Y, transpose)
+        PX = batched_trisolve_plain(L, Y, transpose)
+        torch.cuda.synchronize()
+        d, e = _rel_err(X, PX)
+        A_ = L.mT if transpose else L
+        ms = k4_ms[B, C, nr, transpose] = _cuda_ms(
+            lambda: batched_trisolve(L, Y, transpose), 10)
+        _record(
+            rec, "batched_trisolve",
+            f"(B,C,NR)=({B},{C},{nr}) transpose={transpose}", e, d, ms,
+            _cuda_ms(lambda: batched_trisolve_plain(L, Y, transpose), 2),
+            4.0 * B * (C * (C + 1) / 2 + 2 * C * nr), float(B * nr * C * C),
+            library_ms=_cuda_ms(lambda: torch.linalg.solve_triangular(
+                A_, Y, upper=transpose), 10))
+
+    def k4_tiles(r, B, C):
+        L = _tri_tiles(r, B, C, dev)
+        iu = torch.triu_indices(C, C, 1, device=dev)
+        L[:, iu[0], iu[1]] = float("nan")   # K4 reads the lower triangle
+        return L
+
+    def randn(r, *shape):
+        return torch.as_tensor(r.standard_normal(shape, dtype=np.float32),
+                               device=dev)
+
     for B, C in ((FOREST[0], 64), (45, 48)):
-        L = _tri_tiles(rng, B, C, dev)
+        L = k4_tiles(rng, B, C)
         for nr in (1, NRHS):
-            Y = torch.as_tensor(rng.standard_normal((B, C, nr),
-                                                    dtype=np.float32),
-                                device=dev)
+            Y = randn(rng, B, C, nr)
             for transpose in (False, True):
-                X = batched_trisolve(L, Y, transpose)
-                PX = batched_trisolve_plain(L, Y, transpose)
-                torch.cuda.synchronize()
-                d, e = _rel_err(X, PX)
-                A_ = L.mT if transpose else L
-                _record(
-                    rec, "batched_trisolve",
-                    f"(B,C,NR)=({B},{C},{nr}) transpose={transpose}", e, d,
-                    _cuda_ms(lambda: batched_trisolve(L, Y, transpose), 10),
-                    _cuda_ms(lambda: batched_trisolve_plain(L, Y, transpose),
-                             2),
-                    4.0 * B * (C * (C + 1) / 2 + 2 * C * nr),
-                    float(B * nr * C * C),
-                    library_ms=_cuda_ms(
-                        lambda: torch.linalg.solve_triangular(
-                            A_, Y, upper=transpose), 10))
-    return rec
+                k4_row(L, Y, transpose)
+    # the off-plan shapes draw from a stream of their own, so that the
+    # inputs of the later phases stay as they were
+    off_rng = np.random.default_rng(SEED + 4)
+    for B, C, nr in K4_OFF_PLAN:
+        L, Y = k4_tiles(off_rng, B, C), randn(off_rng, B, C, nr)
+        for transpose in (False, True):
+            k4_row(L, Y, transpose)
+    return rec, k4_ms
 
 
 def w2_kernels(dp, dev, rng):
@@ -700,7 +733,8 @@ def main() -> int:
           f"pair_plan_s={pair_plan_s:.2f}", flush=True)
     Af = forest(*FOREST)
     t0 = time.perf_counter()
-    Sf = supernodal.supernodal_symbolic(Af, sstt.analyze(Af, cfg), cfg)
+    Ssf = sstt.analyze(Af, cfg)
+    Sf = supernodal.supernodal_symbolic(Af, Ssf, cfg)
     dpf = supernodal_device.device_plan(Af, Sf, dev)
     print(f"forest {FOREST[0]} x laplacian_3d({FOREST[1]}): n={Af.ncol} "
           f"fl={Sf.fl:.4g} groups={sum(len(gl) for gl in dpf.plan.groups)} "
@@ -708,7 +742,7 @@ def main() -> int:
 
     rng = np.random.default_rng(SEED)
     k1, k2, k2b = factor_kernels(dp, dpp, dev, rng)
-    ks = solve_kernels(dp, dpf, dev, rng)
+    ks, k4_ms = solve_kernels(dp, dpf, dev, rng)
     kw = w2_kernels(dp, dev, rng)
     zero_counts()
     k7 = extend_add_kernel(dp, dev, rng)["extend_add"]
@@ -769,6 +803,34 @@ def main() -> int:
     fresid = sstt.residual_norm(Af, xf, bf)
     assert np.isfinite(xf).all() and fresid < RESID_TOL, fresid
 
+    # ---- forest at 64 right-hand sides, classic sweep (K4 at NR 64) ----
+    Ff = sstt.factorize(Af, Ssf, forest_cfg, device="cuda")
+    assert Ff.ok, f"forest factorization failed at column {Ff.minor}"
+    Bf64 = np.tile(bf.reshape(-1, 1), (1, NRHS)) * \
+        (1.0 + np.arange(NRHS) / NRHS)
+    zero_counts()
+    xf64 = sstt.solve(Ff, Bf64, forest_cfg)
+    torch.cuda.synchronize()
+    forest64_launches = counts()
+    assert forest64_launches["batched_trisolve"] > 0, forest64_launches
+    assert xf64.shape == (Af.ncol, NRHS) and np.isfinite(xf64).all()
+    fresid64 = max(sstt.residual_norm(Af, xf64[:, k], Bf64[:, k])
+                   for k in (0, NRHS - 1))
+    assert fresid64 < RESID_TOL, fresid64
+    xw64 = sstt.solve(Ff, Bf64, cfg)
+    fdx64 = np.abs(xf64 - xw64).max() / np.abs(xw64).max()
+    assert fdx64 <= 1e-4, fdx64
+    # K4's device time per forest solve: its launches (forward and
+    # transposed alike) times its kernel rows at the root group's shape
+    k4_per_solve = {
+        nr: c["batched_trisolve"] / 2 * sum(
+            k4_ms[FOREST[0], 64, nr, tr] for tr in (False, True))
+        for nr, c in ((1, forest_launches), (NRHS, forest64_launches))}
+    print(f"forest classic solve at nrhs {NRHS}: residual {fresid64:.3e}, "
+          f"x vs w2 {fdx64:.3e}, launches={forest64_launches}, K4 device "
+          f"ms per solve {k4_per_solve[1]:.4f} / {k4_per_solve[NRHS]:.4f} "
+          f"at nrhs 1 / {NRHS}", flush=True)
+
     # ---- refinement ----
     xr = sstt.solve_refined(F, A, b, config=cfg)
     rresid = sstt.residual_norm(A, xr, b)
@@ -822,6 +884,9 @@ def main() -> int:
     solve64_s = _best_s(lambda: sstt.solve(F, B64, cfg))
     classic_solve_s = _best_s(lambda: sstt.solve(F, b, classic))
     classic_solve64_s = _best_s(lambda: sstt.solve(F, B64, classic))
+    forest_classic_solve_s = _best_s(lambda: sstt.solve(Ff, bf, forest_cfg))
+    forest_classic_solve64_s = _best_s(
+        lambda: sstt.solve(Ff, Bf64, forest_cfg))
     print(json.dumps({
         "card": card, "n": n, "flops": S.fl,
         "factor_s": factor_s, "gflops": S.fl / factor_s / 1e9,
@@ -840,8 +905,14 @@ def main() -> int:
         "w2k_vs_w2": max(w2k_dx.values()),
         "forest_n": Af.ncol, "forest_cholsol_s": forest_s,
         "forest_residual": fresid,
+        "forest_classic_solve_s": forest_classic_solve_s,
+        "forest_classic_solve64_s": forest_classic_solve64_s,
+        "forest_residual64": fresid64, "forest_classic_vs_w2": fdx64,
+        "forest_k4_ms_per_solve": k4_per_solve[1],
+        "forest_k4_ms_per_solve64": k4_per_solve[NRHS],
         "launches": {"factor": factor_launches, "classic": classic_launches,
-                     "forest": forest_launches, "pair_factor": pair_launches,
+                     "forest": forest_launches, "forest64": forest64_launches,
+                     "pair_factor": pair_launches,
                      "w2k1": w2k_launches[1],
                      "w2k8": w2k_launches[NRHS_K]},
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
@@ -872,7 +943,8 @@ def main() -> int:
               classic_launches["solve_step_bwd"]),
         entry("batched_trisolve", "suitesparse_tpu/kernels/trisolve.py:89",
               "trisolve.cu", ks["batched_trisolve"],
-              forest_launches["batched_trisolve"]),
+              forest_launches["batched_trisolve"]
+              + forest64_launches["batched_trisolve"]),
         entry("pmatvec_t", "suitesparse_tpu/kernels/pmatvec.py:91",
               "pmatvec.cu", kw["pmatvec_t"],
               sum(c["pmatvec_t"] for c in w2k_launches.values())),

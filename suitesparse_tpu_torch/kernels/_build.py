@@ -52,8 +52,10 @@ _SIGNATURES = {
                     _i, _i, _vp],
     # M, X, Z, B, K, N, NR, stream
     "sst_pmatvec": [_vp, _vp, _vp, _i, _i, _i, _i, _vp],
-    # L, Y, X, B, C, NR, transpose, stream
-    "sst_trisolve": [_vp, _vp, _vp, _i, _i, _i, _i, _vp],
+    # L, Y, X, B, C, NR, transpose, then trisolve_geometry's tpb, wpt, cpw,
+    # chunks, csplit, smem; stream
+    "sst_trisolve": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                     _vp],
     # L11, L21, l21_bstride, Y, WB, wb_bstride, XC, V, B, C, RU, NR, stream
     "sst_solve_step_fwd": [_vp, _vp, _ll, _vp, _vp, _ll, _vp, _vp, _i, _i, _i,
                            _i, _vp],

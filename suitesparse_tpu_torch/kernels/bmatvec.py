@@ -26,14 +26,13 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .trisolve import SMEM_BYTES
+from .trisolve import SMEM_BYTES, SMS
 
 __all__ = ["MAX_NR", "BmvGeometry", "bmatvec", "bmatvec_plain", "bmv_fits",
            "bmv_geometry"]
 
 MAX_NR = 8               # right-hand sides the kernel keeps in registers
 THREADS = 256            # threads of one block (csrc/bmatvec.cu)
-SMS = 132                # streaming multiprocessors of the H100
 SPLIT_BELOW = 2 * SMS    # below this batch, panels' rows may be split
 PACK_BLOCKS = 4 * SMS    # above it, whole panels are packed to this many blocks
 MAX_SPLIT = 8            # transposed blocks of one panel: a portable cluster

@@ -2,81 +2,355 @@
 //
 // Replaces the Pallas kernel suitesparse_tpu/kernels/trisolve.py
 // (batched_trisolve, body _kernel, pallas_call at :89). For B lower-
-// triangular fp32 tiles L (B, C, C) with a nonzero diagonal (identity on
-// padding) and right-hand sides Y (B, C, NR) it writes X = L^-1 Y, or
-// X = L^-T Y when `transpose` is set.
+// triangular fp32 tiles L (B, C, C), C <= 96, with a nonzero diagonal and
+// right-hand sides Y (B, C, NR) it writes X = L^-1 Y, or X = L^-T Y when
+// `transpose` is set. It reads L's lower triangle and diagonal only: the
+// classic sweep's padded tiles promise nothing above the diagonal.
 //
-// What bounds it on the H100: latency. A tile moves (C*C + 2*C*NR) * 4
-// bytes (37 KB at C = 96, NR = 1) for C*C*NR multiply-adds, and its C column
-// steps depend on each other. The design runs one block per tile, with the
-// tile and its right-hand sides in shared memory (L at an odd row stride,
-// 37 KB + 24 KB at C = 96, NR = 64): each step is a burst of shared-memory
-// work between two barriers (tile_trisolve.cuh), and the chains of the B
-// tiles of a group overlap across the 132 SMs. The TPU kernel's lane-major
-// transpose, batch padding and VMEM budget are not carried over; a tile
-// whose shared memory would exceed 227 KB is refused (trisolve_fits).
+// What bounds it on the H100. Bytes do not: a tile moves (C*C/2 + 2*C*NR)*4
+// bytes for C*C*NR/2 multiply-adds, 0.0063 ms for all of (512, 64, 64) at
+// 3.35 TB/s and 0.0013 ms at NR 1. What does:
+// - NR 64: instruction issue. A tile is C*C*NR/2 FMAs (131,072 at
+//   (64, 64)); spent one loop iteration per (row, column) cell, with index
+//   divisions, a pivot division and three shared-memory accesses around
+//   each FMA (the shared loop of tile_trisolve.cuh, which K3 keeps), the
+//   issue slots run out long before the bytes.
+// - NR 1: latency. Each tile has only C cells a step and is a chain of C
+//   dependent steps; the launch and one round trip to device memory for
+//   the tile cost about as much again.
+// The design:
+// - A warp owns `cpw` columns of one tile's X for the whole solve, in
+//   registers: lane l holds rows l, l + 32 and l + 64 (kRPL = ceil(C/32)) of
+//   each. Step k needs no block barrier: the lane that owns row k publishes
+//   its cells (a shuffle at cpw 1; at cpw 8 two 16-byte stores into a
+//   double-buffered row of the warp's own, a __syncwarp, and two 16-byte
+//   broadcast loads), and every lane then updates its rows below k (above
+//   k, transposed) with one shared-memory load of L per row, reused across
+//   the warp's columns: the reuse a blocked trsm gets.
+// - No division in the loop. Each warp takes its tile's pivot reciprocals
+//   once, into a row of shared memory of its own (no block barrier); step
+//   k multiplies the lane's L values by 1 / L[k][k] (a multiply a row, not
+//   one a cell) and subtracts (L[i][k] / L[k][k]) X[k] from the unscaled
+//   X[k], which keeps the multiply off the chain of steps; each row is
+//   multiplied by its reciprocal once at the end. That rounds differently
+//   from the plain version's X[k] / L[k][k] by an ulp or two. The columns a
+//   warp holds and the rows a lane holds are template parameters, so no
+//   index is divided either; NR wider than the warps of a tile take
+//   column chunks in turn.
+// - Small NR packs several tiles into a block, one warp (or a few) each,
+//   where the batch is large enough to still fill the card; NR 1 runs one
+//   warp a tile, not a block of mostly idle threads. A few tiles with more
+//   column chunks than a block has warps spread them over several blocks
+//   (the grid's y), each with its own copy of the tile.
+// - L's lower triangle moves by asynchronous 4-byte copies (cp.async), all
+//   of a tile in flight at once, a warp's lanes on neighbouring words of a
+//   row, into an odd row stride (a bulk copy or a 16-byte one needs a
+//   stride of whole 16-byte words): the forward solve's walk down a column
+//   (lane i reads L[i][k]) is then free of bank conflicts, and the
+//   transposed walk along row k is anyway. The first chunk of Y is loaded
+//   into registers meanwhile.
+// - True fp32 FMAs, no tensor cores: the classic sweep's residual gates
+//   (1e-5) would not survive TF32.
+// The launch plan (tiles a block, warps a tile, columns a warp, chunks,
+// shared memory) is trisolve_geometry in kernels/trisolve.py; the entry
+// point checks it and recomputes the shared memory it implies.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 #include "tile_trisolve.cuh"
 
 namespace {
 
 constexpr int kMaxC = 96;
+constexpr int kMaxWarps = 8;     // warps of one block
+constexpr int kWide = 8;         // columns a warp holds when it holds several
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can take
 
-size_t trisolve_smem(int C, int NR) {
-  return sizeof(float) * ((size_t)C * sst::odd_stride(C) + (size_t)C * NR);
+// floats of a warp's publish buffer: two rows of its columns (none when a
+// shuffle publishes)
+__host__ __device__ inline int pub_floats(int cpw) {
+  return cpw >= 4 ? 2 * cpw : 0;
 }
 
-template <bool kTranspose>
-__global__ void trisolve_kernel(const float* __restrict__ L,
-                                const float* __restrict__ Y,
-                                float* __restrict__ X, int C, int NR) {
-  extern __shared__ float smem[];
-  const int ld = sst::odd_stride(C);
-  float* Ls = smem;           // C x ld: the tile
-  float* Xs = Ls + C * ld;    // C x NR: the right-hand sides, then X
-  const int t = threadIdx.x;
-  const int nt = blockDim.x;
-  const size_t b = blockIdx.x;
+// each warp's publish buffer and pivot reciprocals (C) | tiles (C x ld)
+size_t smem_bytes(int C, int tpb, int wpt, int cpw) {
+  return sizeof(float) * ((size_t)tpb * wpt * (pub_floats(cpw) + C) +
+                          (size_t)tpb * C * sst::odd_stride(C));
+}
 
-  const float* Lb = L + b * C * C;
-  const float* Yb = Y + b * C * NR;
-  for (int e = t; e < C * C; e += nt) Ls[(e / C) * ld + e % C] = Lb[e];
-  for (int e = t; e < C * NR; e += nt) Xs[e] = Yb[e];
+__device__ inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+__device__ inline void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// The block's nt tiles into shared memory (see the note above): the lower
+// triangle of tile t at Ls + t*C*ld, diagonal included, by asynchronous
+// 4-byte copies, all in flight at once. Nothing above the diagonal is read.
+__device__ void stage(const float* __restrict__ Lg, float* Ls, int nt, int C,
+                      int ld) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5;
+  const size_t CC = (size_t)C * C;
+  for (int t = 0; t < nt; ++t)
+    for (int i = warp; i < C; i += nw)
+      for (int c = lane; c <= i; c += 32)
+        cp_async4(Ls + t * C * ld + i * ld + c, Lg + t * CC + i * C + c);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
+}
 
-  sst::tile_trisolve<kTranspose>(Ls, ld, Xs, C, NR);
+// xk = the owner lane's cells of row k, in every lane of the warp
+template <int kCPW>
+__device__ __forceinline__ void publish(const float (&row)[kCPW], int owner,
+                                        int lane, float* buf,
+                                        float (&xk)[kCPW]) {
+  if constexpr (kCPW < 4) {
+#pragma unroll
+    for (int c = 0; c < kCPW; ++c)
+      xk[c] = __shfl_sync(0xffffffffu, row[c], owner);
+  } else {
+    float4* b4 = reinterpret_cast<float4*>(buf);
+    if (lane == owner)
+#pragma unroll
+      for (int v = 0; v < kCPW / 4; ++v)
+        b4[v] = make_float4(row[4 * v], row[4 * v + 1], row[4 * v + 2],
+                            row[4 * v + 3]);
+    __syncwarp();
+#pragma unroll
+    for (int v = 0; v < kCPW / 4; ++v) {
+      const float4 q = b4[v];
+      xk[4 * v] = q.x, xk[4 * v + 1] = q.y;
+      xk[4 * v + 2] = q.z, xk[4 * v + 3] = q.w;
+    }
+  }
+}
 
-  float* Xb = X + b * C * NR;
-  for (int e = t; e < C * NR; e += nt) Xb[e] = Xs[e];
+// One warp solves its cells x (rows lane + 32 j, kCPW columns) against the
+// tile St, whose pivots' reciprocals are rw; x is left unscaled (X[k] =
+// L[k][k] x_k). buf: the warp's two publish rows. Step k publishes row k
+// into buf[k & 1]: the __syncwarp of step k + 1 lies between every lane's
+// reads of step k and the write of step k + 2. Each step loads the next
+// step's L values and pivot reciprocal before it publishes, so that their
+// latency is off the chain of steps; a lane's rows that step k does not
+// update take l = 0 (their cells stay as they are while the published
+// cells are finite).
+template <bool kT, int kRPL, int kCPW>
+__device__ __forceinline__ void solve_cells(float (&x)[kRPL][kCPW],
+                                            const float* St, const float* rw,
+                                            int ld, int C, int lane,
+                                            float* buf) {
+  int off[kRPL];  // forward: the lane's rows; transposed: its columns. Past
+                  // C (never stored) they read row or column C - 1
+#pragma unroll
+  for (int j = 0; j < kRPL; ++j)
+    off[j] = min(lane + 32 * j, C - 1) * (kT ? 1 : ld);
+  // this step's multipliers: forward L[i][k] / L[k][k], transposed
+  // L[k][i] / L[k][k]
+  const int k0 = kT ? C - 1 : 0;
+  float lv[kRPL];
+#pragma unroll
+  for (int j = 0; j < kRPL; ++j)
+    lv[j] = St[off[j] + (kT ? k0 * ld : k0)] * rw[k0];
+#pragma unroll
+  for (int s = 0; s < kRPL; ++s) {
+    const int jk = kT ? kRPL - 1 - s : s;  // the slot that holds row k
+    const int kn = min(32, C - 32 * jk);
+    for (int n = 0; n < kn; ++n) {
+      const int kk = kT ? kn - 1 - n : n;
+      const int k = 32 * jk + kk;
+      const int kq = kT ? max(k - 1, 0) : min(k + 1, C - 1);  // next step
+      const int jlo = kT ? 0 : jk, jhi = kT ? jk : kRPL - 1;  // rows it moves
+      float ln[kRPL];
+#pragma unroll
+      for (int j = jlo; j <= jhi; ++j)
+        ln[j] = St[off[j] + (kT ? kq * ld : kq)];
+      const float rn = rw[kq];
+      float xk[kCPW];
+      publish<kCPW>(x[jk], kk, lane, buf + (k & 1) * kCPW, xk);
+#pragma unroll
+      for (int j = jlo; j <= jhi; ++j) {
+        const bool live = kT ? (j < jk || lane < kk) : (j > jk || lane > kk);
+        const float l = live ? lv[j] : 0.0f;
+#pragma unroll
+        for (int c = 0; c < kCPW; ++c) x[j][c] = fmaf(-l, xk[c], x[j][c]);
+        lv[j] = ln[j] * rn;
+      }
+    }
+  }
+}
+
+// x = a chunk's cells of Y (Yc: its first column), zero past C rows or NR
+// columns
+template <int kRPL, int kCPW>
+__device__ __forceinline__ void load_cells(float (&x)[kRPL][kCPW],
+                                           const float* __restrict__ Yc,
+                                           int C, int NR, int c0, int lane,
+                                           bool vec) {
+#pragma unroll
+  for (int j = 0; j < kRPL; ++j) {
+    const int i = lane + 32 * j;
+    const float* y = Yc + (size_t)i * NR;
+    if constexpr (kCPW % 4 == 0) {
+      if (vec) {
+#pragma unroll
+        for (int v = 0; v < kCPW / 4; ++v) {
+          float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          if (i < C && c0 + 4 * v < NR)
+            q = *reinterpret_cast<const float4*>(y + 4 * v);
+          x[j][4 * v] = q.x, x[j][4 * v + 1] = q.y;
+          x[j][4 * v + 2] = q.z, x[j][4 * v + 3] = q.w;
+        }
+        continue;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kCPW; ++c)
+      x[j][c] = i < C && c0 + c < NR ? y[c] : 0.0f;
+  }
+}
+
+// X's cells of the chunk = x times the rows' pivot reciprocals rt
+template <int kRPL, int kCPW>
+__device__ __forceinline__ void store_cells(const float (&x)[kRPL][kCPW],
+                                            const float* rt,
+                                            float* __restrict__ Xc, int C,
+                                            int NR, int c0, int lane,
+                                            bool vec) {
+#pragma unroll
+  for (int j = 0; j < kRPL; ++j) {
+    const int i = lane + 32 * j;
+    if (i >= C) continue;
+    const float r = rt[i];
+    float* o = Xc + (size_t)i * NR;
+    if constexpr (kCPW % 4 == 0) {
+      if (vec) {
+#pragma unroll
+        for (int v = 0; v < kCPW / 4; ++v)
+          if (c0 + 4 * v < NR)
+            *reinterpret_cast<float4*>(o + 4 * v) =
+                make_float4(x[j][4 * v] * r, x[j][4 * v + 1] * r,
+                            x[j][4 * v + 2] * r, x[j][4 * v + 3] * r);
+        continue;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kCPW; ++c)
+      if (c0 + c < NR) o[c] = x[j][c] * r;
+  }
+}
+
+// Block (x, y): tpb tiles, wpt warps each; warp w of tile t takes the
+// column chunks w + wpt y, w + wpt (y + csplit), ... of kCPW columns each,
+// csplit = gridDim.y. At most 128 registers a thread: every instance then
+// compiles without spills (under __launch_bounds__(256) ptxas spilled the
+// 3-row, 8-column ones; under (256, 1) it did not, but they ran slower on
+// the H100).
+template <bool kT, int kRPL, int kCPW>
+__global__ void __maxnreg__(128)
+trisolve_kernel(const float* __restrict__ L, const float* __restrict__ Y,
+                float* __restrict__ X, int B, int C, int NR, int tpb, int wpt,
+                int chunks) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = sst::odd_stride(C);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* pub = smem;
+  float* rinv = pub + tpb * wpt * pub_floats(kCPW);
+  float* Ls = rinv + tpb * wpt * C;
+  const long long b0 = (long long)blockIdx.x * tpb;
+  const int nt = (int)min((long long)tpb, B - b0);
+  const int t = warp / wpt, w = warp - t * wpt;
+  const int ch0 = w + wpt * blockIdx.y, chstep = wpt * gridDim.y;
+  const size_t base = (size_t)(b0 + t) * C * NR;
+  // 16-byte moves of X where every chunk's row starts 16-byte aligned
+  const bool vec = kCPW % 4 == 0 && NR % 4 == 0 && aligned16(Y) &&
+                   aligned16(X);
+  float x[kRPL][kCPW];
+  if (t < nt && ch0 < chunks)  // its loads fly while the tiles are staged
+    load_cells<kRPL, kCPW>(x, Y + base + ch0 * kCPW, C, NR, ch0 * kCPW, lane,
+                           vec);
+  stage(L + b0 * C * C, Ls, nt, C, ld);
+  if (t >= nt) return;
+  const float* St = Ls + t * C * ld;
+  // the warp's own copy of the pivots' reciprocals: no block barrier
+  float* rw = rinv + warp * C;
+  for (int k = lane; k < C; k += 32) rw[k] = 1.0f / St[k * ld + k];
+  __syncwarp();
+  float* buf = pub + warp * pub_floats(kCPW);
+  for (int ch = ch0; ch < chunks; ch += chstep) {
+    const int c0 = ch * kCPW;
+    if (ch != ch0)
+      load_cells<kRPL, kCPW>(x, Y + base + c0, C, NR, c0, lane, vec);
+    solve_cells<kT, kRPL, kCPW>(x, St, rw, ld, C, lane, buf);
+    store_cells<kRPL, kCPW>(x, rw, X + base + c0, C, NR, c0, lane, vec);
+  }
+}
+
+// trisolve_geometry's launch plan
+struct Plan {
+  int tpb, wpt, cpw, chunks, csplit, smem;
+};
+
+template <bool kT, int kRPL, int kCPW>
+int launch(const float* L, const float* Y, float* X, int B, int C, int NR,
+           const Plan& p, cudaStream_t stream) {
+  auto kernel = trisolve_kernel<kT, kRPL, kCPW>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<dim3((B + p.tpb - 1) / p.tpb, p.csplit), 32 * p.tpb * p.wpt,
+           p.smem, stream>>>(L, Y, X, B, C, NR, p.tpb, p.wpt, p.chunks);
+  return (int)cudaGetLastError();
+}
+
+template <bool kT, int kRPL>
+int launch_cpw(const float* L, const float* Y, float* X, int B, int C, int NR,
+               const Plan& p, cudaStream_t stream) {
+  if (p.cpw == 1) return launch<kT, kRPL, 1>(L, Y, X, B, C, NR, p, stream);
+  return launch<kT, kRPL, kWide>(L, Y, X, B, C, NR, p, stream);
+}
+
+template <bool kT>
+int launch_rpl(const float* L, const float* Y, float* X, int B, int C, int NR,
+               const Plan& p, cudaStream_t stream) {
+  switch ((C + 31) / 32) {
+    case 1:
+      return launch_cpw<kT, 1>(L, Y, X, B, C, NR, p, stream);
+    case 2:
+      return launch_cpw<kT, 2>(L, Y, X, B, C, NR, p, stream);
+    default:
+      return launch_cpw<kT, 3>(L, Y, X, B, C, NR, p, stream);
+  }
 }
 
 }  // namespace
 
 extern "C" int sst_trisolve(const void* L, const void* Y, void* X, int B,
-                            int C, int NR, int transpose, void* stream) {
+                            int C, int NR, int transpose, int tpb, int wpt,
+                            int cpw, int chunks, int csplit, int smem,
+                            void* stream) {
   if (B < 0 || C < 1 || C > kMaxC || NR < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = trisolve_smem(C, NR);
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  // every block of a tile takes at least one chunk
+  const bool ok = tpb >= 1 && wpt >= 1 && tpb * wpt <= kMaxWarps &&
+                  (cpw == 1 || cpw == kWide) &&
+                  chunks == (NR + cpw - 1) / cpw && wpt <= chunks &&
+                  csplit >= 1 && (long long)(csplit - 1) * wpt < chunks &&
+                  csplit <= 65535 && smem >= 0 &&
+                  (size_t)smem <= kMaxSmem &&
+                  (size_t)smem == smem_bytes(C, tpb, wpt, cpw);
+  if (!ok) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const int threads = sst::block_threads((long)C * NR);
-  cudaError_t err;
-  if (transpose) {
-    err = cudaFuncSetAttribute(trisolve_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    trisolve_kernel<true><<<B, threads, smem, (cudaStream_t)stream>>>(
-        (const float*)L, (const float*)Y, (float*)X, C, NR);
-  } else {
-    err = cudaFuncSetAttribute(trisolve_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    trisolve_kernel<false><<<B, threads, smem, (cudaStream_t)stream>>>(
-        (const float*)L, (const float*)Y, (float*)X, C, NR);
-  }
-  return (int)cudaGetLastError();
+  const Plan p{tpb, wpt, cpw, chunks, csplit, smem};
+  if (transpose)
+    return launch_rpl<true>((const float*)L, (const float*)Y, (float*)X, B, C,
+                            NR, p, (cudaStream_t)stream);
+  return launch_rpl<false>((const float*)L, (const float*)Y, (float*)X, B, C,
+                           NR, p, (cudaStream_t)stream);
 }
