@@ -22,7 +22,10 @@
    with K2 on the same inputs; the streaming panel matvec (K5) at the four
    largest groups of its w2 route, with M = W2^T and M = W2, and the
    batched matvec (K6) at the four largest groups of its route, forward and
-   transposed, both at 1 and 8 right-hand sides, and at three shapes off
+   transposed, both at 1 and 8 right-hand sides; K5 also at four shapes off
+   the plan (``K5_OFF_PLAN``: N % 4 != 0, a tiny panel, the smallest plan
+   group's backward panel), each K5 row called twice for a bit-equal Z and
+   printed with its launch plan; K6 also at three shapes off
    the plan's ladders at 1 and 3 (``K6_OFF_PLAN``: one whose rows take K6's
    plain-load path, one of few long panels that takes its cluster and its
    ring of stages, one of wide panels whose forward X (at NR 3) stays in
@@ -37,6 +40,8 @@
    that computes the same function where there is one (and the kernel's
    time over that call's):
    ``torch.linalg.solve_triangular`` for K4, ``torch.bmm`` for K5 and K6,
+   for K3 the two calls of the classic sweep's library route
+   (``solve_triangular`` and ``baddbmm``, checked against K3's plain),
    the factor's ``_place`` (one ``index_put_``, on the class's real pairs)
    for K7. K5, K6 and their library calls are timed with the L2 cache
    flushed before each call, as a sweep finds its panels. Every call is
@@ -109,6 +114,11 @@ K6_OFF_PLAN = ((37, 45, 13), (4, 6000, 52), (16, 16, 6000))
 # warps of one column; an odd width at NR 5, whose X moves by 4-byte loads
 # and stores
 K4_OFF_PLAN = ((37, 96, 508), (8735, 8, 3), (33, 45, 5))
+# (B, K, N, NR) of K5 off the plan: N % 4 != 0 (4-byte loads) at NR 5; a
+# tiny panel at NR 8; the smallest plan group's backward panel, W2 of
+# (1, 2168, 504), at 1 and 8
+K5_OFF_PLAN = ((2, 1001, 333, 5), (1, 40, 24, 8), (1, 2168, 504, 1),
+               (1, 2168, 504, 8))
 L2_FLUSH_BYTES = 64 << 20   # more than the H100's 50 MB L2 cache
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin before each timed call
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
@@ -340,6 +350,24 @@ def _tri_tiles(rng, B, C, dev):
     return torch.as_tensor(L.astype(np.float32), device=dev)
 
 
+def _k3_library_fwd(L11, L21, Y, WB):
+    """The classic sweep's library route for a forward step (the groups K3
+    does not take): ``solve_triangular``, then ``baddbmm`` for L21."""
+    import torch
+
+    xc = torch.linalg.solve_triangular(L11, Y, upper=False)
+    return xc, torch.baddbmm(WB, L21, xc)
+
+
+def _k3_library_bwd(L11, L21, Y, XB):
+    """The same for a backward step: ``baddbmm``, then ``solve_triangular``
+    on L11^T."""
+    import torch
+
+    return torch.linalg.solve_triangular(
+        L11.mT, torch.baddbmm(Y, L21.mT, XB, alpha=-1), upper=True)
+
+
 def solve_kernels(dp, dpf, dev, rng):
     """K3 (forward, backward) and K4 against their plain versions at the
     shapes of the model plan and the forest plan. Returns the records and
@@ -382,23 +410,33 @@ def solve_kernels(dp, dpf, dev, rng):
             flops = float(B * nr * (C * C + 2 * RU * C))
             xc, v = solve_step_fwd(L11, L21, Y, WB)
             pxc, pv = solve_step_fwd_plain(L11, L21, Y, WB)
+            lxc, lv = _k3_library_fwd(L11, L21, Y, WB)
             torch.cuda.synchronize()
             d1, e1 = _rel_err(xc, pxc)
             d2, e2 = _rel_err(v, pv)
+            e_lib = max(_rel_err(lxc, pxc)[1], _rel_err(lv, pv)[1])
+            assert e_lib <= K34_TOL, f"K3's library route disagrees: {e_lib}"
             _record(
                 rec, "solve_step_fwd", shape, max(e1, e2), max(d1, d2),
                 _cuda_ms(lambda: solve_step_fwd(L11, L21, Y, WB), 10),
                 _cuda_ms(lambda: solve_step_fwd_plain(L11, L21, Y, WB), 2),
-                io + 8.0 * (B * C * nr + B * RU * nr), flops)
+                io + 8.0 * (B * C * nr + B * RU * nr), flops,
+                library_ms=_cuda_ms(
+                    lambda: _k3_library_fwd(L11, L21, Y, WB), 10))
             xb = solve_step_bwd(L11, L21, Y, WB)
             pxb = solve_step_bwd_plain(L11, L21, Y, WB)
+            lxb = _k3_library_bwd(L11, L21, Y, WB)
             torch.cuda.synchronize()
             d, e = _rel_err(xb, pxb)
+            e_lib = _rel_err(lxb, pxb)[1]
+            assert e_lib <= K34_TOL, f"K3's library route disagrees: {e_lib}"
             _record(
                 rec, "solve_step_bwd", shape, e, d,
                 _cuda_ms(lambda: solve_step_bwd(L11, L21, Y, WB), 10),
                 _cuda_ms(lambda: solve_step_bwd_plain(L11, L21, Y, WB), 2),
-                io + 4.0 * (2 * B * C * nr + B * RU * nr), flops)
+                io + 4.0 * (2 * B * C * nr + B * RU * nr), flops,
+                library_ms=_cuda_ms(
+                    lambda: _k3_library_bwd(L11, L21, Y, WB), 10))
 
     root = [g for gl in dpf.plan.groups for g in gl
             if classic_route(torch.float32, g.B, g.C, g.R - g.C, 1)
@@ -452,13 +490,15 @@ def solve_kernels(dp, dpf, dev, rng):
 def w2_kernels(dp, dev, rng):
     """K5 and K6 against their plain versions at the four largest groups
     (B * R * C) that the w2 kernel routes send to each in the model plan,
-    with the L2 cache flushed before every timed call."""
+    with the L2 cache flushed before every timed call. K5 also off the plan
+    (``K5_OFF_PLAN``), every K5 row called twice for a bit-equal Z, its
+    launch plan printed with it."""
     import torch
 
     import suitesparse_tpu_torch as sstt
     from suitesparse_tpu_torch.kernels.bmatvec import bmatvec, bmatvec_plain
-    from suitesparse_tpu_torch.kernels.pmatvec import (pmatvec_t,
-                                                       pmatvec_t_plain)
+    from suitesparse_tpu_torch.kernels.pmatvec import (
+        pmatvec_t, pmatvec_t_plain, pmv_geometry)
     from suitesparse_tpu_torch.numeric.supernodal_solve import w2_route
 
     cfg = sstt.DEFAULT.replace(solve_pmv=True, solve_bmv=True)
@@ -481,24 +521,43 @@ def w2_kernels(dp, dev, rng):
                                device=dev)
 
     rec: dict = {}
+
+    def k5_row(M, X, orient):
+        B, K, N = M.shape
+        nr = X.shape[2]
+        Z, P = pmatvec_t(M, X), pmatvec_t_plain(M, X)
+        Z2 = pmatvec_t(M, X)
+        torch.cuda.synchronize()
+        assert torch.equal(Z, Z2), \
+            f"two K5 calls differ at (B,K,N,NR)=({B},{K},{N},{nr})"
+        d, e = _rel_err(Z, P)
+        plan = " ".join(f"{k}={v}" for k, v in
+                        pmv_geometry(B, K, N, nr)._asdict().items())
+        _record(
+            rec, "pmatvec_t",
+            f"(B,K,N,NR)=({B},{K},{N},{nr}) M={orient} plan: {plan}", e, d,
+            _cuda_ms(lambda: pmatvec_t(M, X), 10, cold),
+            _cuda_ms(lambda: pmatvec_t_plain(M, X), 2, cold),
+            4.0 * B * (K * N + K * nr + N * nr), 2.0 * B * K * N * nr,
+            library_ms=_cuda_ms(lambda: torch.bmm(M.mT, X), 10, cold),
+            tol=K567_TOL)
+
     for g in top("pmv"):
         W2 = randn(g.B, g.R, g.C)
         for M, orient in ((W2.mT.contiguous(), "W2^T"), (W2, "W2")):
-            B, K, N = M.shape
             for nr in (1, NRHS_K):
-                X = randn(B, K, nr)
-                Z, P = pmatvec_t(M, X), pmatvec_t_plain(M, X)
-                torch.cuda.synchronize()
-                d, e = _rel_err(Z, P)
-                _record(
-                    rec, "pmatvec_t",
-                    f"(B,K,N,NR)=({B},{K},{N},{nr}) M={orient}", e, d,
-                    _cuda_ms(lambda: pmatvec_t(M, X), 10, cold),
-                    _cuda_ms(lambda: pmatvec_t_plain(M, X), 2, cold),
-                    4.0 * B * (K * N + K * nr + N * nr),
-                    2.0 * B * K * N * nr,
-                    library_ms=_cuda_ms(lambda: torch.bmm(M.mT, X), 10,
-                                        cold), tol=K567_TOL)
+                k5_row(M, randn(M.shape[0], M.shape[1], nr), orient)
+    # the off-plan shapes draw from a stream of their own, so that the
+    # inputs of the later phases stay as they were
+    off_rng = np.random.default_rng(SEED + 5)
+    for B, K, N, nr in K5_OFF_PLAN:
+        M = torch.as_tensor(off_rng.standard_normal((B, K, N),
+                                                    dtype=np.float32),
+                            device=dev)
+        X = torch.as_tensor(off_rng.standard_normal((B, K, nr),
+                                                    dtype=np.float32),
+                            device=dev)
+        k5_row(M, X, "off-plan")
     k6 = [((g.B, g.R, g.C), (1, NRHS_K)) for g in top("bmv")] + \
         [(shape, (1, 3)) for shape in K6_OFF_PLAN]
     for (B, R, C), nrs in k6:

@@ -50,8 +50,10 @@ _SIGNATURES = {
     # part, chunk, stages, xsmem, smem; stream
     "sst_bmatvec": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
                     _i, _i, _vp],
-    # M, X, Z, B, K, N, NR, stream
-    "sst_pmatvec": [_vp, _vp, _vp, _i, _i, _i, _i, _vp],
+    # M, X, Z, B, K, N, NR, then vec and pmv_geometry's tw, tiles, warps,
+    # split, rows, smem; stream
+    "sst_pmatvec": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
+                    _i, _vp],
     # L, Y, X, B, C, NR, transpose, then trisolve_geometry's tpb, wpt, cpw,
     # chunks, csplit, smem; stream
     "sst_trisolve": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,

@@ -20,7 +20,9 @@ Per phase it prints one JSON line:
   memsets) of the profiled call; ``device_idle_share`` = 1 - busy /
   prof_wall_s;
 - ``n_device_ops`` and ``top``: the 8 largest rows of ``key_averages()``
-  by self device time, as (name, ms, calls).
+  by self device time, as (name, ms, calls);
+- ``hand_kernels``: device ms and launches of each hand-written kernel of
+  ``kernels/csrc`` in the call, by its function name (all its instances).
 
 It then times every ``_group_compute`` of one factorization with a device
 synchronize after each group and prints the 25 slowest groups. The full
@@ -50,6 +52,11 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 # CUPTI bookkeeping rows that the profiler files under the device but that
 # are no device work
 _NOT_DEVICE_WORK = {"Command Buffer Full", "Activity Buffer Request"}
+# the __global__ functions of kernels/csrc
+HAND_KERNELS = ("potrf_trsm_kernel", "extend_add_tiles_kernel",
+                "extend_add_kernel", "solve_step_fwd_kernel",
+                "solve_step_bwd_kernel", "trisolve_kernel", "pmatvec_kernel",
+                "bmatvec_kernel")
 
 
 def _sync_wall(fn) -> float:
@@ -88,11 +95,18 @@ def profile_phase(name: str, fn) -> dict:
         f.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=60,
             max_name_column_width=90))
+    hand = {}
+    for r in rows:
+        for k in HAND_KERNELS:
+            if f"{k}<" in r.key or f"{k}(" in r.key:
+                ms, n = hand.get(k, (0.0, 0))
+                hand[k] = (ms + r.self_device_time_total / 1e3, n + r.count)
     rec = {"phase": name, "wall_s": wall, "prof_wall_s": prof_wall,
            "device_busy_s": busy, "device_idle_share": 1 - busy / prof_wall,
            "n_device_ops": nops,
            "top": [(r.key[:70], r.self_device_time_total / 1e3, r.count)
-                   for r in rows[:8]]}
+                   for r in rows[:8]],
+           "hand_kernels": hand}
     print(json.dumps(rec), flush=True)
     return rec
 
