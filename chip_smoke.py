@@ -11,7 +11,12 @@
    plans give it, from a numpy seed: potrf_trsm (K1) at the three largest
    groups of its gate, the tiled extend-add (K2) on the largest tile
    manifest, the solve steps (K3, forward and backward) at the four largest
-   groups of their gate at 1 and 64 right-hand sides, the batched trisolve
+   groups of their gate at 1 and 64 right-hand sides and at three shapes
+   off the plan (``K3_OFF_PLAN``: an odd C at NR 5, RU far above 720, RU =
+   0), each K3 row with NaN above L11's diagonal, called twice for bit-equal
+   results and printed with its launch plan, after the count of model-plan
+   groups that take K3 (``K3_GROUPS``, at nrhs 1 and 64), the batched
+   trisolve
    (K4) at the forest's (512, 64) root group and the (45, 48) L11 shape,
    plain and transposed, at 1 and 64 right-hand sides, and at three
    shapes off the plans (``K4_OFF_PLAN``: the widest tile at the most
@@ -119,6 +124,11 @@ K4_OFF_PLAN = ((37, 96, 508), (8735, 8, 3), (33, 45, 5))
 # (1, 2168, 504), at 1 and 8
 K5_OFF_PLAN = ((2, 1001, 333, 5), (1, 40, 24, 8), (1, 2168, 504, 1),
                (1, 2168, 504, 8))
+# (B, C, RU, NR) of K3 off the plan: an odd C (L21 and the vectors by
+# 4-byte copies) at NR 5; RU far above 720 (a part staged in several
+# chunks, a cluster of 8 backward); no rows below (RU = 0, v is None)
+K3_OFF_PLAN = ((3, 37, 101, 5), (1, 96, 4000, 64), (8, 8, 0, 1))
+K3_GROUPS = 50     # groups of the n = 125k plan that take K3, nrhs 1 and 64
 L2_FLUSH_BYTES = 64 << 20   # more than the H100's 50 MB L2 cache
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin before each timed call
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
@@ -350,24 +360,6 @@ def _tri_tiles(rng, B, C, dev):
     return torch.as_tensor(L.astype(np.float32), device=dev)
 
 
-def _k3_library_fwd(L11, L21, Y, WB):
-    """The classic sweep's library route for a forward step (the groups K3
-    does not take): ``solve_triangular``, then ``baddbmm`` for L21."""
-    import torch
-
-    xc = torch.linalg.solve_triangular(L11, Y, upper=False)
-    return xc, torch.baddbmm(WB, L21, xc)
-
-
-def _k3_library_bwd(L11, L21, Y, XB):
-    """The same for a backward step: ``baddbmm``, then ``solve_triangular``
-    on L11^T."""
-    import torch
-
-    return torch.linalg.solve_triangular(
-        L11.mT, torch.baddbmm(Y, L21.mT, XB, alpha=-1), upper=True)
-
-
 def solve_kernels(dp, dpf, dev, rng):
     """K3 (forward, backward) and K4 against their plain versions at the
     shapes of the model plan and the forest plan. Returns the records and
@@ -376,67 +368,97 @@ def solve_kernels(dp, dpf, dev, rng):
 
     from suitesparse_tpu_torch.kernels.solve_step import (
         solve_step_bwd, solve_step_bwd_plain, solve_step_fwd,
-        solve_step_fwd_plain)
+        solve_step_fwd_plain, solve_step_geometry)
+    from suitesparse_tpu_torch.kernels.step_sweep import (library_bwd,
+                                                          library_fwd)
     from suitesparse_tpu_torch.kernels.trisolve import (
         batched_trisolve, batched_trisolve_plain)
     from suitesparse_tpu_torch.numeric.supernodal_solve import classic_route
 
     rec: dict = {}
     groups = [g for gl in dp.plan.groups for g in gl]
-    k3 = sorted((g for g in groups if classic_route(
-        torch.float32, g.B, g.C, g.R - g.C, 1) == "solve_step"),
-        key=lambda g: g.B * g.R * g.C, reverse=True)[:4]
-    assert len(k3) == 4, "fewer than four groups pass the solve_step gate"
-    for g in k3:
-        B, R, C, RU = g.B, g.R, g.C, g.R - g.C
-        # L21 and the (B, RU, NR) vectors as the sweep passes them: views
-        # into a packed (B, R, C) panel and a (B, R, NR) work buffer
+    taken = {nr: [g for g in groups if classic_route(
+        torch.float32, g.B, g.C, g.R - g.C, nr) == "solve_step"]
+        for nr in (1, NRHS)}
+    print(f"K3 groups of the model plan: {len(taken[1])} at nrhs 1, "
+          f"{len(taken[NRHS])} at nrhs {NRHS}", flush=True)
+    assert len(taken[1]) == len(taken[NRHS]) == K3_GROUPS, \
+        {nr: len(g) for nr, g in taken.items()}
+    k3 = sorted(taken[1], key=lambda g: g.B * g.R * g.C, reverse=True)[:4]
+
+    def k3_rows(r, B, C, RU, nrs, where):
+        """K3 both ways against the plain versions and the library route,
+        two calls bit-equal, NaN above L11's diagonal (K3 reads its lower
+        triangle only; the plain versions and the library take a copy
+        without it); L21 and the (B, RU, NR) vectors as the sweep passes
+        them, views into a packed (B, R, C) panel and a (B, R, NR)
+        buffer."""
+        R = C + RU
         P = torch.empty(B, R, C, device=dev)
-        L11 = _tri_tiles(rng, B, C, dev)
-        P[:, C:] = torch.as_tensor(rng.uniform(-1.0, 1.0, (B, RU, C))
+        L11 = _tri_tiles(r, B, C, dev)
+        P[:, C:] = torch.as_tensor(r.uniform(-1.0, 1.0, (B, RU, C))
                                    .astype(np.float32) / C, device=dev)
         L21 = P[:, C:]
-        for nr in (1, NRHS):
-            Y = torch.as_tensor(rng.standard_normal((B, C, nr),
-                                                    dtype=np.float32),
+        Ln = L11.clone()
+        iu = torch.triu_indices(C, C, 1, device=dev)
+        Ln[:, iu[0], iu[1]] = float("nan")
+        for nr in nrs:
+            Y = torch.as_tensor(r.standard_normal((B, C, nr),
+                                                  dtype=np.float32),
                                 device=dev)
-            W = torch.as_tensor(rng.standard_normal((B, R, nr),
-                                                    dtype=np.float32),
+            W = torch.as_tensor(r.standard_normal((B, R, nr),
+                                                  dtype=np.float32),
                                 device=dev)
             WB = W[:, C:]
-            shape = f"(B,C,RU,NR)=({B},{C},{RU},{nr})"
+            shape = f"(B,C,RU,NR)=({B},{C},{RU},{nr}) {where}"
             # L11's lower triangle and L21, read once
             io = 4.0 * B * (C * (C + 1) / 2 + RU * C)
             flops = float(B * nr * (C * C + 2 * RU * C))
-            xc, v = solve_step_fwd(L11, L21, Y, WB)
-            pxc, pv = solve_step_fwd_plain(L11, L21, Y, WB)
-            lxc, lv = _k3_library_fwd(L11, L21, Y, WB)
-            torch.cuda.synchronize()
-            d1, e1 = _rel_err(xc, pxc)
-            d2, e2 = _rel_err(v, pv)
-            e_lib = max(_rel_err(lxc, pxc)[1], _rel_err(lv, pv)[1])
-            assert e_lib <= K34_TOL, f"K3's library route disagrees: {e_lib}"
-            _record(
-                rec, "solve_step_fwd", shape, max(e1, e2), max(d1, d2),
-                _cuda_ms(lambda: solve_step_fwd(L11, L21, Y, WB), 10),
-                _cuda_ms(lambda: solve_step_fwd_plain(L11, L21, Y, WB), 2),
-                io + 8.0 * (B * C * nr + B * RU * nr), flops,
-                library_ms=_cuda_ms(
-                    lambda: _k3_library_fwd(L11, L21, Y, WB), 10))
-            xb = solve_step_bwd(L11, L21, Y, WB)
-            pxb = solve_step_bwd_plain(L11, L21, Y, WB)
-            lxb = _k3_library_bwd(L11, L21, Y, WB)
-            torch.cuda.synchronize()
-            d, e = _rel_err(xb, pxb)
-            e_lib = _rel_err(lxb, pxb)[1]
-            assert e_lib <= K34_TOL, f"K3's library route disagrees: {e_lib}"
-            _record(
-                rec, "solve_step_bwd", shape, e, d,
-                _cuda_ms(lambda: solve_step_bwd(L11, L21, Y, WB), 10),
-                _cuda_ms(lambda: solve_step_bwd_plain(L11, L21, Y, WB), 2),
-                io + 4.0 * (2 * B * C * nr + B * RU * nr), flops,
-                library_ms=_cuda_ms(
-                    lambda: _k3_library_bwd(L11, L21, Y, WB), 10))
+            for name in ("solve_step_fwd", "solve_step_bwd"):
+                tr = name == "solve_step_bwd"
+                g = solve_step_geometry(B, C, RU, nr, tr)
+                plan = " ".join(f"{k}={v}" for k, v in g._asdict().items())
+                kern = solve_step_bwd if tr else solve_step_fwd
+                plain = solve_step_bwd_plain if tr else solve_step_fwd_plain
+                lib = library_bwd if tr else library_fwd
+                out = kern(Ln, L21, Y, WB)
+                out2 = kern(Ln, L21, Y, WB)
+                ref = plain(L11, L21, Y, WB)
+                if not tr:
+                    out, out2, ref = [o for o in out if o is not None], \
+                        [o for o in out2 if o is not None], \
+                        [o for o in ref if o is not None]
+                else:
+                    out, out2, ref = [out], [out2], [ref]
+                torch.cuda.synchronize()
+                assert all(torch.equal(a, b) for a, b in zip(out, out2)), \
+                    f"two {name} calls differ at {shape}"
+                errs = [_rel_err(a, b) for a, b in zip(out, ref)]
+                d, e = max(x[0] for x in errs), max(x[1] for x in errs)
+                lib_ms = None
+                if RU:
+                    lo = lib(L11, L21, Y, WB)
+                    lo = list(lo) if not tr else [lo]
+                    torch.cuda.synchronize()
+                    e_lib = max(_rel_err(a, b)[1] for a, b in zip(lo, ref))
+                    assert e_lib <= K34_TOL, \
+                        f"K3's library route disagrees: {e_lib}"
+                    lib_ms = _cuda_ms(lambda: lib(L11, L21, Y, WB), 10)
+                # bytes: the panel, y, wb or xb read; xc and v written
+                nbytes = io + (8.0 * (B * C * nr + B * RU * nr) if not tr
+                               else 4.0 * (2 * B * C * nr + B * RU * nr))
+                _record(rec, name, f"{shape} plan: {plan}", e, d,
+                        _cuda_ms(lambda: kern(Ln, L21, Y, WB), 10),
+                        _cuda_ms(lambda: plain(L11, L21, Y, WB), 2),
+                        nbytes, flops, library_ms=lib_ms)
+
+    for g in k3:
+        k3_rows(rng, g.B, g.C, g.R - g.C, (1, NRHS), "plan")
+    # the off-plan shapes draw from a stream of their own, so that the
+    # inputs of the later phases stay as they were
+    off3 = np.random.default_rng(SEED + 3)
+    for B, C, RU, nr in K3_OFF_PLAN:
+        k3_rows(off3, B, C, RU, (nr,), "off-plan")
 
     root = [g for gl in dpf.plan.groups for g in gl
             if classic_route(torch.float32, g.B, g.C, g.R - g.C, 1)

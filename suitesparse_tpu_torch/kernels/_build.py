@@ -58,12 +58,15 @@ _SIGNATURES = {
     # chunks, csplit, smem; stream
     "sst_trisolve": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,
                      _vp],
-    # L11, L21, l21_bstride, Y, WB, wb_bstride, XC, V, B, C, RU, NR, stream
+    # L11, L21, l21_bstride, Y, WB, wb_bstride, XC, V, B, C, RU, NR, then
+    # solve_step_geometry's tpb, wpt, lanes, cpw, chunks, split, prow, crow,
+    # smem; stream
     "sst_solve_step_fwd": [_vp, _vp, _ll, _vp, _vp, _ll, _vp, _vp, _i, _i, _i,
-                           _i, _vp],
-    # L11, L21, l21_bstride, Y, XB, xb_bstride, XC, B, C, RU, NR, stream
+                           _i, _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp],
+    # L11, L21, l21_bstride, Y, XB, xb_bstride, XC, B, C, RU, NR, then the
+    # same nine ints; stream
     "sst_solve_step_bwd": [_vp, _vp, _ll, _vp, _vp, _ll, _vp, _i, _i, _i, _i,
-                           _vp],
+                           _i, _i, _i, _i, _i, _i, _i, _i, _i, _vp],
 }
 
 _lock = threading.Lock()

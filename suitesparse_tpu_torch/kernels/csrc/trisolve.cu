@@ -13,12 +13,12 @@
 // - NR 64: instruction issue. A tile is C*C*NR/2 FMAs (131,072 at
 //   (64, 64)); spent one loop iteration per (row, column) cell, with index
 //   divisions, a pivot division and three shared-memory accesses around
-//   each FMA (the shared loop of tile_trisolve.cuh, which K3 keeps), the
+//   each FMA (the shared per-cell loop this kernel replaced), the
 //   issue slots run out long before the bytes.
 // - NR 1: latency. Each tile has only C cells a step and is a chain of C
 //   dependent steps; the launch and one round trip to device memory for
 //   the tile cost about as much again.
-// The design:
+// The design (the warp solve lives in warp_trisolve.cuh, shared with K3):
 // - A warp owns `cpw` columns of one tile's X for the whole solve, in
 //   registers: lane l holds rows l, l + 32 and l + 64 (kRPL = ceil(C/32)) of
 //   each. Step k needs no block barrier: the lane that owns row k publishes
@@ -59,7 +59,7 @@
 
 #include <cstdint>
 
-#include "tile_trisolve.cuh"
+#include "warp_trisolve.cuh"
 
 namespace {
 
@@ -68,27 +68,10 @@ constexpr int kMaxWarps = 8;     // warps of one block
 constexpr int kWide = 8;         // columns a warp holds when it holds several
 constexpr size_t kMaxSmem = 232448;  // 227 KB, the most a block can take
 
-// floats of a warp's publish buffer: two rows of its columns (none when a
-// shuffle publishes)
-__host__ __device__ inline int pub_floats(int cpw) {
-  return cpw >= 4 ? 2 * cpw : 0;
-}
-
 // each warp's publish buffer and pivot reciprocals (C) | tiles (C x ld)
 size_t smem_bytes(int C, int tpb, int wpt, int cpw) {
-  return sizeof(float) * ((size_t)tpb * wpt * (pub_floats(cpw) + C) +
+  return sizeof(float) * ((size_t)tpb * wpt * (sst::pub_floats(cpw) + C) +
                           (size_t)tpb * C * sst::odd_stride(C));
-}
-
-__device__ inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-__device__ inline void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
 }
 
 // The block's nt tiles into shared memory (see the note above): the lower
@@ -102,149 +85,9 @@ __device__ void stage(const float* __restrict__ Lg, float* Ls, int nt, int C,
   for (int t = 0; t < nt; ++t)
     for (int i = warp; i < C; i += nw)
       for (int c = lane; c <= i; c += 32)
-        cp_async4(Ls + t * C * ld + i * ld + c, Lg + t * CC + i * C + c);
+        sst::cp_async4(Ls + t * C * ld + i * ld + c, Lg + t * CC + i * C + c);
   asm volatile("cp.async.wait_all;\n" ::: "memory");
   __syncthreads();
-}
-
-// xk = the owner lane's cells of row k, in every lane of the warp
-template <int kCPW>
-__device__ __forceinline__ void publish(const float (&row)[kCPW], int owner,
-                                        int lane, float* buf,
-                                        float (&xk)[kCPW]) {
-  if constexpr (kCPW < 4) {
-#pragma unroll
-    for (int c = 0; c < kCPW; ++c)
-      xk[c] = __shfl_sync(0xffffffffu, row[c], owner);
-  } else {
-    float4* b4 = reinterpret_cast<float4*>(buf);
-    if (lane == owner)
-#pragma unroll
-      for (int v = 0; v < kCPW / 4; ++v)
-        b4[v] = make_float4(row[4 * v], row[4 * v + 1], row[4 * v + 2],
-                            row[4 * v + 3]);
-    __syncwarp();
-#pragma unroll
-    for (int v = 0; v < kCPW / 4; ++v) {
-      const float4 q = b4[v];
-      xk[4 * v] = q.x, xk[4 * v + 1] = q.y;
-      xk[4 * v + 2] = q.z, xk[4 * v + 3] = q.w;
-    }
-  }
-}
-
-// One warp solves its cells x (rows lane + 32 j, kCPW columns) against the
-// tile St, whose pivots' reciprocals are rw; x is left unscaled (X[k] =
-// L[k][k] x_k). buf: the warp's two publish rows. Step k publishes row k
-// into buf[k & 1]: the __syncwarp of step k + 1 lies between every lane's
-// reads of step k and the write of step k + 2. Each step loads the next
-// step's L values and pivot reciprocal before it publishes, so that their
-// latency is off the chain of steps; a lane's rows that step k does not
-// update take l = 0 (their cells stay as they are while the published
-// cells are finite).
-template <bool kT, int kRPL, int kCPW>
-__device__ __forceinline__ void solve_cells(float (&x)[kRPL][kCPW],
-                                            const float* St, const float* rw,
-                                            int ld, int C, int lane,
-                                            float* buf) {
-  int off[kRPL];  // forward: the lane's rows; transposed: its columns. Past
-                  // C (never stored) they read row or column C - 1
-#pragma unroll
-  for (int j = 0; j < kRPL; ++j)
-    off[j] = min(lane + 32 * j, C - 1) * (kT ? 1 : ld);
-  // this step's multipliers: forward L[i][k] / L[k][k], transposed
-  // L[k][i] / L[k][k]
-  const int k0 = kT ? C - 1 : 0;
-  float lv[kRPL];
-#pragma unroll
-  for (int j = 0; j < kRPL; ++j)
-    lv[j] = St[off[j] + (kT ? k0 * ld : k0)] * rw[k0];
-#pragma unroll
-  for (int s = 0; s < kRPL; ++s) {
-    const int jk = kT ? kRPL - 1 - s : s;  // the slot that holds row k
-    const int kn = min(32, C - 32 * jk);
-    for (int n = 0; n < kn; ++n) {
-      const int kk = kT ? kn - 1 - n : n;
-      const int k = 32 * jk + kk;
-      const int kq = kT ? max(k - 1, 0) : min(k + 1, C - 1);  // next step
-      const int jlo = kT ? 0 : jk, jhi = kT ? jk : kRPL - 1;  // rows it moves
-      float ln[kRPL];
-#pragma unroll
-      for (int j = jlo; j <= jhi; ++j)
-        ln[j] = St[off[j] + (kT ? kq * ld : kq)];
-      const float rn = rw[kq];
-      float xk[kCPW];
-      publish<kCPW>(x[jk], kk, lane, buf + (k & 1) * kCPW, xk);
-#pragma unroll
-      for (int j = jlo; j <= jhi; ++j) {
-        const bool live = kT ? (j < jk || lane < kk) : (j > jk || lane > kk);
-        const float l = live ? lv[j] : 0.0f;
-#pragma unroll
-        for (int c = 0; c < kCPW; ++c) x[j][c] = fmaf(-l, xk[c], x[j][c]);
-        lv[j] = ln[j] * rn;
-      }
-    }
-  }
-}
-
-// x = a chunk's cells of Y (Yc: its first column), zero past C rows or NR
-// columns
-template <int kRPL, int kCPW>
-__device__ __forceinline__ void load_cells(float (&x)[kRPL][kCPW],
-                                           const float* __restrict__ Yc,
-                                           int C, int NR, int c0, int lane,
-                                           bool vec) {
-#pragma unroll
-  for (int j = 0; j < kRPL; ++j) {
-    const int i = lane + 32 * j;
-    const float* y = Yc + (size_t)i * NR;
-    if constexpr (kCPW % 4 == 0) {
-      if (vec) {
-#pragma unroll
-        for (int v = 0; v < kCPW / 4; ++v) {
-          float4 q = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-          if (i < C && c0 + 4 * v < NR)
-            q = *reinterpret_cast<const float4*>(y + 4 * v);
-          x[j][4 * v] = q.x, x[j][4 * v + 1] = q.y;
-          x[j][4 * v + 2] = q.z, x[j][4 * v + 3] = q.w;
-        }
-        continue;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kCPW; ++c)
-      x[j][c] = i < C && c0 + c < NR ? y[c] : 0.0f;
-  }
-}
-
-// X's cells of the chunk = x times the rows' pivot reciprocals rt
-template <int kRPL, int kCPW>
-__device__ __forceinline__ void store_cells(const float (&x)[kRPL][kCPW],
-                                            const float* rt,
-                                            float* __restrict__ Xc, int C,
-                                            int NR, int c0, int lane,
-                                            bool vec) {
-#pragma unroll
-  for (int j = 0; j < kRPL; ++j) {
-    const int i = lane + 32 * j;
-    if (i >= C) continue;
-    const float r = rt[i];
-    float* o = Xc + (size_t)i * NR;
-    if constexpr (kCPW % 4 == 0) {
-      if (vec) {
-#pragma unroll
-        for (int v = 0; v < kCPW / 4; ++v)
-          if (c0 + 4 * v < NR)
-            *reinterpret_cast<float4*>(o + 4 * v) =
-                make_float4(x[j][4 * v] * r, x[j][4 * v + 1] * r,
-                            x[j][4 * v + 2] * r, x[j][4 * v + 3] * r);
-        continue;
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < kCPW; ++c)
-      if (c0 + c < NR) o[c] = x[j][c] * r;
-  }
 }
 
 // Block (x, y): tpb tiles, wpt warps each; warp w of tile t takes the
@@ -262,7 +105,7 @@ trisolve_kernel(const float* __restrict__ L, const float* __restrict__ Y,
   const int ld = sst::odd_stride(C);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* pub = smem;
-  float* rinv = pub + tpb * wpt * pub_floats(kCPW);
+  float* rinv = pub + tpb * wpt * sst::pub_floats(kCPW);
   float* Ls = rinv + tpb * wpt * C;
   const long long b0 = (long long)blockIdx.x * tpb;
   const int nt = (int)min((long long)tpb, B - b0);
@@ -270,12 +113,12 @@ trisolve_kernel(const float* __restrict__ L, const float* __restrict__ Y,
   const int ch0 = w + wpt * blockIdx.y, chstep = wpt * gridDim.y;
   const size_t base = (size_t)(b0 + t) * C * NR;
   // 16-byte moves of X where every chunk's row starts 16-byte aligned
-  const bool vec = kCPW % 4 == 0 && NR % 4 == 0 && aligned16(Y) &&
-                   aligned16(X);
+  const bool vec = kCPW % 4 == 0 && NR % 4 == 0 && sst::aligned16(Y) &&
+                   sst::aligned16(X);
   float x[kRPL][kCPW];
   if (t < nt && ch0 < chunks)  // its loads fly while the tiles are staged
-    load_cells<kRPL, kCPW>(x, Y + base + ch0 * kCPW, C, NR, ch0 * kCPW, lane,
-                           vec);
+    sst::load_cells<kRPL, kCPW>(x, Y + base + ch0 * kCPW, C, NR, ch0 * kCPW,
+                                lane, vec);
   stage(L + b0 * C * C, Ls, nt, C, ld);
   if (t >= nt) return;
   const float* St = Ls + t * C * ld;
@@ -283,13 +126,13 @@ trisolve_kernel(const float* __restrict__ L, const float* __restrict__ Y,
   float* rw = rinv + warp * C;
   for (int k = lane; k < C; k += 32) rw[k] = 1.0f / St[k * ld + k];
   __syncwarp();
-  float* buf = pub + warp * pub_floats(kCPW);
+  float* buf = pub + warp * sst::pub_floats(kCPW);
   for (int ch = ch0; ch < chunks; ch += chstep) {
     const int c0 = ch * kCPW;
     if (ch != ch0)
-      load_cells<kRPL, kCPW>(x, Y + base + c0, C, NR, c0, lane, vec);
-    solve_cells<kT, kRPL, kCPW>(x, St, rw, ld, C, lane, buf);
-    store_cells<kRPL, kCPW>(x, rw, X + base + c0, C, NR, c0, lane, vec);
+      sst::load_cells<kRPL, kCPW>(x, Y + base + c0, C, NR, c0, lane, vec);
+    sst::solve_cells<kT, kRPL, kCPW>(x, St, rw, ld, C, lane, buf);
+    sst::store_cells<kRPL, kCPW>(x, rw, X + base + c0, C, NR, c0, lane, vec);
   }
 }
 

@@ -11,6 +11,7 @@ import ast
 import os
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -44,6 +45,30 @@ PROBLEMS = {
     "laplacian_3d_12": lambda pkg: pkg.io.fixtures.laplacian_3d(12),
     "forest_40x6": lambda pkg: forest(pkg, 40, 6),
 }
+
+
+def _reference_native():
+    """The reference's native library, loaded in this worker, or fail.
+
+    The reference links ``suitesparse_tpu/native/lib/libsstpu.so`` straight
+    to its final name, and under pytest-xdist every worker builds it while
+    collecting ``tests/test_native.py``. A worker that loaded a half-written
+    file, or whose own link failed, keeps ``_build_failed`` set and runs the
+    Python orderings from then on, which are not the C++ orderings the port
+    runs. Once another worker has finished the file (its stamp then matches
+    the sources), clearing the flag and loading again gives the worker the
+    library; a few tries cover a link still in flight."""
+    from suitesparse_tpu import native as ref_native
+
+    for attempt in range(5):
+        if ref_native._dll is None and ref_native._build_failed:
+            ref_native._build_failed = False
+        if ref_native.available():
+            return ref_native
+        time.sleep(1.0 + attempt)
+    pytest.fail("the reference's native library does not load in this "
+                "worker: its C++ orderings cannot be compared with the "
+                "port's")
 
 
 def _imports(path):
@@ -98,6 +123,7 @@ def test_cholsol_runs_with_jax_and_the_jax_package_blocked():
 @pytest.mark.parametrize("name", sorted(PROBLEMS))
 def test_ordering_analysis_plan_and_manifests_equal_the_reference(
         name, monkeypatch):
+    _reference_native()
     monkeypatch.setenv("SSTPU_PLACE", "tile")
     monkeypatch.setenv("SSTPU_TILE_RMIN", "32")
     Aj, A = PROBLEMS[name](sst), PROBLEMS[name](sstt)
@@ -139,6 +165,7 @@ def test_ordering_analysis_plan_and_manifests_equal_the_reference(
 
 
 def test_amd_and_best_orderings_equal_the_reference():
+    _reference_native()
     Aj = sst.io.fixtures.fem_mesh_spd(800)
     A = sstt.fixtures.fem_mesh_spd(800)
     assert np.array_equal(sstt.analyze(A).perm, sst.analyze(Aj).perm)
@@ -146,6 +173,22 @@ def test_amd_and_best_orderings_equal_the_reference():
     assert np.array_equal(
         sstt.analyze(A, sstt.DEFAULT.replace(ordering=best)).perm,
         sst.analyze(Aj, sst.DEFAULT.replace(ordering=sst.Ordering.BEST)).perm)
+
+
+def test_reference_native_recovers_a_worker_that_lost_the_build_race(
+        monkeypatch):
+    """A worker whose load of the reference's library failed (the flag set,
+    no library) gets the library back from the helper, and with it the
+    C++ orderings: the reference's AMD ordering equals the port's again."""
+    ref_native = _reference_native()
+    monkeypatch.setattr(ref_native, "_dll", None)
+    monkeypatch.setattr(ref_native, "_build_failed", True)
+    assert not ref_native.available()     # the lost race, as a worker sees it
+    assert _reference_native() is ref_native
+    assert ref_native._dll is not None and ref_native.has("sstpu_amd")
+    Aj = sst.io.fixtures.fem_mesh_spd(400)
+    A = sstt.fixtures.fem_mesh_spd(400)
+    assert np.array_equal(sstt.analyze(A).perm, sst.analyze(Aj).perm)
 
 
 def test_host_library_builds_into_the_ignored_lib_dir():
