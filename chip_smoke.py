@@ -24,7 +24,11 @@
    NR 3, an odd tile width at NR 5), every K4 tile with NaN above its
    diagonal, which the kernel must not read; the two-piece
    extend-add (K2b) on the two-piece manifest of K2's group, timed in turns
-   with K2 on the same inputs; the streaming panel matvec (K5) at the four
+   with K2 on the same inputs, each printed with its launch plan, called
+   twice for bit-equal F, the two forms bit-equal; K2 and K2b also on three
+   manifests off the plan (``K2_OFF_PLAN``: a few tiles, an odd R whose F
+   moves by 4-byte copies, runs of five steps), held and checked the same
+   way; the streaming panel matvec (K5) at the four
    largest groups of its w2 route, with M = W2^T and M = W2, and the
    batched matvec (K6) at the four largest groups of its route, forward and
    transposed, both at 1 and 8 right-hand sides; K5 also at four shapes off
@@ -108,6 +112,12 @@ NRHS = 64
 NRHS_K = 8         # right-hand sides of the w2 kernel routes (K5, K6)
 K7_GROUP = (114, 224)   # (B, R) of the factor's slowest placement group
 K7_CLASSES = ((75, 128), (15, 168), (59, 64))   # its (npairs, RU) classes
+# (B, R, classes) of K2 and K2b off the plan, each class (npairs, RU_c) of
+# random children: a manifest of under 10 tiles; R % 4 != 0 (4-byte F
+# traffic); one front that takes 5 children, so its tiles have runs of 5
+# steps
+K2_OFF_PLAN = ((2, 200, ((3, 90),)), (3, 301, ((6, 120), (4, 60))),
+               (1, 384, ((5, 200),)))
 # (B, R, C) of K6 off the plan's ladders, at 1 and 3 right-hand sides: rows
 # that are not 16-byte multiples (plain loads); few long panels
 # (transposed: a cluster of 8 blocks a panel, a ring of stages); wide
@@ -236,7 +246,8 @@ def factor_kernels(dp, dpp, dev, rng):
     import torch
 
     from suitesparse_tpu_torch.kernels.extend_add_tiles import (
-        TILE, extend_add_tiles, extend_add_tiles_plain)
+        extend_add_tiles, extend_add_tiles_plain, manifest_work,
+        tile_geometry)
     from suitesparse_tpu_torch.kernels.potrf import (
         potrf_trsm, potrf_trsm_plain)
     from suitesparse_tpu_torch.numeric.supernodal_device import \
@@ -306,7 +317,8 @@ def factor_kernels(dp, dpp, dev, rng):
         torch.cuda.synchronize()
         d, e = _rel_err(out[name], Fp)
         assert np.isfinite(e) and e <= K2_TOL, f"{name} disagrees: {e}"
-        bound_ms, bound_by = _tile_bound(g)
+        bound_ms, bound_by = _bound(*manifest_work(g._tile, g._tile_runs,
+                                                   g.R))
         rec[name] = {"err": e, "abs": d, "bound_ms": bound_ms,
                      "bound_by": bound_by, "library_ms": None,
                      "plain_ms": _cuda_ms(
@@ -322,8 +334,10 @@ def factor_kernels(dp, dpp, dev, rng):
     for name, g in pieces.items():
         r = rec[name]
         r["ms"] = sum(ms[name]) / len(ms[name])
+        nruns = len(g._tile_runs) - 1
+        geo = tile_geometry(nruns, g.R, g._tile.RUp, g._tile.rowmap.shape[1])
         print(f"{name} (B,R)=({g.B},{g.R}) steps={g._tile.man.shape[0]} "
-              f"tiles={len(g._tile_runs) - 1} RUp={g._tile.RUp} "
+              f"tiles={nruns} RUp={g._tile.RUp} {geo} "
               f"rel_err={r['err']:.3e} kernel_ms={r['ms']:.4f} "
               f"(in turns: {ms[name][0]:.4f}, {ms[name][1]:.4f}) "
               f"plain_ms={r['plain_ms']:.4f} bound_ms={r['bound_ms']:.4f} "
@@ -331,23 +345,65 @@ def factor_kernels(dp, dpp, dev, rng):
     same = torch.equal(*out.values())
     print(f"two-piece result equals one-piece result bit for bit: {same}",
           flush=True)
+    assert same, "the two-piece result differs from the one-piece result"
+    for name in pieces:
+        again = extend_add_tiles(F0.clone(), U, *args[name])
+        assert torch.equal(again, out[name]), f"{name}: two calls differ"
+    tile_off_plan(rec, dev, rng)
     return k1, rec["extend_add_tiles"], rec["extend_add_tiles_pair"]
 
 
-def _tile_bound(g) -> tuple[float, str]:
-    """The bound of a manifest's extend-add: each piece reads its valid
-    child cells and adds them once; each visited tile of F is read and
-    written once; the step table and the maps are read once."""
-    from suitesparse_tpu_torch.kernels.extend_add_tiles import TILE
+def tile_off_plan(rec, dev, rng) -> None:
+    """K2 and K2b on the K2_OFF_PLAN manifests: each within K2_TOL of the
+    plain version, two calls bit-equal, the two forms bit-equal; errors
+    folded into ``rec``."""
+    import torch
 
-    tm = g._tile
-    piece_cells = float(((tm.rowmap >= 0).sum(2)
-                         * (tm.colmap >= 0).sum(2)).sum())
-    starts = tm.man[g._tile_runs[:-1]]
-    tile_cells = float((np.minimum(TILE, g.R - starts[:, 1] * TILE)
-                        * np.minimum(TILE, g.R - starts[:, 2] * TILE)).sum())
-    return _bound(4.0 * piece_cells + 8.0 * tile_cells + 4.0 * tm.man.size
-                  + 4.0 * (tm.rowmap.size + tm.colmap.size), piece_cells)
+    from suitesparse_tpu_torch.kernels.extend_add_tiles import (
+        build_group_manifest, extend_add_tiles, extend_add_tiles_plain,
+        run_ptr, synthetic_group, tile_geometry)
+
+    shapes = []     # (tiles, R, longest run) of each one-piece manifest
+    for B, R, classes in K2_OFF_PLAN:
+        g = synthetic_group(rng, B, R, classes)
+        tms = {name: build_group_manifest(g, ru_min_frac=0.0, npiece=npiece)
+               for name, npiece in (("extend_add_tiles", 1),
+                                    ("extend_add_tiles_pair", 2))}
+        tm = tms["extend_add_tiles"]
+        F0 = torch.as_tensor(rng.standard_normal((B, R, R), dtype=np.float32),
+                             device=dev)
+        U = rng.standard_normal((tm.nslots, tm.RUp, tm.RUp), dtype=np.float32)
+        U[(rng.random(U.shape) < 0.05)
+          & np.triu(np.ones((tm.RUp, tm.RUp), bool), 1)] = np.nan
+        U = torch.as_tensor(U, device=dev)
+        out = {}
+        for name, tm in tms.items():
+            runs = run_ptr(tm.man)
+            args = tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                         for a in (tm.man, tm.rowmap, tm.colmap, runs))
+            got = [extend_add_tiles(F0.clone(), U, *args) for _ in range(2)]
+            Fp = extend_add_tiles_plain(F0.clone(), U, *args[:3])
+            torch.cuda.synchronize()
+            d, e = _rel_err(got[0], Fp)
+            assert np.isfinite(e) and e <= K2_TOL, \
+                f"{name} disagrees off the plan at (B,R)=({B},{R}): {e}"
+            assert torch.equal(*got), f"{name}: two calls differ at {R}"
+            out[name] = got[0]
+            r = rec[name]
+            r["err"], r["abs"] = max(r["err"], e), max(r["abs"], d)
+            geo = tile_geometry(len(runs) - 1, R, tm.RUp,
+                                tm.rowmap.shape[1])
+            print(f"{name} off plan (B,R)=({B},{R}) classes={classes} "
+                  f"steps={tm.man.shape[0]} tiles={len(runs) - 1} "
+                  f"longest_run={int(np.diff(runs).max())} RUp={tm.RUp} "
+                  f"{geo} rel_err={e:.3e} two calls bit-equal", flush=True)
+        assert torch.equal(*out.values()), \
+            f"two-piece differs from one-piece off the plan at {R}"
+        runs = run_ptr(tms["extend_add_tiles"].man)
+        shapes.append((len(runs) - 1, R, int(np.diff(runs).max())))
+    assert min(t for t, _, _ in shapes) < 10 and \
+        any(R % 4 for _, R, _ in shapes) and \
+        max(n for _, _, n in shapes) >= 4, shapes
 
 
 def _tri_tiles(rng, B, C, dev):

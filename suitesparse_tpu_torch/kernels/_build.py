@@ -39,11 +39,13 @@ _ll = ctypes.c_longlong
 _SIGNATURES = {
     # f11, f21, l11, l21, B, C, RU, stream
     "sst_potrf_trsm": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
-    # F, Ucat, man, rowmap, colmap, run_ptr, nruns, R, RUp, stream
-    "sst_extend_add_tiles": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+    # F, Ucat, man, rowmap, colmap, run_ptr, nruns, R, RUp, then
+    # tile_geometry's split and vec; stream
+    "sst_extend_add_tiles": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
+                             _vp],
     # the same, two pieces per step
     "sst_extend_add_tiles_pair": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
-                                  _vp],
+                                  _i, _i, _vp],
     # F, child, idx, dst, np, B, R, RU, stream
     "sst_extend_add": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _vp],
     # M, X, Z, B, I, J, NR, transpose, then bmv_geometry's epb, split,

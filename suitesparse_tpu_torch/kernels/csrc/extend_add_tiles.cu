@@ -21,116 +21,288 @@
 //           piece 0 and of piece 1; a dead second piece has all-(-1) maps.
 // The maps are (NS, NP, 128).
 //
-// What bounds it on the H100: memory bandwidth. A piece moves up to 64 KB of
-// child cells for 16 K additions, and the tile itself is 64 KB. The design
-// gives each visited tile one block of 128 x 4 threads; a thread owns one
-// column and 32 rows of the tile and sums every piece of the run in
-// registers, so each child cell is read once and each tile of F is read and
-// written once, with neighbouring threads on neighbouring addresses. Runs
-// own disjoint tiles: F is updated in place without atomics. The TPU
-// kernels' one-hot placement dots (6 a piece, 12 a two-piece step) and
-// their SMEM chunking are not needed: a thread loads the child cell its maps
-// name directly. The TPU paired pieces to halve its step-bound grid; here a
-// block already walks its tile's whole run, so the two-piece form only
-// halves the barriers between pieces (both pieces' maps are staged at once)
-// and adds the pieces in the same order as the one-piece form.
+// What bounds it on the H100: bytes. A piece moves up to 64 KB of child
+// cells for 16 K additions, and each visited tile of F, 64 KB, is read and
+// written once. But 44 of the factor's 73 manifests have fewer than 132
+// tiles, so on most launches the time is the latency of a tile's chain of
+// dependent loads, not the bytes. The design:
+//
+// - A tile's 128 rows are cut into `split` row slabs (4, 8 or 16), each a
+//   block of 4 warps; a warp owns RW = 8, 4 or 2 neighbouring rows (a
+//   template parameter) and all 128 columns, a lane the columns lane +
+//   32 k. Warps share nothing: no block barrier, no atomics (runs own
+//   disjoint tiles and warps disjoint rows), so a few tiles still put many
+//   warps on the card.
+// - A warp walks its run's pieces in manifest order (a two-piece step is
+//   two pieces; its maps' rows are already in that order). It reads the
+//   run's bounds, then each piece's manifest fields and the maps of its own
+//   rows (as 16- or 8-byte words) and lanes straight into registers, one
+//   piece ahead of the gathers: a run costs a round trip for its bounds,
+//   one for the first piece's maps and one a piece for the gathers, which
+//   the next piece's maps ride along with. A piece's child cells (RW x 4 a
+//   lane) are all loaded, predicated on the maps, before any is added; a
+//   warp's loads of one row are one 128-byte line where the child columns
+//   are contiguous, and they bypass L1 (ld.global.nc.L1::no_allocate:
+//   every child cell is read once). Gathering two pieces at once (more
+//   registers, fewer blocks an SM), L1-allocating loads and an early
+//   return for warps whose rows lie past R were tried on the H100 and
+//   made the factor no faster.
+// - The warp's rows of F are copied into its own slice of shared memory by
+//   asynchronous copies issued before the first gather, 16 bytes a lane
+//   where R % 4 == 0 and F is 16-byte aligned (4 bytes a lane otherwise,
+//   same kernel), so they are in flight beside the gathers and hold no
+//   registers. At the end the warp adds its sums into that slice and
+//   stores the rows once, in the same width.
+// - Within a cell the pieces are added in manifest order into a register
+//   sum that starts at +0, and F gets the sum once: the one- and two-piece
+//   forms give the same bits, and so do two calls.
+//
+// The TPU kernels' one-hot placement dots and their SMEM chunking are not
+// needed: a lane loads the child cell its maps name directly. The launch
+// plan (split) is computed by tile_geometry in kernels/extend_add_tiles.py;
+// the entry points check it.
 
 #include <cuda_runtime.h>
+
+#include <climits>
+#include <cstdint>
 
 namespace {
 
 constexpr int kTile = 128;
-constexpr int kRowPhases = 4;
-constexpr int kRowsPerThread = kTile / kRowPhases;
+constexpr int kLanes = 32;
+constexpr int kWarps = 4;                 // warps of a block
+constexpr int kLaneCols = kTile / kLanes;  // columns a lane owns
 
-__device__ inline int child_index(int v, int blk, int blk2) {
+__device__ __forceinline__ int child_index(int v, int blk, int blk2) {
   return v < 0 ? -1 : (v < kTile ? blk : blk2) * kTile + (v & (kTile - 1));
 }
 
-// manifest columns of piece p: uslot, then blkr blkr2 blkc blkc2
-template <int NP>
-__device__ inline int piece_col(int p) {
-  return NP == 1 ? 5 : 4 + 5 * p;
+// *p where ok, else 0; a streaming load that does not allocate in L1
+__device__ __forceinline__ float ld_cell(const float* p, bool ok) {
+  float v;
+  asm("{\n\t.reg .pred q;\n\t"
+      "setp.ne.b32 q, %2, 0;\n\t"
+      "mov.f32 %0, 0f00000000;\n\t"
+      "@q ld.global.nc.L1::no_allocate.f32 %0, [%1];\n\t}"
+      : "=f"(v)
+      : "l"(p), "r"((int)ok));
+  return v;
 }
 
-template <int NP>
-__global__ void __launch_bounds__(kTile * kRowPhases)
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src)
+               : "memory");
+}
+
+// One piece as a warp reads it: the manifest fields, the row map of the
+// warp's RW rows and the column map of the lane's 4 columns; blkr == -1
+// marks a piece that adds nothing.
+template <int RW>
+struct Piece {
+  int uslot, blkr, blkr2, blkc, blkc2;
+  int rm[RW];
+  int cm[kLaneCols];
+};
+
+// piece j of the manifest (step j / NP, piece j % NP; the maps' rows are
+// the pieces in that order) for the warp whose first tile row is row0; a
+// piece at or past j1, the run's end, is dead and nothing of it is read
+template <int NP, int RW>
+__device__ __forceinline__ void load_piece(Piece<RW>& x,
+                                           const int* __restrict__ man,
+                                           const int* __restrict__ rowmap,
+                                           const int* __restrict__ colmap,
+                                           int j, int j1, int row0, int lane) {
+  constexpr int kCols = NP == 1 ? 10 : 14;
+  x.uslot = 0;
+  x.blkr = -1;
+  if (j >= j1) return;
+  const int* m = man + (size_t)(j / NP) * kCols;
+  const int* mp = m + (NP == 1 ? 5 : 4 + 5 * (j % NP));
+  x.uslot = __ldg(mp);
+  x.blkr = __ldg(mp + 1);
+  x.blkr2 = __ldg(mp + 2);
+  x.blkc = __ldg(mp + 3);
+  x.blkc2 = __ldg(mp + 4);
+  // a step without a piece (one-piece form, has_piece == 0) adds nothing
+  if (NP == 1 && __ldg(m + 4) == 0) x.blkr = -1;
+  const int* rm = rowmap + (size_t)j * kTile + row0;
+  if constexpr (RW % 4 == 0) {
+#pragma unroll
+    for (int i = 0; i < RW; i += 4) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(rm + i));
+      x.rm[i] = v.x;
+      x.rm[i + 1] = v.y;
+      x.rm[i + 2] = v.z;
+      x.rm[i + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < RW; i += 2) {
+      const int2 v = __ldg(reinterpret_cast<const int2*>(rm + i));
+      x.rm[i] = v.x;
+      x.rm[i + 1] = v.y;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kLaneCols; ++k)
+    x.cm[k] = __ldg(colmap + (size_t)j * kTile + lane + k * kLanes);
+}
+
+// acc += the piece's cells; every load first
+template <int RW>
+__device__ __forceinline__ void add_piece(float (&acc)[RW][kLaneCols],
+                                          const Piece<RW>& x,
+                                          const float* __restrict__ U,
+                                          int RUp) {
+  const float* Us = U + (size_t)x.uslot * RUp * RUp;
+  int cc[kLaneCols];
+#pragma unroll
+  for (int k = 0; k < kLaneCols; ++k)
+    cc[k] = child_index(x.cm[k], x.blkc, x.blkc2);
+  float v[RW][kLaneCols];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int cr = x.blkr < 0 ? -1 : child_index(x.rm[i], x.blkr, x.blkr2);
+    const float* Ur = Us + (ptrdiff_t)cr * RUp;
+#pragma unroll
+    for (int k = 0; k < kLaneCols; ++k)
+      v[i][k] = ld_cell(Ur + cc[k], cr >= 0 && cc[k] >= 0);
+  }
+#pragma unroll
+  for (int i = 0; i < RW; ++i)
+#pragma unroll
+    for (int k = 0; k < kLaneCols; ++k)
+      acc[i][k] += isfinite(v[i][k]) ? v[i][k] : 0.0f;
+}
+
+// blocks of 4 warps an SM: the register budget a thread gets (65536 /
+// (128 x this)); a piece's loads, the sums and two pieces' maps live at once
+template <int RW>
+constexpr int kMinBlocks = RW == 2 ? 5 : 4;
+
+template <int NP, int RW>
+__global__ void __launch_bounds__(kWarps * kLanes, kMinBlocks<RW>)
 extend_add_tiles_kernel(float* __restrict__ F, const float* __restrict__ U,
                         const int* __restrict__ man,
                         const int* __restrict__ rowmap,
                         const int* __restrict__ colmap,
-                        const int* __restrict__ run_ptr, int R, int RUp) {
+                        const int* __restrict__ run_ptr, int R, int RUp,
+                        int split, int vec) {
   constexpr int kCols = NP == 1 ? 10 : 14;
-  __shared__ int crow[NP][kTile];  // child row of each tile row (-1: none)
-  __shared__ int ccol[NP][kTile];  // child column of each tile column
-  const int tx = threadIdx.x;
-  const int ty = threadIdx.y;
-  const int tid = ty * kTile + tx;
-  const int s0 = run_ptr[blockIdx.x];
-  const int s1 = run_ptr[blockIdx.x + 1];
-  const int slot = man[(size_t)s0 * kCols + 0];
-  const int tr = man[(size_t)s0 * kCols + 1];
-  const int tc = man[(size_t)s0 * kCols + 2];
+  __shared__ __align__(16) float fs[kWarps][RW][kTile];
+  const int lane = threadIdx.x % kLanes, warp = threadIdx.x / kLanes;
+  const int run = blockIdx.x / split;
+  const int row0 = ((blockIdx.x - run * split) * kWarps + warp) * RW;
+  const int s0 = __ldg(run_ptr + run), s1 = __ldg(run_ptr + run + 1);
+  const int* m0 = man + (size_t)s0 * kCols;
+  const int slot = __ldg(m0), tr = __ldg(m0 + 1), tc = __ldg(m0 + 2);
+  const int j1 = s1 * NP;  // the run's pieces are [s0 * NP, j1)
+  Piece<RW> cur;
+  load_piece<NP, RW>(cur, man, rowmap, colmap, s0 * NP, j1, row0, lane);
+  const int r0 = tr * kTile + row0, c0 = tc * kTile;
+  // a warp whose rows all lie past R (the tile's last rows) adds nothing;
+  // it skips the pieces rather than return, so that no warp's first maps
+  // wait for the tile's coordinates
+  const int jend = r0 < R ? j1 : 0;
 
-  float acc[kRowsPerThread];
+  // the warp's rows of F into its slice of shared memory, in flight beside
+  // the gathers
+  float* fw = &fs[warp][0][0];
+  float* Fs = F + (size_t)slot * R * R;
 #pragma unroll
-  for (int q = 0; q < kRowsPerThread; ++q) acc[q] = 0.0f;
-
-  for (int s = s0; s < s1; ++s) {
-    const int* m = man + (size_t)s * kCols;
-    __syncthreads();  // the previous step's maps are no longer read
-    if (tid < NP * kTile) {
-      const int p = tid / kTile;
-      const int i = tid - p * kTile;
-      const int* blk = m + piece_col<NP>(p) + 1;
-      crow[p][i] = child_index(rowmap[((size_t)s * NP + p) * kTile + i],
-                               blk[0], blk[1]);
-    } else if (tid < 2 * NP * kTile) {
-      const int p = tid / kTile - NP;
-      const int i = tid - (NP + p) * kTile;
-      const int* blk = m + piece_col<NP>(p) + 1;
-      ccol[p][i] = child_index(colmap[((size_t)s * NP + p) * kTile + i],
-                               blk[2], blk[3]);
-    }
-    __syncthreads();
+  for (int i = 0; i < RW; ++i) {
+    if (r0 + i >= R) break;
+    const float* Fr = Fs + (size_t)(r0 + i) * R + c0;
+    if (vec) {
+      if (c0 + kLaneCols * lane < R)
+        cp_async16(fw + i * kTile + kLaneCols * lane, Fr + kLaneCols * lane);
+    } else {
 #pragma unroll
-    for (int p = 0; p < NP; ++p) {
-      const int cc = ccol[p][tx];
-      if ((NP == 1 && m[4] == 0) || cc < 0) continue;
-      const float* Uc = U + (size_t)m[piece_col<NP>(p)] * RUp * RUp + cc;
-#pragma unroll
-      for (int q = 0; q < kRowsPerThread; ++q) {
-        const int rr = crow[p][ty + q * kRowPhases];
-        if (rr >= 0) {
-          const float v = Uc[(size_t)rr * RUp];
-          acc[q] += isfinite(v) ? v : 0.0f;
-        }
-      }
+      for (int k = 0; k < kLaneCols; ++k)
+        if (c0 + lane + k * kLanes < R)
+          cp_async4(fw + i * kTile + lane + k * kLanes, Fr + lane + k * kLanes);
     }
   }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 
-  const int c = tc * kTile + tx;
-  if (c >= R) return;
-  float* Fc = F + (size_t)slot * R * R + c;
+  float acc[RW][kLaneCols];
 #pragma unroll
-  for (int q = 0; q < kRowsPerThread; ++q) {
-    const int r = tr * kTile + ty + q * kRowPhases;
-    if (r < R) Fc[(size_t)r * R] += acc[q];
+  for (int i = 0; i < RW; ++i)
+#pragma unroll
+    for (int k = 0; k < kLaneCols; ++k) acc[i][k] = 0.0f;
+  for (int j = s0 * NP; j < jend; ++j) {
+    Piece<RW> nxt;
+    load_piece<NP, RW>(nxt, man, rowmap, colmap, j + 1, j1, row0, lane);
+    add_piece<RW>(acc, cur, U, RUp);
+    cur = nxt;
+  }
+
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < RW; ++i)
+#pragma unroll
+    for (int k = 0; k < kLaneCols; ++k)
+      fw[i * kTile + lane + k * kLanes] += acc[i][k];
+  __syncwarp();
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    if (r0 + i >= R) break;
+    float* Fr = Fs + (size_t)(r0 + i) * R + c0;
+    if (vec) {
+      if (c0 + kLaneCols * lane < R)
+        *reinterpret_cast<float4*>(Fr + kLaneCols * lane) =
+            *reinterpret_cast<const float4*>(fw + i * kTile +
+                                             kLaneCols * lane);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kLaneCols; ++k)
+        if (c0 + lane + k * kLanes < R)
+          Fr[lane + k * kLanes] = fw[i * kTile + lane + k * kLanes];
+    }
   }
 }
 
-template <int NP>
-int launch(void* F, const void* Ucat, const void* man, const void* rowmap,
-           const void* colmap, const void* run_ptr, int nruns, int R, int RUp,
-           void* stream) {
-  if (nruns < 0 || R < 1 || RUp < kTile || RUp % kTile != 0)
-    return (int)cudaErrorInvalidValue;
-  if (nruns == 0) return 0;
-  extend_add_tiles_kernel<NP><<<nruns, dim3(kTile, kRowPhases), 0,
-                                (cudaStream_t)stream>>>(
-      (float*)F, (const float*)Ucat, (const int*)man, (const int*)rowmap,
-      (const int*)colmap, (const int*)run_ptr, R, RUp);
+template <int NP, int RW>
+int launch(float* F, const float* U, const int* man, const int* rowmap,
+           const int* colmap, const int* run_ptr, int nruns, int R, int RUp,
+           int split, int vec, cudaStream_t stream) {
+  extend_add_tiles_kernel<NP, RW><<<nruns * split, kWarps * kLanes, 0,
+                                    stream>>>(F, U, man, rowmap, colmap,
+                                              run_ptr, R, RUp, split, vec);
   return (int)cudaGetLastError();
+}
+
+template <int NP>
+int launch_split(void* F, const void* Ucat, const void* man,
+                 const void* rowmap, const void* colmap, const void* run_ptr,
+                 int nruns, int R, int RUp, int split, int vec,
+                 void* stream) {
+  const bool ok = nruns >= 0 && R >= 1 && RUp >= kTile && RUp % kTile == 0 &&
+                  (split == 4 || split == 8 || split == 16) &&
+                  (long long)nruns * split <= INT_MAX &&
+                  (reinterpret_cast<uintptr_t>(rowmap) & 15) == 0 &&
+                  (vec == 0 || vec == 1) &&
+                  (!vec || (R % kLaneCols == 0 &&
+                            (reinterpret_cast<uintptr_t>(F) & 15) == 0));
+  if (!ok) return (int)cudaErrorInvalidValue;
+  if (nruns == 0) return 0;
+  auto* f = split == 4 ? launch<NP, 8> : split == 8 ? launch<NP, 4>
+                                                    : launch<NP, 2>;
+  return f((float*)F, (const float*)Ucat, (const int*)man, (const int*)rowmap,
+           (const int*)colmap, (const int*)run_ptr, nruns, R, RUp, split, vec,
+           (cudaStream_t)stream);
 }
 
 }  // namespace
@@ -138,16 +310,18 @@ int launch(void* F, const void* Ucat, const void* man, const void* rowmap,
 extern "C" int sst_extend_add_tiles(void* F, const void* Ucat, const void* man,
                                     const void* rowmap, const void* colmap,
                                     const void* run_ptr, int nruns, int R,
-                                    int RUp, void* stream) {
-  return launch<1>(F, Ucat, man, rowmap, colmap, run_ptr, nruns, R, RUp,
-                   stream);
+                                    int RUp, int split, int vec,
+                                    void* stream) {
+  return launch_split<1>(F, Ucat, man, rowmap, colmap, run_ptr, nruns, R, RUp,
+                         split, vec, stream);
 }
 
 extern "C" int sst_extend_add_tiles_pair(void* F, const void* Ucat,
                                          const void* man, const void* rowmap,
                                          const void* colmap,
                                          const void* run_ptr, int nruns,
-                                         int R, int RUp, void* stream) {
-  return launch<2>(F, Ucat, man, rowmap, colmap, run_ptr, nruns, R, RUp,
-                   stream);
+                                         int R, int RUp, int split, int vec,
+                                         void* stream) {
+  return launch_split<2>(F, Ucat, man, rowmap, colmap, run_ptr, nruns, R, RUp,
+                         split, vec, stream);
 }

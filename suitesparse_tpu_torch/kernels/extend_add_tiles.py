@@ -21,22 +21,84 @@ non-finite child cell counts as zero. Steps of one tile are consecutive;
 ``run_ptr`` holds the first step of each tile's run (``man[:, 3] == 1``)
 and, last, the step count. F is updated IN PLACE: unvisited tiles keep
 their content, which replaces the TPU kernel's input/output aliasing.
+
+:func:`tile_geometry` plans the kernel's launch (row slabs a tile, rows a
+warp) in Python, so that the CPU tests can check it; the kernel's entry
+points check what they are given. :func:`synthetic_group` makes manifests
+off the plans for checks and sweeps.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import types
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from . import _build
+from .trisolve import SMEM_BYTES, SMS
 
-__all__ = ["TILE", "TileManifest", "build_group_manifest", "run_ptr",
+__all__ = ["TILE", "TileGeometry", "TileManifest", "build_group_manifest",
+           "manifest_work", "run_ptr", "synthetic_group", "tile_geometry",
            "extend_add_tiles", "extend_add_tiles_plain"]
 
 TILE = 128
 _PLAIN_CHUNK = 512     # manifest steps per gather in the plain version
+LANES = 32
+WARPS = 4              # warps of a block (kWarps in the kernel)
+SPLITS = (4, 8, 16)    # row slabs a tile: 8, 4 or 2 rows a warp
+# blocks a grid should have, where the tiles allow: 8 an SM (32 warps);
+# ``tile_sweep`` on the H100 puts the split this picks within 10% of the
+# best one on every manifest of the model plan (PERF.md)
+FILL_BLOCKS = 8 * SMS
+
+
+class TileGeometry(NamedTuple):
+    """Launch plan of ``csrc/extend_add_tiles.cu``: each tile's 128 rows
+    are cut into ``split`` slabs, one a block of ``warps`` warps, and each
+    warp takes ``rows`` neighbouring rows (slab ``b``'s warp ``w`` starts
+    at tile row ``(b * warps + w) * rows``). ``vec``: the plan allows
+    16-byte F traffic (R % 4 == 0; the wrapper also needs F 16-byte
+    aligned). ``smem`` bytes of shared memory a block (the warps' rows of
+    F); ``blocks`` blocks of ``threads`` threads."""
+    split: int
+    rows: int
+    warps: int
+    vec: int
+    smem: int
+    blocks: int
+    threads: int
+
+
+@functools.lru_cache(maxsize=1024)
+def tile_geometry(nruns: int, R: int, RUp: int, npiece: int,
+                  split: int | None = None) -> TileGeometry:
+    """The kernel's launch plan for ``nruns`` tile runs of fronts of R rows
+    and child blocks of RUp, ``npiece`` pieces a step. Cached: the factor
+    asks for the same manifests on every call.
+
+    The least split of SPLITS that gives the grid FILL_BLOCKS blocks (the
+    largest where none does): a warp's rows share its pieces' maps, so
+    fewer, longer slabs read fewer maps, and more slabs put a small
+    manifest's tiles on more SMs. The kernel walks a two-piece step as two
+    pieces, so ``npiece`` and ``RUp`` are checked but do not move the plan.
+    ``split`` asks for that many slabs instead (``tile_sweep``)."""
+    if npiece not in (1, 2) or RUp < TILE or RUp % TILE:
+        raise ValueError(f"tile_geometry: npiece {npiece} must be 1 or 2 and "
+                         f"RUp {RUp} a multiple of {TILE}")
+    if split is None:
+        split = next((s for s in SPLITS if nruns * s >= FILL_BLOCKS),
+                     SPLITS[-1])
+    elif split not in SPLITS:
+        raise ValueError(f"tile_geometry: split {split} not in {SPLITS}")
+    rows = TILE // (WARPS * split)
+    smem = 4 * WARPS * rows * TILE
+    assert smem <= SMEM_BYTES, (nruns, R, RUp, npiece, split)
+    return TileGeometry(split, rows, WARPS, int(R % 4 == 0), smem,
+                        nruns * split, WARPS * LANES)
 
 
 @dataclasses.dataclass
@@ -156,10 +218,38 @@ def _pair_manifest(man, rmaps, cmaps, T, RUp, k0, uslices, folded):
                         RUp=RUp, nslots=k0, uslices=uslices, folded=folded)
 
 
+def synthetic_group(rng, B: int, R: int, classes):
+    """A group of B fronts of R rows whose pair classes are random children,
+    enough of a GroupPlan for :func:`build_group_manifest`: ``classes``
+    lists (npairs, RU_c); each child lands in a random front on a random
+    sorted set of RU_c of its R rows. Manifests off the plans (odd R, long
+    runs, few tiles) for checks and sweeps."""
+    pairs, arrays = [], []
+    for ci, (npairs, RU) in enumerate(classes):
+        pairs.append(types.SimpleNamespace(RU_c=RU, src_level=0, src_gi=ci))
+        idx = np.stack([np.sort(rng.choice(R, RU, replace=False))
+                        for _ in range(npairs)]).astype(np.int32)
+        arrays.append((np.arange(npairs), rng.integers(0, B, npairs), idx))
+    return types.SimpleNamespace(B=B, R=R, pairs=pairs, _pair_arrays=arrays)
+
+
 def run_ptr(man: np.ndarray) -> np.ndarray:
     """CSR offsets of the tile runs of a manifest of either form (int32)."""
     starts = np.flatnonzero(man[:, 3] == 1)
     return np.concatenate([starts, [man.shape[0]]]).astype(np.int32)
+
+
+def manifest_work(tm: TileManifest, runs: np.ndarray, R: int):
+    """(bytes, additions) of a manifest's extend-add at the least: each
+    piece reads its valid child cells and adds them once; each visited tile
+    of F is read and written once; the step table and the maps are read
+    once."""
+    cells = float(((tm.rowmap >= 0).sum(2) * (tm.colmap >= 0).sum(2)).sum())
+    starts = tm.man[runs[:-1]]
+    tile_cells = float((np.minimum(TILE, R - starts[:, 1] * TILE)
+                        * np.minimum(TILE, R - starts[:, 2] * TILE)).sum())
+    return (4.0 * cells + 8.0 * tile_cells + 4.0 * tm.man.size
+            + 4.0 * (tm.rowmap.size + tm.colmap.size), cells)
 
 
 def _child_index(v, blk, blk2):
@@ -216,7 +306,8 @@ def extend_add_tiles(F, Ucat, man, rowmap, colmap, runs):
     (NS, 14) with maps (NS, 2, 128), and ``runs`` (the :func:`run_ptr`
     offsets) are int32 tensors on F's device. A CPU F takes
     :func:`extend_add_tiles_plain`; a CUDA F launches the one-piece or the
-    two-piece kernel, one block per visited tile, or raises."""
+    two-piece kernel with the launch plan :func:`tile_geometry` picks, or
+    raises."""
     if F.device.type == "cpu":
         return extend_add_tiles_plain(F, Ucat, man, rowmap, colmap)
     NS, ncols = man.shape
@@ -243,25 +334,38 @@ def extend_add_tiles(F, Ucat, man, rowmap, colmap, runs):
             raise ValueError(f"extend_add_tiles: {name} must be contiguous "
                              f"int32 {shape} on {F.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
+    if rowmap.data_ptr() % 16:
+        raise ValueError("extend_add_tiles: rowmap must be 16-byte aligned "
+                         "(its rows are read as 16-byte words)")
     if runs.dtype != torch.int32 or runs.dim() != 1 or runs.device != F.device:
         raise ValueError("extend_add_tiles: runs must be int32 (NR+1,) on "
                          f"{F.device}")
     nruns = runs.shape[0] - 1
     if nruns <= 0:
         return F
-    lib = _build.load()
-    entry = lib.sst_extend_add_tiles if npiece == 1 \
-        else lib.sst_extend_add_tiles_pair
-    with torch.cuda.device(F.device):
-        err = entry(F.data_ptr(), Ucat.data_ptr(), man.data_ptr(),
-                    rowmap.data_ptr(), colmap.data_ptr(), runs.data_ptr(),
-                    nruns, R, RUp, torch.cuda.current_stream().cuda_stream)
-    _build.check_launch(err, "extend_add_tiles")
+    _launch(F, Ucat, man, rowmap, colmap, runs,
+            tile_geometry(nruns, R, RUp, npiece))
     if npiece == 1:
         extend_add_tiles.launches += 1
     else:
         extend_add_tiles.pair_launches += 1
     return F
+
+
+def _launch(F, Ucat, man, rowmap, colmap, runs, g: TileGeometry) -> None:
+    """Launch the one- or two-piece kernel on checked tensors with launch
+    plan ``g``; 16-byte F traffic where the plan allows it and F's base is
+    16-byte aligned (then every row's is: R % 4 == 0)."""
+    vec = int(bool(g.vec) and F.data_ptr() % 16 == 0)
+    lib = _build.load()
+    entry = lib.sst_extend_add_tiles if man.shape[1] == 10 \
+        else lib.sst_extend_add_tiles_pair
+    with torch.cuda.device(F.device):
+        err = entry(F.data_ptr(), Ucat.data_ptr(), man.data_ptr(),
+                    rowmap.data_ptr(), colmap.data_ptr(), runs.data_ptr(),
+                    runs.shape[0] - 1, F.shape[1], Ucat.shape[1], g.split,
+                    vec, torch.cuda.current_stream().cuda_stream)
+    _build.check_launch(err, "extend_add_tiles")
 
 
 extend_add_tiles.launches = 0        # one-piece kernel (K2)

@@ -8,6 +8,13 @@ cells; only the order of the additions differs (the reference adds piece by
 piece into F, the port sums the pieces first), so lower tiles inside R are
 held to 1e-6 relative.
 
+Off the plans (``synthetic_group``): an odd R (the kernel's 4-byte F
+path), a front that takes five children (runs of five steps) and a
+manifest of a few tiles, both forms, held against the Pallas kernel the
+same way. The kernel's launch plan (``tile_geometry``) is walked on every
+test-plan manifest at every split: each row of a visited tile belongs to
+exactly one warp of one slab, and shared memory stays within the card's.
+
 The two-piece form (``tile_pair``): the port's manifests equal the
 reference's ``build_group_manifest(..., npiece=2)`` bit for bit, its plain
 extend-add equals the one-piece one, and the port's factor with
@@ -35,7 +42,10 @@ import suitesparse_tpu_torch as sstt
 from suitesparse_tpu_torch.ordering import nested_dissection_order
 from suitesparse_tpu_torch.symbolic.supernodes import analyze_supernodal
 from suitesparse_tpu_torch.kernels.extend_add_tiles import (
-    TILE, extend_add_tiles, extend_add_tiles_plain, run_ptr)
+    FILL_BLOCKS, SPLITS, TILE, build_group_manifest, extend_add_tiles,
+    extend_add_tiles_plain, manifest_work, run_ptr, synthetic_group,
+    tile_geometry)
+from suitesparse_tpu_torch.kernels.trisolve import SMEM_BYTES
 from suitesparse_tpu_torch.numeric import supernodal_device
 from suitesparse_tpu_torch.numeric.supernodal_device import build_plan
 
@@ -200,3 +210,81 @@ def test_pair_factor_matches_reference(monkeypatch):
     lt = F.Lx.numpy().astype(np.float64)
     assert lt.shape == lj.shape
     assert np.abs(lt - lj).max() <= PAIR_TOL * np.abs(lj).max()
+
+
+@pytest.mark.parametrize("tile_pair", [False, True])
+@pytest.mark.parametrize("nx", [10, 12])
+def test_tile_geometry_covers_every_row_once(nx, tile_pair):
+    for g in _tile_groups(nx, tile_pair):
+        tm = g._tile
+        nruns = len(g._tile_runs) - 1
+        npiece = tm.rowmap.shape[1]
+        plan = tile_geometry(nruns, g.R, tm.RUp, npiece)
+        assert plan.split in SPLITS
+        for geo in [plan] + [tile_geometry(nruns, g.R, tm.RUp, npiece, s)
+                             for s in SPLITS]:
+            owner = np.zeros(TILE, int)
+            for b in range(geo.split):
+                for w in range(geo.warps):
+                    r0 = (b * geo.warps + w) * geo.rows
+                    owner[r0:r0 + geo.rows] += 1
+            assert (owner == 1).all(), geo
+            assert geo.smem == 4 * geo.warps * geo.rows * TILE <= SMEM_BYTES
+            assert geo.blocks == nruns * geo.split
+            assert geo.threads == 32 * geo.warps
+            assert geo.vec == (g.R % 4 == 0)
+
+
+def test_tile_geometry_plan_and_checks():
+    # the least split that gives the grid FILL_BLOCKS blocks, the most
+    # where none does
+    assert tile_geometry(5000, 2712, 2048, 1).split == SPLITS[0]
+    assert tile_geometry(6, 264, 256, 1).split == SPLITS[-1]
+    ns = range(1, 2000, 37)
+    splits = [tile_geometry(n, 280, 256, 2).split for n in ns]
+    assert splits == sorted(splits, reverse=True)
+    for n, s in zip(ns, splits):
+        assert s == SPLITS[0] or n * (s // 2) < FILL_BLOCKS
+        assert s == SPLITS[-1] or n * s >= FILL_BLOCKS
+    assert tile_geometry(7, 301, 128, 1).vec == 0
+    for bad in ((10, 280, 256, 3), (10, 280, 200, 1),
+                (10, 280, 256, 1, 2)):
+        with pytest.raises(ValueError):
+            tile_geometry(*bad)
+
+
+# (B, R, classes): an odd R; one front taking five children; few tiles
+OFF_PLAN = [(3, 301, ((6, 120), (4, 60))), (1, 384, ((5, 200),)),
+            (2, 200, ((3, 90),))]
+
+
+@pytest.mark.parametrize("npiece", [1, 2])
+@pytest.mark.parametrize("B,R,classes", OFF_PLAN)
+def test_plain_matches_pallas_off_the_plans(B, R, classes, npiece):
+    rng = np.random.default_rng(R + npiece)
+    g = synthetic_group(rng, B, R, classes)
+    tm = build_group_manifest(g, T=TILE, ru_min_frac=0.0, npiece=npiece)
+    runs = run_ptr(tm.man)
+    if R == 384:
+        assert np.diff(runs).max() * npiece >= 4   # pieces in a run
+    if R == 200:
+        assert len(runs) - 1 < 10
+    F = rng.standard_normal((B, R, R)).astype(np.float32)
+    U = rng.standard_normal((tm.nslots, tm.RUp, tm.RUp)).astype(np.float32)
+    upper = np.triu(np.ones((tm.RUp, tm.RUp), bool), 1)
+    U[(rng.random(U.shape) < 0.05) & upper] = np.nan
+    ref = np.asarray(extend_add_tiles_pallas(
+        jnp.asarray(F), jnp.asarray(U), tm.man, tm.rowmap, tm.colmap,
+        interpret=True))
+    args = [torch.from_numpy(a) for a in (U, tm.man, tm.rowmap, tm.colmap)]
+    got = extend_add_tiles(torch.from_numpy(F.copy()), *args,
+                           torch.from_numpy(runs)).numpy()
+    low = _lower_tiles(R)[None].repeat(B, 0)
+    assert np.isfinite(got[low]).all()
+    assert np.abs(got[low] - ref[low]).max() <= RTOL * np.abs(ref[low]).max()
+    assert np.array_equal(got[~low], F[~low])
+    # with every child cell 1 and F 0 the manifest adds exactly the cells
+    # manifest_work counts
+    ones = extend_add_tiles_plain(torch.zeros(B, R, R),
+                                  torch.ones(U.shape), *args[1:])
+    assert ones.sum().item() == manifest_work(tm, runs, R)[1]
