@@ -9,7 +9,14 @@
    512 independent ``laplacian_3d(6)`` blocks (n = 110,592), and runs each
    kernel and its plain PyTorch version on the card at the shapes those
    plans give it, from a numpy seed: potrf_trsm (K1) at the three largest
-   groups of its gate, the tiled extend-add (K2) on the largest tile
+   groups of its gate (after checking that the plan sends the 24 groups of
+   ``K1_GROUPS`` to it), each timed beside the factor's library route for
+   the groups K1 does not take (``cholesky_ex`` + ``solve_triangular``),
+   and at four shapes off the plan (``K1_OFF_PLAN``: C = 1, C = 96 in two
+   chunks, an odd C > 32, C = 64), each K1 row called twice and under two
+   forced splits of RU for bit-equal results and printed with its launch
+   plan, then 11 tiles with one indefinite among them at C = 8, 16, 32 and
+   48, which must leave the other 10 finite; the tiled extend-add (K2) on the largest tile
    manifest, the solve steps (K3, forward and backward) at the four largest
    groups of their gate at 1 and 64 right-hand sides and at three shapes
    off the plan (``K3_OFF_PLAN``: an odd C at NR 5, RU far above 720, RU =
@@ -51,6 +58,8 @@
    ``torch.linalg.solve_triangular`` for K4, ``torch.bmm`` for K5 and K6,
    for K3 the two calls of the classic sweep's library route
    (``solve_triangular`` and ``baddbmm``, checked against K3's plain),
+   for K1 the factor's two (``cholesky_ex`` and ``solve_triangular``,
+   checked against K1's plain),
    the factor's ``_place`` (one ``index_put_``, on the class's real pairs)
    for K7. K5, K6 and their library calls are timed with the L2 cache
    flushed before each call, as a sweep finds its panels. Every call is
@@ -58,7 +67,8 @@
    host enqueues the call.
 3. Main path: ``analyze`` -> ``factorize`` -> ``solve`` (1 and 64
    right-hand sides, w2 sweep) through the package's entry points on the
-   card. K1 and K2 must launch during the factorization; residuals must
+   card. K1 must launch once for each of its 24 groups and K2 must launch
+   during the factorization; residuals must
    stay below 1e-5. ``solve_mode="auto"`` must pick w2 on the fresh factor
    and classic once the reported free memory leaves no room for W2. Also a
    small problem whose card factor must match the
@@ -134,6 +144,10 @@ K4_OFF_PLAN = ((37, 96, 508), (8735, 8, 3), (33, 45, 5))
 # (1, 2168, 504), at 1 and 8
 K5_OFF_PLAN = ((2, 1001, 333, 5), (1, 40, 24, 8), (1, 2168, 504, 1),
                (1, 2168, 504, 8))
+# (B, C, RU) of K1 off the plan: C = 1 (4-byte copies, the instance of 8);
+# C = 96 (the rolled instance; its forced single part is staged in two
+# chunks); an odd C > 32; C = 64 at an odd RU
+K1_OFF_PLAN = ((5, 1, 3), (7, 96, 500), (2, 37, 101), (9, 64, 77))
 # (B, C, RU, NR) of K3 off the plan: an odd C (L21 and the vectors by
 # 4-byte copies) at NR 5; RU far above 720 (a part staged in several
 # chunks, a cluster of 8 backward); no rows below (RU = 0, v is None)
@@ -249,24 +263,28 @@ def factor_kernels(dp, dpp, dev, rng):
         extend_add_tiles, extend_add_tiles_plain, manifest_work,
         tile_geometry)
     from suitesparse_tpu_torch.kernels.potrf import (
-        potrf_trsm, potrf_trsm_plain)
+        _launch, potrf_geometry, potrf_trsm, potrf_trsm_plain)
+    from suitesparse_tpu_torch.kernels.potrf_sweep import (
+        K1_GROUPS, library_route)
+    from suitesparse_tpu_torch.kernels.potrf_sweep import \
+        bound_ms as k1_bound_ms
+    from suitesparse_tpu_torch.kernels.potrf_sweep import tiles as k1_tiles
     from suitesparse_tpu_torch.numeric.supernodal_device import \
         _use_potrf_kernel
 
     groups = [g for gl in dp.plan.groups for g in gl]
+    plan_k1 = [(g.B, g.C, g.R - g.C) for g in groups
+               if _use_potrf_kernel(torch.float32, g.B, g.C)]
+    assert tuple(plan_k1) == K1_GROUPS, plan_k1
+    print(f"K1 groups: {len(plan_k1)} of the plan's {len(groups)}",
+          flush=True)
     k1_groups = sorted((g for g in groups
                         if _use_potrf_kernel(torch.float32, g.B, g.C)),
                        key=lambda g: g.B * g.R * g.C, reverse=True)[:3]
-    assert k1_groups, "no group passes the potrf_trsm gate"
     k1 = {"err": 0.0, "abs": 0.0}
-    for i, g in enumerate(k1_groups):
-        B, C, RU = g.B, g.C, g.R - g.C
-        M = rng.standard_normal((B, C, C), dtype=np.float32)
-        f11 = torch.as_tensor(M @ np.swapaxes(M, 1, 2)
-                              + C * np.eye(C, dtype=np.float32), device=dev)
-        f21 = torch.as_tensor(rng.standard_normal((B, RU, C),
-                                                  dtype=np.float32),
-                              device=dev) if RU else None
+    shapes = [(g.B, g.C, g.R - g.C) for g in k1_groups] + list(K1_OFF_PLAN)
+    for i, (B, C, RU) in enumerate(shapes):
+        f11, f21 = k1_tiles(rng, B, C, RU, dev)
         L11, L21 = potrf_trsm(f11, f21)
         P11, P21 = potrf_trsm_plain(f11, f21)
         torch.cuda.synchronize()
@@ -276,19 +294,54 @@ def factor_kernels(dp, dpp, dev, rng):
             err, d11 = max(err, e21), max(d11, d21)
         assert np.isfinite(err) and err <= K1_TOL, \
             f"potrf_trsm disagrees at (B,C,RU)=({B},{C},{RU}): {err}"
-        ms = _cuda_ms(lambda: potrf_trsm(f11, f21), 10)
-        plain_ms = _cuda_ms(lambda: potrf_trsm_plain(f11, f21), 2)
-        # F11 read and L11 written as lower triangles, F21 read, L21 written
-        bound_ms, bound_by = _bound(4.0 * B * (C * (C + 1) + 2 * RU * C),
-                                    B * (C ** 3 / 3 + RU * C * C))
-        print(f"potrf_trsm (B,C,RU)=({B},{C},{RU}) rel_err={err:.3e} "
-              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-              f"bound_ms={bound_ms:.4f} ({bound_by})", flush=True)
+        assert torch.equal(torch.triu(L11, 1), torch.zeros_like(L11))
+        # a second call, and two forced splits of RU, give the same bits
+        g = potrf_geometry(B, C, RU)
+        runs = [(L11, L21)]
+        for split in {1, max(RU, 1)}:
+            G11 = torch.empty_like(f11)
+            G21 = None if f21 is None else torch.empty_like(f21)
+            _launch(f11, f21, G11, G21, potrf_geometry(B, C, RU, split=split))
+            runs.append((G11, G21))
+        runs.append(potrf_trsm(f11, f21))
+        same = all(torch.equal(a, L11) and (RU == 0 or torch.equal(b, L21))
+                   for a, b in runs[1:])
+        assert same, f"potrf_trsm not bit-equal at ({B},{C},{RU})"
         k1["err"] = max(k1["err"], err)
         k1["abs"] = max(k1["abs"], d11)
+        if i >= len(k1_groups):
+            print(f"potrf_trsm off the plan (B,C,RU)=({B},{C},{RU}) "
+                  f"rel_err={err:.3e} {g} bit-equal reruns and splits",
+                  flush=True)
+            continue
+        ms = _cuda_ms(lambda: potrf_trsm(f11, f21), 10)
+        plain_ms = _cuda_ms(lambda: potrf_trsm_plain(f11, f21), 2)
+        library_ms = _cuda_ms(lambda: library_route(f11, f21), 10)
+        Ll, Ll21 = library_route(f11, f21)
+        lib_err = max(_rel_err(Ll, P11)[1],
+                      _rel_err(Ll21, P21)[1] if RU else 0.0)
+        assert lib_err <= K1_TOL, f"library route off: {lib_err}"
+        bound_ms, bound_by = k1_bound_ms(B, C, RU)
+        print(f"potrf_trsm (B,C,RU)=({B},{C},{RU}) rel_err={err:.3e} "
+              f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+              f"bound_ms={bound_ms:.4f} ({bound_by}) "
+              f"library_ms={library_ms:.4f} kernel/library="
+              f"{ms / library_ms:.2f} {g} bit-equal reruns and splits",
+              flush=True)
         if i == 0:
             k1.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by)
+                      bound_by=bound_by, library_ms=library_ms)
+    # packed tiles: one indefinite tile among its neighbours (4, 2 and 1 a
+    # warp, and a block's tile) turns only itself non-finite
+    for C, RU in ((8, 8), (16, 24), (32, 40), (48, 100)):
+        f11, f21 = k1_tiles(rng, 11, C, RU, dev)
+        f11[5] -= 4.0 * C * torch.eye(C, device=dev)
+        L11, L21 = potrf_trsm(f11, f21)
+        fin = torch.isfinite(L11).flatten(1).all(1) & \
+            torch.isfinite(L21).flatten(1).all(1)
+        assert fin.tolist() == [i != 5 for i in range(11)], (C, RU, fin)
+    print("potrf_trsm: an indefinite tile turns only itself non-finite "
+          "(C = 8, 16, 32, 48)", flush=True)
 
     # K2 on the largest one-piece manifest, K2b on the two-piece manifest of
     # the same group, same inputs; timed in turns (K2, K2b, K2b, K2)
@@ -806,6 +859,7 @@ def main() -> int:
         extend_add_tiles
     from suitesparse_tpu_torch.kernels.pmatvec import pmatvec_t
     from suitesparse_tpu_torch.kernels.potrf import potrf_trsm
+    from suitesparse_tpu_torch.kernels.potrf_sweep import K1_GROUPS
     from suitesparse_tpu_torch.kernels.solve_step import (solve_step_bwd,
                                                           solve_step_fwd)
     from suitesparse_tpu_torch.kernels.trisolve import batched_trisolve
@@ -895,7 +949,7 @@ def main() -> int:
     first_factor_s = time.perf_counter() - t0
     factor_launches = counts()
     assert F.ok, f"factorization failed at column {F.minor}"
-    assert factor_launches["potrf_trsm"] > 0 and \
+    assert factor_launches["potrf_trsm"] == len(K1_GROUPS) and \
         factor_launches["extend_add_tiles"] > 0, factor_launches
     auto_fallback(F)
     b = 1.0 + np.arange(n) / n
@@ -982,7 +1036,7 @@ def main() -> int:
     pair_launches = counts()
     assert Fk.ok, f"two-piece factorization failed at column {Fk.minor}"
     assert pair_launches["extend_add_tiles_pair"] > 0 and \
-        pair_launches["potrf_trsm"] > 0 and \
+        pair_launches["potrf_trsm"] == len(K1_GROUPS) and \
         pair_launches["extend_add_tiles"] == 0, pair_launches
     lx = F.F.Lx
     pair_lx_err = ((Fk.F.Lx - lx).abs().max() / lx.abs().max()).item()

@@ -37,8 +37,10 @@ _ll = ctypes.c_longlong
 
 # entry point -> argtypes (restype is always int: the cudaError_t of the launch)
 _SIGNATURES = {
-    # f11, f21, l11, l21, B, C, RU, stream
-    "sst_potrf_trsm": [_vp, _vp, _vp, _vp, _i, _i, _i, _vp],
+    # f11, f21, l11, l21, B, C, RU, then potrf_geometry's inst, lanes, wpt,
+    # split, prow, crow, warps, smem; stream
+    "sst_potrf_trsm": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i,
+                       _i, _i, _i, _vp],
     # F, Ucat, man, rowmap, colmap, run_ptr, nruns, R, RUp, then
     # tile_geometry's split and vec; stream
     "sst_extend_add_tiles": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,

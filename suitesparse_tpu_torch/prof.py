@@ -52,7 +52,8 @@ OUT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
 # CUPTI bookkeeping rows that the profiler files under the device but that
 # are no device work
 _NOT_DEVICE_WORK = {"Command Buffer Full", "Activity Buffer Request"}
-# the __global__ functions of kernels/csrc
+# the __global__ functions of kernels/csrc (a template matches by its name
+# before "<": potrf_trsm_kernel<8> to <96> are all K1)
 HAND_KERNELS = ("potrf_trsm_kernel", "extend_add_tiles_kernel",
                 "extend_add_kernel", "solve_step_fwd_kernel",
                 "solve_step_bwd_kernel", "trisolve_kernel", "pmatvec_kernel",
