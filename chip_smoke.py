@@ -46,13 +46,17 @@
    plain-load path, one of few long panels that takes its cluster and its
    ring of stages, one of wide panels whose forward X (at NR 3) stays in
    device memory and whose transposed columns span several blocks); the
-   extend-add (K7) on
-   three pair classes of the factor's slowest placement group,
-   (B, R) = (114, 224), padded by ``pad_pairs``. Tolerances, relative to the largest plain entry (fp32
-   sums in another order): 1e-5, 1e-6 for K2 and K2b. Each kernel's time is
+   extend-add (K7) on three pair classes of the (B, R) = (114, 224) group,
+   whose placement was the factor's slowest, in the factor's form (each
+   pair reads its child out of the source group's update block through
+   ``src``) in fp32 and fp64, two calls bit-equal, and padded by
+   ``pad_pairs``. Tolerances, relative to the largest plain entry (sums
+   in another order): 1e-5 in fp32, 1e-6 for K2 and K2b, 1e-12 for K7 in
+   fp64. Each kernel's time is
    printed beside its plain version's, the least time the card could take
-   (bytes at 3.35 TB/s or fp32 flops at 67 TFLOP/s, whichever is larger; a
-   triangular tile counts its lower triangle only) and one PyTorch call
+   (bytes at 3.35 TB/s or fp32 flops at 67 TFLOP/s, fp64 at 34, whichever
+   is larger; a triangular tile counts its lower triangle only; K7 counts
+   what its maps reach) and one PyTorch call
    that computes the same function where there is one (and the kernel's
    time over that call's):
    ``torch.linalg.solve_triangular`` for K4, ``torch.bmm`` for K5 and K6,
@@ -60,15 +64,18 @@
    (``solve_triangular`` and ``baddbmm``, checked against K3's plain),
    for K1 the factor's two (``cholesky_ex`` and ``solve_triangular``,
    checked against K1's plain),
-   the factor's ``_place`` (one ``index_put_``, on the class's real pairs)
-   for K7. K5, K6 and their library calls are timed with the L2 cache
+   ``extend_add_library`` (one ``index_put_``, the placement the factor
+   made before K7) for K7. K5, K6 and their library calls are timed with
+   the L2 cache
    flushed before each call, as a sweep finds its panels. Every call is
    timed on the device alone: a spin kernel holds the device while the
    host enqueues the call.
 3. Main path: ``analyze`` -> ``factorize`` -> ``solve`` (1 and 64
    right-hand sides, w2 sweep) through the package's entry points on the
-   card. K1 must launch once for each of its 24 groups and K2 must launch
-   during the factorization; residuals must
+   card. K1 must launch once for each of its 24 groups, K2 must launch
+   and K7 once for each pair class that no tile manifest folds (381)
+   during the factorization, and a second factorization must give the
+   same bits; residuals must
    stay below 1e-5. ``solve_mode="auto"`` must pick w2 on the fresh factor
    and classic once the reported free memory leaves no room for W2. Also a
    small problem whose card factor must match the
@@ -80,21 +87,25 @@
 5. Forest: the 512-block forest through ``cholsol`` with
    ``solve_mode="classic"`` and ``factor_kind=SUPERNODAL_LL`` (its
    flops per nonzero of L, 28.6, sit below the automatic supernodal switch
-   of 40); K3 and K4 must launch, residual below 1e-5. Then the forest
+   of 40); K7, K3 and K4 must launch, residual below 1e-5. Then the forest
    factored once more through ``factorize`` (reusing the kernel phase's
    analysis) and solved by the classic sweep at 64 right-hand sides: K4
    must launch, columns 0 and 63 below 1e-5, x within 1e-4 * max|x| of a
    w2 solve of the same factor.
 6. Refinement: ``solve_refined`` on the model problem, residual below 1e-12.
-7. Kernel path: the model problem factored with ``tile_pair=True`` (K2b and
-   K1 must launch, L within 1e-5 * max|L| of the default factor's), then
+   Then the model problem factored and solved in fp64
+   (``compute_dtype="float64"``): K7's double instance must launch once
+   for every pair class (the fp64 factor runs no tile manifest), residual
+   below 1e-12.
+7. Kernel path: the model problem factored with ``tile_pair=True`` (K2b,
+   K1 and K7 must launch, K7 as often as in the default factor, L within
+   1e-5 * max|L| of the default factor's), then
    solved through the w2 sweep with ``solve_pmv=True, solve_bmv=True`` at
    1 and 8 right-hand sides (K5 and both K6 kernels must launch, residuals
    below 1e-5, x within 1e-4 * max|x| of the default w2 solve's x), each
    timed beside the default.
 
-Every kernel count is set to 0 just before each path and read just after;
-K7, which no path runs, reports the launches of its kernel phase.
+Every kernel count is set to 0 just before each path and read just after.
 Any failure raises (exit code != 0). Without a CUDA device the script exits
 with code 2 before doing anything. The last line is the device JSON.
 """
@@ -113,6 +124,7 @@ K1_TOL = 1e-5
 K2_TOL = 1e-6
 K34_TOL = 1e-5
 K567_TOL = 1e-5
+K7_F64_TOL = 1e-12
 RESID_TOL = 1e-5
 REFINED_TOL = 1e-12
 SEED = 0
@@ -157,6 +169,7 @@ L2_FLUSH_BYTES = 64 << 20   # more than the H100's 50 MB L2 cache
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin before each timed call
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOP_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
+FP64_FLOP_S = 34e12     # H100 SXM fp64 rate outside the tensor cores
 SRC = "suitesparse_tpu_torch/kernels/csrc/"
 
 
@@ -206,10 +219,11 @@ def _best_s(fn, reps: int = 3) -> float:
     return best
 
 
-def _bound(nbytes: float, flops: float) -> tuple[float, str]:
+def _bound(nbytes: float, flops: float,
+           flop_s: float = FP32_FLOP_S) -> tuple[float, str]:
     """(least ms the card could take, what bounds it)."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
-    t_ops = flops / FP32_FLOP_S * 1e3
+    t_ops = flops / flop_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -220,11 +234,11 @@ def _rel_err(got, ref) -> tuple[float, float]:
 
 
 def _record(rec, name, shape, err, dabs, ms, plain_ms, nbytes, flops,
-            library_ms=None, tol=K34_TOL):
+            library_ms=None, tol=K34_TOL, flop_s=FP32_FLOP_S):
     """Print one kernel measurement, check it against ``tol`` and fold it
     into ``rec[name]`` (largest errors; the first shape is the reported
     one)."""
-    bound_ms, bound_by = _bound(nbytes, flops)
+    bound_ms, bound_by = _bound(nbytes, flops, flop_s)
     lib = "" if library_ms is None else \
         f" library_ms={library_ms:.4f} kernel/library={ms / library_ms:.2f}"
     print(f"{name} {shape} rel_err={err:.3e} kernel_ms={ms:.4f} "
@@ -719,16 +733,17 @@ def w2_kernels(dp, dev, rng):
 def extend_add_kernel(dp, dev, rng):
     """K7 against its plain version on the K7_CLASSES pair classes of the
     factor's (B, R) = K7_GROUP group, with their real row maps and
-    destinations padded by ``pad_pairs``. The library call is the factor's
-    own placement of the class, ``_place`` (one
-    ``index_put_(accumulate=True)``), on the real pairs: the dummy pairs add
-    nothing, and ``_place`` would send all their cells to its one dump
-    cell."""
+    destinations: in the factor's form (each pair reads its child out of
+    the source group's whole update block through ``src``), fp32 and fp64,
+    two calls bit-equal; then padded by ``pad_pairs`` with the children
+    gathered, as the reference's kernel takes them. The library call is
+    ``extend_add_library`` (one ``index_put_(accumulate=True)``) on the
+    same inputs; beside the padded form it is not timed again."""
     import torch
 
     from suitesparse_tpu_torch.kernels.extend_add import (
-        extend_add, extend_add_plain, pad_pairs)
-    from suitesparse_tpu_torch.numeric.supernodal_device import _place
+        class_work, extend_add, extend_add_library, extend_add_plain,
+        pad_pairs)
 
     (g,) = [g for gl in dp.plan.groups for g in gl
             if (g.B, g.R) == K7_GROUP]
@@ -736,8 +751,47 @@ def extend_add_kernel(dp, dev, rng):
     shapes = [(pc.npairs, pc.RU_c) for pc in g.pairs]
     rec: dict = {}
     for ci in [shapes.index(c) for c in K7_CLASSES]:
-        _src, dst, idx = g._pair_arrays[ci]
+        pc = g.pairs[ci]
+        src, dst, idx = g._pair_arrays[ci]
         npairs, RU = idx.shape
+        B_c = dp.plan.groups[pc.src_level][pc.src_gi].B
+        it, dt, st = (torch.as_tensor(np.ascontiguousarray(a, np.int32),
+                                      device=dev) for a in (idx, dst, src))
+        for name, dtype, tol in (("extend_add", torch.float32, K567_TOL),
+                                 ("extend_add_f64", torch.float64,
+                                  K7_F64_TOL)):
+            F0 = torch.as_tensor(rng.standard_normal((B, R, R)),
+                                 device=dev).to(dtype)
+            U = torch.as_tensor(rng.standard_normal((B_c, RU, RU)),
+                                device=dev).to(dtype)
+            Fk = extend_add(F0.clone(), U, it, dt, st)
+            Fk2 = extend_add(F0.clone(), U, it, dt, st)
+            Fp = extend_add_plain(F0.clone(), U, it, dt, st)
+            Fl = torch.cat([F0.reshape(-1), F0.new_zeros(1)])
+            extend_add_library(Fl, U, it, dt, R, st)
+            torch.cuda.synchronize()
+            assert torch.equal(Fk, Fk2), f"{name}: two calls differ"
+            d, e = _rel_err(Fk, Fp)
+            e_lib = _rel_err(Fl[:-1].view(B, R, R), Fp)[1]
+            assert e_lib <= tol, f"library disagrees with plain: {e_lib}"
+            itemsize = F0.element_size()
+            nbytes, adds = class_work(R, idx, dst, itemsize, src)
+            _record(
+                rec, name,
+                f"(B,R)=({B},{R}) (np,RU)=({npairs},{RU}) B_c={B_c} src "
+                f"form, two calls bit-equal",
+                e, d,
+                _cuda_ms(lambda F: extend_add(F, U, it, dt, st), 10,
+                         setup=lambda: (F0.clone(),)),
+                _cuda_ms(lambda F: extend_add_plain(F, U, it, dt, st), 3,
+                         setup=lambda: (F0.clone(),)),
+                nbytes, adds,
+                library_ms=_cuda_ms(
+                    lambda F: extend_add_library(F, U, it, dt, R, st), 10,
+                    setup=lambda: (Fl.clone(),)),
+                tol=tol, flop_s=FP64_FLOP_S if itemsize == 8 else FP32_FLOP_S)
+        # the padded form: children gathered in dst order, a dummy pair for
+        # every slot without one
         dstf, idxf, order = pad_pairs(B, dst, idx)
         child = np.zeros((dstf.size, RU, RU), np.float32)
         child[order >= 0] = rng.standard_normal((npairs, RU, RU),
@@ -748,24 +802,10 @@ def extend_add_kernel(dp, dev, rng):
         ch = torch.as_tensor(child, device=dev)
         it = torch.as_tensor(np.ascontiguousarray(idxf, np.int32), device=dev)
         dt = torch.as_tensor(np.ascontiguousarray(dstf, np.int32), device=dev)
-        real = torch.as_tensor(np.flatnonzero(order >= 0), device=dev)
-        lib_args = (ch[real], dt[real].long(), it[real].long(), R)
         Fk = extend_add(F0.clone(), ch, it, dt)
         Fp = extend_add_plain(F0.clone(), ch, it, dt)
-        Fl = torch.cat([F0.reshape(-1), F0.new_zeros(1)])
-        _place(Fl, *lib_args)
         torch.cuda.synchronize()
         d, e = _rel_err(Fk, Fp)
-        e_lib = _rel_err(Fl[:-1].view(B, R, R), Fp)[1]
-        assert e_lib <= K567_TOL, f"_place disagrees with K7's plain: {e_lib}"
-        # this input's work: each valid child cell read and added once, each
-        # parent cell it reaches read and written once, maps read once
-        ok = idxf >= 0
-        cells = float((ok.sum(1) ** 2).sum())
-        touched = np.unique(np.concatenate([
-            (int(dstf[p]) * R + idxf[p][ok[p]][:, None]) * R
-            + idxf[p][ok[p]][None, :] for p in range(dstf.size)],
-            axis=None))
         _record(
             rec, "extend_add",
             f"(B,R)=({B},{R}) (np,RU)=({npairs},{RU}) padded np={dstf.size}",
@@ -774,11 +814,7 @@ def extend_add_kernel(dp, dev, rng):
                      setup=lambda: (F0.clone(),)),
             _cuda_ms(lambda F: extend_add_plain(F, ch, it, dt), 3,
                      setup=lambda: (F0.clone(),)),
-            4.0 * cells + 8.0 * touched.size + 4.0 * (idxf.size + dstf.size),
-            cells,
-            library_ms=_cuda_ms(lambda F: _place(F, *lib_args), 10,
-                                setup=lambda: (Fl.clone(),)),
-            tol=K567_TOL)
+            *class_work(R, idxf, dstf), tol=K567_TOL)
     return rec
 
 
@@ -875,7 +911,8 @@ def main() -> int:
                 "pmatvec_t": (pmatvec_t, "launches"),
                 "bmatvec": (bmatvec, "launches"),
                 "bmatvec_t": (bmatvec, "transposed_launches"),
-                "extend_add": (extend_add, "launches")}
+                "extend_add": (extend_add, "launches"),
+                "extend_add_f64": (extend_add, "fp64_launches")}
 
     def zero_counts():
         for w, attr in counters.values():
@@ -935,11 +972,14 @@ def main() -> int:
     k1, k2, k2b = factor_kernels(dp, dpp, dev, rng)
     ks, k4_ms = solve_kernels(dp, dpf, dev, rng)
     kw = w2_kernels(dp, dev, rng)
-    zero_counts()
-    k7 = extend_add_kernel(dp, dev, rng)["extend_add"]
-    torch.cuda.synchronize()
-    k7_launches = counts()["extend_add"]
+    k7 = extend_add_kernel(dp, dev, rng)
     small_check(dev)
+    # pair classes of the plan, and those no tile manifest folds: the fp32
+    # factor places the latter through K7, the fp64 factor (which runs no
+    # manifest) all of them
+    n_classes = sum(len(g.pairs) for g in groups)
+    n_unfolded = n_classes - sum(len(g._tile.folded) for g in groups
+                                 if g._tile is not None)
 
     # ---- main path, through the package's entry points ----
     zero_counts()
@@ -950,7 +990,16 @@ def main() -> int:
     factor_launches = counts()
     assert F.ok, f"factorization failed at column {F.minor}"
     assert factor_launches["potrf_trsm"] == len(K1_GROUPS) and \
-        factor_launches["extend_add_tiles"] > 0, factor_launches
+        factor_launches["extend_add_tiles"] > 0 and \
+        factor_launches["extend_add"] == n_unfolded and \
+        factor_launches["extend_add_f64"] == 0, factor_launches
+    F2 = sstt.factorize(A, Ssim, cfg, device="cuda")
+    same = torch.equal(F.F.Lx, F2.F.Lx)
+    print(f"factor: {n_unfolded} of the plan's {n_classes} pair classes "
+          f"through K7, launches={factor_launches}; a second factor equals "
+          f"the first bit for bit: {same}", flush=True)
+    assert same, "two factors of the model problem differ"
+    del F2
     auto_fallback(F)
     b = 1.0 + np.arange(n) / n
     B64 = np.tile(b.reshape(-1, 1), (1, NRHS)) * (1.0 + np.arange(NRHS) / NRHS)
@@ -988,7 +1037,8 @@ def main() -> int:
     torch.cuda.synchronize()
     forest_s = time.perf_counter() - t0
     forest_launches = counts()
-    assert forest_launches["batched_trisolve"] > 0 and \
+    assert forest_launches["extend_add"] > 0 and \
+        forest_launches["batched_trisolve"] > 0 and \
         forest_launches["solve_step_fwd"] > 0 and \
         forest_launches["solve_step_bwd"] > 0, forest_launches
     fresid = sstt.residual_norm(Af, xf, bf)
@@ -1027,6 +1077,29 @@ def main() -> int:
     rresid = sstt.residual_norm(A, xr, b)
     assert rresid < REFINED_TOL, rresid
 
+    # ---- fp64 factor and solve (K7's double instance, every class) ----
+    cfg64 = cfg.replace(compute_dtype="float64")
+    zero_counts()
+    t0 = time.perf_counter()
+    F64 = sstt.factorize(A, Ssim, cfg64, device="cuda")
+    torch.cuda.synchronize()
+    first_factor64_s = time.perf_counter() - t0
+    f64_launches = counts()
+    assert F64.ok, f"fp64 factorization failed at column {F64.minor}"
+    assert F64.F.Lx.dtype == torch.float64
+    assert f64_launches["extend_add_f64"] == n_classes and \
+        f64_launches["extend_add"] == 0, f64_launches
+    x_f64 = sstt.solve(F64, b, cfg64)
+    f64_resid = sstt.residual_norm(A, x_f64, b)
+    assert x_f64.shape == (n,) and np.isfinite(x_f64).all()
+    assert f64_resid < REFINED_TOL, f64_resid
+    factor64_s = _best_s(lambda: sstt.factorize(A, Ssim, cfg64,
+                                                device="cuda"))
+    print(f"fp64 factor: launches={f64_launches}, residual {f64_resid:.3e}, "
+          f"first factor {first_factor64_s:.4f} s, steady {factor64_s:.4f} "
+          f"s", flush=True)
+    del F64
+
     # ---- kernel path: two-piece tile steps, then the w2 kernel routes ----
     pair_cfg = cfg.replace(tile_pair=True)
     kern_cfg = cfg.replace(solve_pmv=True, solve_bmv=True)
@@ -1037,6 +1110,7 @@ def main() -> int:
     assert Fk.ok, f"two-piece factorization failed at column {Fk.minor}"
     assert pair_launches["extend_add_tiles_pair"] > 0 and \
         pair_launches["potrf_trsm"] == len(K1_GROUPS) and \
+        pair_launches["extend_add"] == n_unfolded and \
         pair_launches["extend_add_tiles"] == 0, pair_launches
     lx = F.F.Lx
     pair_lx_err = ((Fk.F.Lx - lx).abs().max() / lx.abs().max()).item()
@@ -1082,6 +1156,7 @@ def main() -> int:
         "card": card, "n": n, "flops": S.fl,
         "factor_s": factor_s, "gflops": S.fl / factor_s / 1e9,
         "first_factor_s": first_factor_s, "pair_factor_s": pair_factor_s,
+        "factor64_s": factor64_s, "residual_f64": f64_resid,
         "solve_s": solve_s, "solve8_s": solve8_s,
         "w2k_solve_s": w2k_solve_s, "w2k_solve8_s": w2k_solve8_s,
         "solve64_s": solve64_s, "classic_solve_s": classic_solve_s,
@@ -1103,6 +1178,7 @@ def main() -> int:
         "forest_k4_ms_per_solve64": k4_per_solve[NRHS],
         "launches": {"factor": factor_launches, "classic": classic_launches,
                      "forest": forest_launches, "forest64": forest64_launches,
+                     "factor_f64": f64_launches,
                      "pair_factor": pair_launches,
                      "w2k1": w2k_launches[1],
                      "w2k8": w2k_launches[NRHS_K]},
@@ -1146,7 +1222,11 @@ def main() -> int:
               "bmatvec.cu", kw["bmatvec_t"],
               sum(c["bmatvec_t"] for c in w2k_launches.values())),
         entry("extend_add", "suitesparse_tpu/kernels/extend_add.py:110",
-              "extend_add.cu", k7, k7_launches),
+              "extend_add.cu", k7["extend_add"],
+              factor_launches["extend_add"]),
+        entry("extend_add_f64", "suitesparse_tpu/kernels/extend_add.py:110",
+              "extend_add.cu", k7["extend_add_f64"],
+              f64_launches["extend_add_f64"]),
     ]}))
     leaked = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "jaxlib", "suitesparse_tpu")]

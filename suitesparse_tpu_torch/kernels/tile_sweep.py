@@ -1,5 +1,5 @@
 """Time K2 and K2b over their launch plans on one card, and K2 beside the
-factor's placement on groups below the tile threshold.
+factor's placement (K7) on groups below the tile threshold.
 
     python3 -m suitesparse_tpu_torch.kernels.tile_sweep
 
@@ -16,11 +16,12 @@ fills around the kernel.
 
 Off the plan: the manifests that ``build_plan(..., tile_rmin=128)`` gives
 the three largest groups below the threshold, ``SUB_GROUPS``, which the
-factor places class by class with ``_place`` (one
-``index_put_(accumulate=True)`` a class). For each, K2 alone, the tile
-route (Ucat zeroed and filled as the factor fills it, then K2) and
-``_place`` over the same classes, on the same child blocks; the two routes
-must agree on the lower tiles (1e-5). Routing does not change here.
+factor places class by class with K7 (``extend_add``, one launch a
+class). For each, K2 alone, the tile route (Ucat zeroed and filled as the
+factor fills it, then K2), K7 over the same classes and the library
+scatter ``extend_add_library`` (one ``index_put_(accumulate=True)`` a
+class), on the same child blocks; the routes must agree on the lower
+tiles (1e-5). Routing does not change here.
 
 Times as the other sweeps take them (``bmv_sweep._device_ms``): device
 milliseconds, the mean of 20 calls, the L2 cache flushed and a spin kernel
@@ -151,9 +152,11 @@ def sweep_plan(plans, dev, gen, flush) -> None:
 
 
 def sweep_sub(S, C_low, dev, gen, flush) -> None:
-    """K2 against ``_place`` on SUB_GROUPS, manifests at SUB_RMIN."""
-    from suitesparse_tpu_torch.numeric.supernodal_device import (
-        _place, build_plan)
+    """K2 against K7 and the library scatter on SUB_GROUPS, manifests at
+    SUB_RMIN."""
+    from suitesparse_tpu_torch.kernels.extend_add import (extend_add,
+                                                          extend_add_library)
+    from suitesparse_tpu_torch.numeric.supernodal_device import build_plan
 
     plan = build_plan(S, C_low, tile_rmin=SUB_RMIN)
     for key in SUB_GROUPS:
@@ -162,8 +165,8 @@ def sweep_sub(S, C_low, dev, gen, flush) -> None:
         blocks = [torch.randn(g._pair_arrays[ci][0].size, g.pairs[ci].RU_c,
                               g.pairs[ci].RU_c, generator=gen, device=dev)
                   for ci in tm.folded]
-        pairs = [(torch.as_tensor(dst, device=dev).long(),
-                  torch.as_tensor(idx, device=dev).long())
+        pairs = [(torch.as_tensor(dst, device=dev),
+                  torch.as_tensor(idx, device=dev))
                  for _src, dst, idx in (g._pair_arrays[ci]
                                         for ci in tm.folded)]
         F0 = torch.randn(g.B, R, R, generator=gen, device=dev)
@@ -180,29 +183,38 @@ def sweep_sub(S, C_low, dev, gen, flush) -> None:
         def tile_route(F):
             _launch(F, stage(), *args, geo)
 
-        def place_route(Fbuf):
+        def k7_route(F):
             for blk, (dst, idx) in zip(blocks, pairs):
-                _place(Fbuf, blk, dst, idx, R)
+                extend_add(F, blk, idx, dst)
+
+        def library_route(Fbuf):
+            for blk, (dst, idx) in zip(blocks, pairs):
+                extend_add_library(Fbuf, blk, idx, dst, R)
 
         Ucat = stage()
         Ft = F0.clone()
         tile_route(Ft)
+        F7 = F0.clone()
+        k7_route(F7)
         Fbuf = torch.cat([F0.reshape(-1), F0.new_zeros(1)])
-        place_route(Fbuf)
+        library_route(Fbuf)
         torch.cuda.synchronize()
         t = torch.arange(R, device=dev) // TILE
         low = (t[:, None] >= t[None, :]).expand(g.B, R, R)
-        err = _err(Ft[low], Fbuf[:-1].view(g.B, R, R)[low])
+        err = max(_err(Ft[low], F7[low]),
+                  _err(Ft[low], Fbuf[:-1].view(g.B, R, R)[low]))
         assert err <= ROUTE_TOL, (key, err)
         Fk = F0.clone()
         k2 = _device_ms(lambda: _launch(Fk, Ucat, *args, geo), flush)
         route = _device_ms(lambda: tile_route(Fk), flush)
-        place = _device_ms(lambda: place_route(Fbuf), flush)
+        k7 = _device_ms(lambda: k7_route(Fk), flush)
+        lib = _device_ms(lambda: library_route(Fbuf), flush)
         nbytes, _ = manifest_work(tm, g._tile_runs, R)
         print(f"below threshold (B,R,C)={key} classes={len(tm.folded)} "
               f"pairs={sum(b.shape[0] for b in blocks)} tiles={nruns} "
               f"steps={tm.man.shape[0]} RUp={tm.RUp} split={geo.split} "
-              f"K2={k2:.4f} stage+K2={route:.4f} place={place:.4f} "
+              f"K2={k2:.4f} stage+K2={route:.4f} K7={k7:.4f} "
+              f"library={lib:.4f} "
               f"K2_bound={nbytes / HBM_BYTES_S * 1e3:.4f} "
               f"route_err={err:.2e}", flush=True)
 

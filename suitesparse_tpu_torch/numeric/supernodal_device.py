@@ -11,8 +11,9 @@ in all), so the two factors compare entry by entry.
 
 Per group: A's values are scattered into the fronts F; child updates whose
 parent group has a tile manifest are added by the tiled extend-add kernel
-(one piece per manifest step, or two with ``Config.tile_pair``), the
-other pair classes by direct indexing; the fronts are factored by the
+(one piece per manifest step, or two with ``Config.tile_pair``; fp32), the
+other pair classes by the extend-add kernel, one launch a class, each
+reading its children where they lie; the fronts are factored by the
 fused potrf+trsm kernel where its gate passes (B >= 32, C <= 96, fp32) and
 by ``cholesky_ex`` + ``solve_triangular`` elsewhere; the update
 U = F22 - L21 L21^T goes up to the parent group.
@@ -27,6 +28,7 @@ import torch
 
 from ..config import DEFAULT, Config
 from ..device import fp32_precision, resolve_device
+from ..kernels.extend_add import extend_add
 from ..kernels.extend_add_tiles import build_group_manifest, extend_add_tiles, \
     run_ptr
 from ..kernels.potrf import MAX_C, potrf_trsm
@@ -402,7 +404,7 @@ class GroupArrays:
     asrc: torch.Tensor           # gather into Cdata
     adst: torch.Tensor           # flat destination in the (B*R*R) fronts
     nc: torch.Tensor             # (B, 1, 1) actual column counts
-    pairs: list                  # per class (src, dst, idx) int64
+    pairs: list                  # per class (src, dst, idx) int32
     tile: tuple | None           # (man, rowmap, colmap, runs) int32
     uslices: list                # per folded class (k0, src key, RU_c, src)
 
@@ -429,6 +431,10 @@ def _upload(plan: Plan, device: torch.device) -> DevicePlan:
     for glist in plan.groups:
         row = []
         for g in glist:
+            # the extend-add kernel walks each slot's run of pairs: the plan
+            # orders a class's children by parent slot
+            assert all(np.all(np.diff(dst) >= 0)
+                       for (_s, dst, _i) in g._pair_arrays)
             tm = g._tile
             tile, uslices = None, []
             if tm is not None:
@@ -439,7 +445,7 @@ def _upload(plan: Plan, device: torch.device) -> DevicePlan:
             row.append(GroupArrays(
                 asrc=t64(g.asrc), adst=t64(g.adst),
                 nc=t64(g.nc).reshape(g.B, 1, 1),
-                pairs=[(t64(s), t64(d), t64(i)) for (s, d, i)
+                pairs=[(t32(s), t32(d), t32(i)) for (s, d, i)
                        in g._pair_arrays],
                 tile=tile, uslices=uslices))
         groups.append(row)
@@ -472,20 +478,6 @@ def _use_potrf_kernel(dtype: torch.dtype, B: int, C: int) -> bool:
     return B >= 32 and C <= MAX_C and dtype == torch.float32
 
 
-def _place(Fbuf: torch.Tensor, U: torch.Tensor, dst: torch.Tensor,
-           idx: torch.Tensor, R: int) -> None:
-    """Fbuf[dst[p]*R*R + idx[p,i]*R + idx[p,j]] += U[p,i,j] where idx >= 0.
-
-    Cells with idx < 0 go to Fbuf's last element, a dump cell outside the
-    fronts, so the scatter needs no mask compaction (and no device sync)."""
-    dump = Fbuf.numel() - 1
-    ok = idx >= 0
-    ii = torch.where(ok, idx, 0)
-    flat = dst[:, None, None] * (R * R) + ii[:, :, None] * R + ii[:, None, :]
-    flat = torch.where(ok[:, :, None] & ok[:, None, :], flat, dump)
-    Fbuf.index_put_((flat.reshape(-1),), U.reshape(-1), accumulate=True)
-
-
 def _group_compute(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
                    dtype: torch.dtype):
     """Assemble and factor one group; returns (panel (B, R, C), U or None)."""
@@ -508,8 +500,8 @@ def _group_compute(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
         skip = set(tm.folded)
     for ci, (pc, (src, dst, idx)) in enumerate(zip(g.pairs, ix.pairs)):
         if ci not in skip:
-            _place(Fbuf, updates[(pc.src_level, pc.src_gi)][src], dst, idx,
-                   R)
+            extend_add(F, updates[(pc.src_level, pc.src_gi)], idx, dst,
+                       src=src)
 
     F11 = F[:, :C, :C]
     F11s = torch.tril(F11) + torch.tril(F11, -1).mT

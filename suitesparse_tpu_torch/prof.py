@@ -3,8 +3,9 @@
     python3 -m suitesparse_tpu_torch.prof
 
 On the model problem ``laplacian_3d(50)`` (n = 125,000, nested dissection,
-fp32, default tile threshold) it profiles ``factorize`` (``factor``, and
-``factor_pair`` with the two-piece tile steps, ``tile_pair=True``), and
+fp32, default tile threshold) it profiles ``factorize`` (``factor``,
+``factor_pair`` with the two-piece tile steps, ``tile_pair=True``, and
+``factor64`` in fp64, ``compute_dtype="float64"``), and
 ``solve`` at 1 and at 64 right-hand sides through the w2 sweep (the
 default; ``solve1``, ``solve64``) and through the classic sweep
 (``solve_mode="classic"``; ``classic1``, ``classic64``), and at 1 and 8
@@ -172,6 +173,8 @@ def main() -> int:
     pair = cfg.replace(tile_pair=True)
     profile_phase("factor_pair",
                   lambda: factorize(A, Ssim, pair, device="cuda"))
+    fp64 = cfg.replace(compute_dtype="float64")
+    profile_phase("factor64", lambda: factorize(A, Ssim, fp64, device="cuda"))
     profile_phase("solve1", lambda: solve(F, b, cfg))
     profile_phase("solve64", lambda: solve(F, B64, cfg))
     classic = cfg.replace(solve_mode="classic")

@@ -1,0 +1,85 @@
+"""K7 (``csrc/extend_add.cu``) on a CUDA card, in the factor's form (each
+pair reads its child out of the source group's whole update block through
+``src``): the kernel against its plain version in fp32 and fp64, two calls
+bit-equal, and the wrapper's checks on ``src``. Marked ``card``: they skip
+where no card is found (the check is made inside the fixture, not at
+import). On the card (whose Python needs no JAX: ``--noconftest`` skips
+the JAX set-up of ``tests/conftest.py``):
+
+    python -m pytest --noconftest tests/test_torch_extend_add_card.py -m card
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from suitesparse_tpu_torch.kernels.extend_add import (extend_add,
+                                                      extend_add_plain)
+
+pytestmark = pytest.mark.card
+
+# fp32 or fp64 sums in another order than the plain version's, relative to
+# the largest entry
+RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# (B, R, RU, npairs, B_c): the model plan's largest placed class, (114, 224)
+# with (np, RU) = (75, 128); many pairs on few slots; an odd R and RU
+SHAPES = ((114, 224, 128, 75, 120), (3, 64, 40, 30, 33), (17, 101, 37, 23, 40))
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _class(B, R, RU, npairs, B_c, dtype, dev, seed):
+    """F (B, R, R), U (B_c, RU, RU) and int32 idx, dst (sorted) and src
+    (distinct slots of U); as in the plan, each map's valid rows come
+    first, sorted, and the rest (up to half) are padded."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([np.sort(rng.choice(R, RU, replace=False))
+                    for _ in range(npairs)]).astype(np.int32)
+    nvalid = rng.integers(RU // 2, RU + 1, npairs)
+    idx[np.arange(RU)[None, :] >= nvalid[:, None]] = -1
+    dst = np.sort(rng.integers(0, B, npairs)).astype(np.int32)
+    src = rng.permutation(B_c)[:npairs].astype(np.int32)
+
+    def t(a):
+        return torch.as_tensor(a, device=dev)
+
+    F = t(rng.standard_normal((B, R, R))).to(dtype)
+    U = t(rng.standard_normal((B_c, RU, RU))).to(dtype)
+    return F, U, t(idx), t(dst), t(src)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,R,RU,npairs,B_c", SHAPES)
+def test_src_form_matches_plain_and_reruns_bit_equal(dev, B, R, RU, npairs,
+                                                     B_c, dtype):
+    F0, U, idx, dst, src = _class(B, R, RU, npairs, B_c, dtype, dev,
+                                  seed=B + R + RU)
+    counter = "fp64_launches" if dtype == torch.float64 else "launches"
+    before = getattr(extend_add, counter)
+    got = extend_add(F0.clone(), U, idx, dst, src)
+    again = extend_add(F0.clone(), U, idx, dst, src)
+    want = extend_add_plain(F0.clone(), U, idx, dst, src)
+    torch.cuda.synchronize()
+    assert getattr(extend_add, counter) == before + 2
+    assert got.dtype == dtype and torch.equal(got, again)
+    assert (got - want).abs().max() <= RTOL[dtype] * want.abs().max()
+
+
+def test_wrong_src_raises(dev):
+    F, U, idx, dst, src = _class(5, 40, 16, 8, 12, torch.float32, dev, 0)
+    wide = torch.stack([src, src], 1)
+    bad = {"int64": src.long(), "non-contiguous": wide[:, 0],
+           "on the CPU": src.cpu(), "short": src[:-1]}
+    assert not wide[:, 0].is_contiguous()
+    for s in bad.values():
+        with pytest.raises(ValueError, match="src"):
+            extend_add(F, U, idx, dst, s)
+    with pytest.raises(ValueError):
+        extend_add(F, U.double(), idx, dst, src)
+    with pytest.raises(ValueError):
+        extend_add(F.half(), U.half(), idx, dst, src)

@@ -79,6 +79,101 @@ def test_factor_matches_reference(name, dtype, monkeypatch):
     assert np.abs(Ft.lx_host() - Fj.lx_host()).max() <= tol
 
 
+# the reference's placement routes off the TPU, forced by SSTPU_PLACE; the
+# port places every class that no tile manifest folds through K7
+PLACE_ROUTES = ["mm", "gather", "scan"]
+# the fixture whose plan has classes the scan route takes (R >= 128 and
+# RU >= 127); elsewhere SSTPU_PLACE=scan falls back to the cost model
+SCAN_FIXTURES = {"laplacian_3d_12"}
+
+
+def _both_placed(name, dtype, route, monkeypatch):
+    """Reference factor under SSTPU_PLACE=route (no tile manifests, XLA's
+    Cholesky) and the port's at the default tile threshold."""
+    monkeypatch.setenv("SSTPU_PLACE", route)
+    if route == "gather":
+        # the one-hot matmul loses the reference's cost model, so every
+        # class takes the gather route
+        monkeypatch.setattr(ref_device, "_PLACE_MM", 1.0)
+    A = FIXTURES[name](fixtures)
+    S = analyze_supernodal(A, nested_dissection_order(A, sst.DEFAULT))
+    Fj = ref_device.factorize_device(
+        A, S, sst.DEFAULT.replace(compute_dtype=dtype))
+    routes = {pc.strategy for gl in S._device_plan.groups for g in gl
+              for pc in g.pairs}
+    At = FIXTURES[name](sstt.fixtures)
+    St = port_analyze_supernodal(At, S.perm)
+    Ft = supernodal_device.factorize_device(
+        At, St, sstt.DEFAULT.replace(compute_dtype=dtype), device="cpu")
+    return routes, Fj, Ft
+
+
+@pytest.mark.parametrize("route", PLACE_ROUTES)
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("name", sorted(FIXTURES))
+def test_factor_matches_reference_placement_routes(name, dtype, route,
+                                                   monkeypatch):
+    """At the default threshold no group of these fixtures reaches the
+    tile kernel, so every pair class goes through K7's plain version."""
+    routes, Fj, Ft = _both_placed(name, dtype, route, monkeypatch)
+    if route != "scan" or name in SCAN_FIXTURES:
+        assert route in routes, routes
+    assert Fj.ok and Ft.ok
+    groups = [g for gl in Ft.dplan.plan.groups for g in gl]
+    assert all(g._tile is None for g in groups) and \
+        sum(len(g.pairs) for g in groups) > 0
+    lj = np.asarray(Fj.Lx, dtype=np.float64)
+    lt = Ft.Lx.numpy().astype(np.float64)
+    assert lj.shape == lt.shape == (Ft.dplan.plan.dev_size,)
+    assert np.abs(lt - lj).max() <= TOL[dtype] * np.abs(lj).max()
+
+
+@pytest.mark.parametrize("tile_rmin,dtype", [(256, "float32"),
+                                             (32, "float32"),
+                                             (32, "float64")])
+def test_factor_places_each_unfolded_class_through_k7(tile_rmin, dtype,
+                                                      monkeypatch):
+    """One extend_add call per class that no manifest folds (fp64 runs no
+    manifest), in plan order, each on its class's int32 maps and the source
+    group's whole update block; the library scatter is never called."""
+    import torch
+    from suitesparse_tpu_torch.kernels import extend_add as k7
+
+    calls, library = [], []
+
+    def spy(F, U, idx, dst, src=None):
+        calls.append((tuple(U.shape), idx.dtype, dst.dtype, src.dtype))
+        return k7.extend_add(F, U, idx, dst, src)
+
+    def library_spy(*args, **kw):
+        library.append(args)
+        return k7.extend_add_library(*args, **kw)
+
+    monkeypatch.setattr(supernodal_device, "extend_add", spy)
+    monkeypatch.setattr(k7, "extend_add_library", library_spy)
+    A, S = _port_analysis("laplacian_3d_12")
+    F = supernodal_device.factorize_device(
+        A, S, sstt.DEFAULT.replace(compute_dtype=dtype), device="cpu",
+        tile_rmin=tile_rmin)
+    assert F.ok and not library
+    assert not hasattr(supernodal_device, "extend_add_library")
+    plan = F.dplan.plan
+    want = []
+    for gl in plan.groups:
+        for g in gl:
+            folded = set(g._tile.folded) if g._tile is not None and \
+                dtype == "float32" else set()
+            for ci, pc in enumerate(g.pairs):
+                if ci not in folded:
+                    B_c = plan.groups[pc.src_level][pc.src_gi].B
+                    want.append(((B_c, pc.RU_c, pc.RU_c), torch.int32,
+                                 torch.int32, torch.int32))
+    assert calls == want
+    if tile_rmin == 32 and dtype == "float32":
+        assert len(want) < sum(len(g.pairs) for gl in plan.groups
+                               for g in gl)
+
+
 def test_laplacian_runs_both_kernels_plain(monkeypatch):
     """At this size the port's plan sends groups through both kernels (the
     plain versions on the CPU), so the parity above covers them."""
