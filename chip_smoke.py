@@ -46,11 +46,15 @@
    plain-load path, one of few long panels that takes its cluster and its
    ring of stages, one of wide panels whose forward X (at NR 3) stays in
    device memory and whose transposed columns span several blocks); the
-   extend-add (K7) on three pair classes of the (B, R) = (114, 224) group,
-   whose placement was the factor's slowest, in the factor's form (each
-   pair reads its child out of the source group's update block through
-   ``src``) in fp32 and fp64, two calls bit-equal, and padded by
-   ``pad_pairs``. Tolerances, relative to the largest plain entry (sums
+   extend-add (K7) in the group form the factor launches (one launch for
+   all classes of a group, ``extend_add_group``) on the (B, R) = (114,
+   224) group's work list in fp32 and fp64 and on the fp64 factor's
+   largest tile group (R = 3912, RU_c up to 2624), each call twice
+   bit-equal and equal bit for bit to one launch a class; then in its
+   one-class form on three pair classes of the (114, 224) group, in the
+   factor's form (each pair reads its child out of the source group's
+   update block through ``src``) in fp32 and fp64, two calls bit-equal,
+   and padded by ``pad_pairs``. Tolerances, relative to the largest plain entry (sums
    in another order): 1e-5 in fp32, 1e-6 for K2 and K2b, 1e-12 for K7 in
    fp64. Each kernel's time is
    printed beside its plain version's, the least time the card could take
@@ -64,8 +68,8 @@
    (``solve_triangular`` and ``baddbmm``, checked against K3's plain),
    for K1 the factor's two (``cholesky_ex`` and ``solve_triangular``,
    checked against K1's plain),
-   ``extend_add_library`` (one ``index_put_``, the placement the factor
-   made before K7) for K7. K5, K6 and their library calls are timed with
+   ``extend_add_library`` (one ``index_put_`` a class, the placement the
+   factor made before K7) for K7. K5, K6 and their library calls are timed with
    the L2 cache
    flushed before each call, as a sweep finds its panels. Every call is
    timed on the device alone: a spin kernel holds the device while the
@@ -73,8 +77,8 @@
 3. Main path: ``analyze`` -> ``factorize`` -> ``solve`` (1 and 64
    right-hand sides, w2 sweep) through the package's entry points on the
    card. K1 must launch once for each of its 24 groups, K2 must launch
-   and K7 once for each pair class that no tile manifest folds (381)
-   during the factorization, and a second factorization must give the
+   and K7 once for each group with a pair class that no tile manifest
+   folds (41 groups, 381 classes) during the factorization, and a second factorization must give the
    same bits; residuals must
    stay below 1e-5. ``solve_mode="auto"`` must pick w2 on the fresh factor
    and classic once the reported free memory leaves no room for W2. Also a
@@ -87,16 +91,17 @@
 5. Forest: the 512-block forest through ``cholsol`` with
    ``solve_mode="classic"`` and ``factor_kind=SUPERNODAL_LL`` (its
    flops per nonzero of L, 28.6, sit below the automatic supernodal switch
-   of 40); K7, K3 and K4 must launch, residual below 1e-5. Then the forest
-   factored once more through ``factorize`` (reusing the kernel phase's
-   analysis) and solved by the classic sweep at 64 right-hand sides: K4
+   of 40); K3 and K4 must launch, and K7 once a group with pair classes,
+   residual below 1e-5. Then the forest factored once more through
+   ``factorize`` (reusing the kernel phase's analysis; K7 again once a
+   group) and solved by the classic sweep at 64 right-hand sides: K4
    must launch, columns 0 and 63 below 1e-5, x within 1e-4 * max|x| of a
    w2 solve of the same factor.
 6. Refinement: ``solve_refined`` on the model problem, residual below 1e-12.
    Then the model problem factored and solved in fp64
    (``compute_dtype="float64"``): K7's double instance must launch once
-   for every pair class (the fp64 factor runs no tile manifest), residual
-   below 1e-12.
+   for every group with pair classes (114 groups, 800 classes: the fp64
+   factor runs no tile manifest), residual below 1e-12.
 7. Kernel path: the model problem factored with ``tile_pair=True`` (K2b,
    K1 and K7 must launch, K7 as often as in the default factor, L within
    1e-5 * max|L| of the default factor's), then
@@ -134,6 +139,7 @@ NRHS = 64
 NRHS_K = 8         # right-hand sides of the w2 kernel routes (K5, K6)
 K7_GROUP = (114, 224)   # (B, R) of the factor's slowest placement group
 K7_CLASSES = ((75, 128), (15, 168), (59, 64))   # its (npairs, RU) classes
+K7_F64_GROUP = 3912     # R of the fp64 factor's largest tile group
 # (B, R, classes) of K2 and K2b off the plan, each class (npairs, RU_c) of
 # random children: a manifest of under 10 tiles; R % 4 != 0 (4-byte F
 # traffic); one front that takes 5 children, so its tiles have runs of 5
@@ -730,26 +736,104 @@ def w2_kernels(dp, dev, rng):
     return rec
 
 
+def _k7_group_row(rec, name, g, work, dp, dev, rng, dtype, tol, label):
+    """K7's group form (one launch for all classes of ``work``, the
+    factor's call) against its plain version, two calls bit-equal and
+    equal bit for bit to the same kernel launched one class at a time;
+    timed beside the plain version and the library scatter, class by
+    class (``extend_add_library``, one call a class)."""
+    import torch
+
+    from suitesparse_tpu_torch.kernels.extend_add import (
+        build_work, class_maps, extend_add, extend_add_group,
+        extend_add_group_plain, extend_add_library, group_work)
+    from suitesparse_tpu_torch.numeric.supernodal_device import k7_classes
+
+    B, R = g.B, g.R
+    Us = []
+    for key, (RU, *_rest) in zip(work.keys, work.meta):
+        B_c = dp.plan.groups[key[0]][key[1]].B
+        Us.append(torch.as_tensor(rng.standard_normal((B_c, RU, RU)),
+                                  device=dev).to(dtype))
+    F0 = torch.as_tensor(rng.standard_normal((B, R, R)), device=dev).to(dtype)
+    maps = [class_maps(work, c) for c in range(len(Us))]
+    counter = "fp64_launches" if dtype == torch.float64 else "launches"
+    before = getattr(extend_add, counter)
+    Fk = extend_add_group(F0.clone(), Us, work)
+    assert getattr(extend_add, counter) == before + len(work.parts)
+    Fk2 = extend_add_group(F0.clone(), Us, work)
+    Fc = F0.clone()
+    for U, (idx, dst, src) in zip(Us, maps):
+        extend_add(Fc, U, idx, dst, src)
+    Fp = extend_add_group_plain(F0.clone(), Us, work)
+    Fl = torch.cat([F0.reshape(-1), F0.new_zeros(1)])
+    for U, (idx, dst, src) in zip(Us, maps):
+        extend_add_library(Fl, U, idx, dst, R, src)
+    torch.cuda.synchronize()
+    assert torch.equal(Fk, Fk2), f"{name} {label}: two calls differ"
+    assert torch.equal(Fk, Fc), \
+        f"{name} {label}: the group form differs from one launch a class"
+    d, e = _rel_err(Fk, Fp)
+    e_lib = _rel_err(Fl[:-1].view(B, R, R), Fp)[1]
+    assert e_lib <= tol, f"library disagrees with plain: {e_lib}"
+    itemsize = F0.element_size()
+    assert len(work.keys) == len(g.pairs)   # all the group's classes
+    nbytes, adds = group_work(build_work(B, R, k7_classes(g)), itemsize)
+
+    def library(F):
+        for U, (idx, dst, src) in zip(Us, maps):
+            extend_add_library(F, U, idx, dst, R, src)
+
+    _record(
+        rec, name,
+        f"{label} (B,R)=({B},{R}) classes={len(Us)} "
+        f"RU_c={sorted({int(m[0]) for m in work.meta})} band={work.geom.rows} "
+        f"blocks={sum(p[2].numel() for p in work.parts)} cells={adds:.0f} "
+        f"group form, two calls bit-equal, equal to one launch a class",
+        e, d,
+        _cuda_ms(lambda F: extend_add_group(F, Us, work), 10,
+                 setup=lambda: (F0.clone(),)),
+        _cuda_ms(lambda F: extend_add_group_plain(F, Us, work), 3,
+                 setup=lambda: (F0.clone(),)),
+        nbytes, adds,
+        library_ms=_cuda_ms(library, 3, setup=lambda: (Fl.clone(),)),
+        tol=tol, flop_s=FP64_FLOP_S if itemsize == 8 else FP32_FLOP_S)
+
+
 def extend_add_kernel(dp, dev, rng):
-    """K7 against its plain version on the K7_CLASSES pair classes of the
-    factor's (B, R) = K7_GROUP group, with their real row maps and
-    destinations: in the factor's form (each pair reads its child out of
-    the source group's whole update block through ``src``), fp32 and fp64,
-    two calls bit-equal; then padded by ``pad_pairs`` with the children
-    gathered, as the reference's kernel takes them. The library call is
-    ``extend_add_library`` (one ``index_put_(accumulate=True)``) on the
-    same inputs; beside the padded form it is not timed again."""
+    """K7 in the group form the factor launches (``extend_add_group``, one
+    launch a group) on the K7_GROUP group's work list, fp32 and fp64, and
+    on the fp64 factor's largest tile group (``K7_F64_GROUP``); then the
+    one-class form on the K7_CLASSES pair classes of K7_GROUP, with their
+    real row maps and destinations: in the factor's form (each pair reads
+    its child out of the source group's whole update block through
+    ``src``), fp32 and fp64, two calls bit-equal; then padded by
+    ``pad_pairs`` with the children gathered, as the reference's kernel
+    takes them. The library call is ``extend_add_library`` (one
+    ``index_put_(accumulate=True)`` a class) on the same inputs; beside the
+    padded form it is not timed again."""
     import torch
 
     from suitesparse_tpu_torch.kernels.extend_add import (
         class_work, extend_add, extend_add_library, extend_add_plain,
         pad_pairs)
 
-    (g,) = [g for gl in dp.plan.groups for g in gl
-            if (g.B, g.R) == K7_GROUP]
+    walk = [(g, ix) for gl, il in zip(dp.plan.groups, dp.groups)
+            for g, ix in zip(gl, il)]
+    ((g, ix),) = [(g, ix) for g, ix in walk if (g.B, g.R) == K7_GROUP]
+    g64, ix64 = max(((g, ix) for g, ix in walk if g._tile is not None),
+                    key=lambda gi: gi[0].R)
+    assert g64.R == K7_F64_GROUP, (g64.B, g64.R)
+    rec: dict = {}
+    for name, dtype, tol in (("extend_add", torch.float32, K567_TOL),
+                             ("extend_add_f64", torch.float64, K7_F64_TOL)):
+        _k7_group_row(rec, name, g, ix.k7, dp, dev, rng, dtype, tol,
+                      "factor group")
+    _k7_group_row(rec, "extend_add_f64", g64, ix64.k7_all, dp, dev, rng,
+                  torch.float64, K7_F64_TOL,
+                  "fp64 factor's largest tile group")
     B, R = g.B, g.R
     shapes = [(pc.npairs, pc.RU_c) for pc in g.pairs]
-    rec: dict = {}
     for ci in [shapes.index(c) for c in K7_CLASSES]:
         pc = g.pairs[ci]
         src, dst, idx = g._pair_arrays[ci]
@@ -778,8 +862,8 @@ def extend_add_kernel(dp, dev, rng):
             nbytes, adds = class_work(R, idx, dst, itemsize, src)
             _record(
                 rec, name,
-                f"(B,R)=({B},{R}) (np,RU)=({npairs},{RU}) B_c={B_c} src "
-                f"form, two calls bit-equal",
+                f"one class (B,R)=({B},{R}) (np,RU)=({npairs},{RU}) "
+                f"B_c={B_c} src form, two calls bit-equal",
                 e, d,
                 _cuda_ms(lambda F: extend_add(F, U, it, dt, st), 10,
                          setup=lambda: (F0.clone(),)),
@@ -808,7 +892,8 @@ def extend_add_kernel(dp, dev, rng):
         d, e = _rel_err(Fk, Fp)
         _record(
             rec, "extend_add",
-            f"(B,R)=({B},{R}) (np,RU)=({npairs},{RU}) padded np={dstf.size}",
+            f"one class (B,R)=({B},{R}) (np,RU)=({npairs},{RU}) padded "
+            f"np={dstf.size}",
             e, d,
             _cuda_ms(lambda F: extend_add(F, ch, it, dt), 10,
                      setup=lambda: (F0.clone(),)),
@@ -816,6 +901,15 @@ def extend_add_kernel(dp, dev, rng):
                      setup=lambda: (F0.clone(),)),
             *class_work(R, idxf, dstf), tol=K567_TOL)
     return rec
+
+
+def k7_launches(dp, dtype: str) -> int:
+    """K7 launches of one factor on ``dp``: one a part of each group's work
+    list (fp32: the classes no manifest folds; fp64: all), one a group
+    with K7 classes on these plans."""
+    attr = "k7" if dtype == "float32" else "k7_all"
+    return sum(len(getattr(ix, attr).parts) for il in dp.groups for ix in il
+               if getattr(ix, attr) is not None)
 
 
 def small_check(dev):
@@ -976,10 +1070,11 @@ def main() -> int:
     small_check(dev)
     # pair classes of the plan, and those no tile manifest folds: the fp32
     # factor places the latter through K7, the fp64 factor (which runs no
-    # manifest) all of them
+    # manifest) all of them, one launch a group with such classes
     n_classes = sum(len(g.pairs) for g in groups)
     n_unfolded = n_classes - sum(len(g._tile.folded) for g in groups
                                  if g._tile is not None)
+    n_k7, n_k7_f64 = k7_launches(dp, "float32"), k7_launches(dp, "float64")
 
     # ---- main path, through the package's entry points ----
     zero_counts()
@@ -991,13 +1086,14 @@ def main() -> int:
     assert F.ok, f"factorization failed at column {F.minor}"
     assert factor_launches["potrf_trsm"] == len(K1_GROUPS) and \
         factor_launches["extend_add_tiles"] > 0 and \
-        factor_launches["extend_add"] == n_unfolded and \
+        factor_launches["extend_add"] == n_k7 and \
         factor_launches["extend_add_f64"] == 0, factor_launches
     F2 = sstt.factorize(A, Ssim, cfg, device="cuda")
     same = torch.equal(F.F.Lx, F2.F.Lx)
     print(f"factor: {n_unfolded} of the plan's {n_classes} pair classes "
-          f"through K7, launches={factor_launches}; a second factor equals "
-          f"the first bit for bit: {same}", flush=True)
+          f"through K7 in {n_k7} launches (one a group), "
+          f"launches={factor_launches}; a second factor equals the first "
+          f"bit for bit: {same}", flush=True)
     assert same, "two factors of the model problem differ"
     del F2
     auto_fallback(F)
@@ -1037,7 +1133,8 @@ def main() -> int:
     torch.cuda.synchronize()
     forest_s = time.perf_counter() - t0
     forest_launches = counts()
-    assert forest_launches["extend_add"] > 0 and \
+    n_k7_forest = k7_launches(dpf, "float32")
+    assert forest_launches["extend_add"] == n_k7_forest > 0 and \
         forest_launches["batched_trisolve"] > 0 and \
         forest_launches["solve_step_fwd"] > 0 and \
         forest_launches["solve_step_bwd"] > 0, forest_launches
@@ -1045,8 +1142,11 @@ def main() -> int:
     assert np.isfinite(xf).all() and fresid < RESID_TOL, fresid
 
     # ---- forest at 64 right-hand sides, classic sweep (K4 at NR 64) ----
+    zero_counts()
     Ff = sstt.factorize(Af, Ssf, forest_cfg, device="cuda")
+    torch.cuda.synchronize()
     assert Ff.ok, f"forest factorization failed at column {Ff.minor}"
+    assert counts()["extend_add"] == n_k7_forest, counts()
     Bf64 = np.tile(bf.reshape(-1, 1), (1, NRHS)) * \
         (1.0 + np.arange(NRHS) / NRHS)
     zero_counts()
@@ -1087,7 +1187,7 @@ def main() -> int:
     f64_launches = counts()
     assert F64.ok, f"fp64 factorization failed at column {F64.minor}"
     assert F64.F.Lx.dtype == torch.float64
-    assert f64_launches["extend_add_f64"] == n_classes and \
+    assert f64_launches["extend_add_f64"] == n_k7_f64 and \
         f64_launches["extend_add"] == 0, f64_launches
     x_f64 = sstt.solve(F64, b, cfg64)
     f64_resid = sstt.residual_norm(A, x_f64, b)
@@ -1110,7 +1210,7 @@ def main() -> int:
     assert Fk.ok, f"two-piece factorization failed at column {Fk.minor}"
     assert pair_launches["extend_add_tiles_pair"] > 0 and \
         pair_launches["potrf_trsm"] == len(K1_GROUPS) and \
-        pair_launches["extend_add"] == n_unfolded and \
+        pair_launches["extend_add"] == k7_launches(dpp, "float32") and \
         pair_launches["extend_add_tiles"] == 0, pair_launches
     lx = F.F.Lx
     pair_lx_err = ((Fk.F.Lx - lx).abs().max() / lx.abs().max()).item()

@@ -48,8 +48,12 @@ _SIGNATURES = {
     # the same, two pieces per step
     "sst_extend_add_tiles_pair": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
                                   _i, _i, _vp],
-    # F, U, idx, dst, src (or null), np, B, R, RU, fp64; stream
-    "sst_extend_add": [_vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _vp],
+    # F, host array of the classes' U, host array of their (RU, first
+    # pair, npairs, first idx entry), ncls, idx, dst, src (or null), blocks
+    # (or null), nblocks, B, R, then extend_add_geometry's rows and warps,
+    # fp64; stream
+    "sst_extend_add": [_vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
+                       _i, _i, _vp],
     # M, X, Z, B, I, J, NR, transpose, then bmv_geometry's epb, split,
     # part, chunk, stages, xsmem, smem; stream
     "sst_bmatvec": [_vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i, _i, _i,

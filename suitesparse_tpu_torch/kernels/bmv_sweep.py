@@ -34,13 +34,14 @@ L2_FLUSH_BYTES = 64 << 20   # more than the H100's 50 MB L2 cache
 SPIN_CYCLES = 2_000_000     # about 1 ms of device spin before each call
 
 
-def _device_ms(fn, flush: torch.Tensor) -> float:
-    """Mean device milliseconds of fn() over REPS calls, after a warm one."""
+def _device_ms(fn, flush: torch.Tensor, reps: int = REPS) -> float:
+    """Mean device milliseconds of fn() over ``reps`` calls, after a warm
+    one."""
     fn()
     total = 0.0
     gc.disable()
     try:
-        for _ in range(REPS):
+        for _ in range(reps):
             flush.zero_()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -52,7 +53,7 @@ def _device_ms(fn, flush: torch.Tensor) -> float:
             total += start.elapsed_time(end)
     finally:
         gc.enable()
-    return total / REPS
+    return total / reps
 
 
 def main() -> int:

@@ -12,108 +12,276 @@
 // where it lies, so no gathered copy is made. Without src, child_p is
 // U[p]. F is updated in place (the TPU kernel returned F + the
 // contribution). float and double instances, as the TPU kernel took any
-// dtype.
+// dtype. One launch places up to kMaxClasses pair classes of a group (each
+// with its own U and RU), in their order: the factor launches once a group.
 //
 // What bounds it on the H100: bytes. Each valid child cell is read once and
-// added into one parent cell, one flop per 4-24 bytes. The TPU kernel placed
-// rows, transposed and placed rows again through VMEM scratch, one grid
-// step per pair; here one block owns one destination slot and walks that
-// slot's run of pairs in order (the run is found by binary search in the
-// sorted dst, so no host pass is needed). For each pair the block stages the
-// row map in shared memory and its threads take consecutive child cells
-// (coalesced reads), each adding its cell straight into F; consecutive
-// child columns land on increasing parent columns, since the maps are
-// sorted. One pair's destinations are distinct and a slot belongs to one
-// block, so no atomics are needed: a barrier between pairs orders the adds
-// of two pairs that hit the same cell, and two runs give the same bits.
+// added into one parent cell, one add per 12-24 bytes. The TPU kernel
+// placed rows, transposed and placed rows again through VMEM scratch, one
+// grid step per pair, in order on one core. The first port gave each
+// destination slot one block that walked the slot's pairs one after
+// another. In the fp64 factor, where no tile manifest runs, the tile
+// groups' classes have 1-51 slots, most of them one busy slot, and pairs
+// of up to 2624 x 2624 cells: one block on one SM walked all of it, and the
+// placement took 321 ms of the factor's 361 ms of device time.
+//
+// Here each slot's R parent rows are cut into bands, one block a (slot,
+// band), and each warp of the block owns rows / kWarps neighbouring parent
+// rows of the band. The plan lists only the bands that some child row
+// reaches, the heaviest first. A warp walks the classes, and each class's
+// pairs into its slot, in order; the pairs' row maps hold their valid rows
+// first, strictly increasing, then -1, so the child rows that land on the
+// warp's parent rows are one contiguous range, found by a warp-wide search
+// (32 probes a round, a ballot). The warp takes those child rows one at a
+// time, its lanes over the child's valid columns: child loads are 16 bytes
+// a lane where RU and the pointers allow, and F's read-modify-writes run
+// over increasing parent columns. A cell belongs to one warp, which adds
+// its children in class and pair order (a __syncwarp orders the lanes'
+// adds of two pairs), so there are no atomics, no block barrier, no shared
+// memory, and the bits are those of the one-block-a-slot walk, of one
+// launch a class, and of every rerun. The grid reaches all SMs even where a
+// group has one busy slot; the band height is the plan's
+// (kernels/extend_add.py: extend_add_geometry), checked here.
 
-#include <atomic>
+#include <cstdint>
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr size_t kDefaultSmem = 48 << 10;  // admitted without an attribute
-constexpr size_t kMaxSmem = 232448;        // 227 KB, the most a block can take
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kMaxClasses = 32;
 
-__device__ inline int lower_bound(const int* __restrict__ a, int n, int v) {
+// The classes of one launch, passed by value: no copy to the device a call
+template <typename T>
+struct Work {
+  const T* U[kMaxClasses];  // class c's child blocks (., RU, RU)
+  int ru[kMaxClasses];
+  int pair0[kMaxClasses];   // its first pair in dst and src
+  int np[kMaxClasses];
+  int idx0[kMaxClasses];    // its first map entry in idx
+  int vec[kMaxClasses];     // 16-byte child and map loads
+};
+
+// 16-byte loads of a child row and its map; at() takes a component (k is
+// a constant of an unrolled loop, so no vector goes through local memory)
+template <typename T> struct Vec;
+template <> struct Vec<float> {
+  using type = float4;
+  using map = int4;
+  static constexpr int n = 4;
+  static __device__ __forceinline__ int4 none() {
+    return make_int4(-1, -1, -1, -1);
+  }
+  template <typename V>
+  static __device__ __forceinline__ auto at(const V& v, int k) {
+    return k == 0 ? v.x : k == 1 ? v.y : k == 2 ? v.z : v.w;
+  }
+};
+template <> struct Vec<double> {
+  using type = double2;
+  using map = int2;
+  static constexpr int n = 2;
+  static __device__ __forceinline__ int2 none() { return make_int2(-1, -1); }
+  template <typename V>
+  static __device__ __forceinline__ auto at(const V& v, int k) {
+    return k == 0 ? v.x : v.y;
+  }
+};
+
+// The first position of [lo, hi) where pred turns false (pred holds on a
+// prefix), found by the whole warp: 32 probes a round, a ballot, so a map
+// of 2624 rows takes 3 rounds
+template <typename Pred>
+__device__ __forceinline__ int warp_partition(int lo, int hi, int lane,
+                                              Pred pred) {
+  while (hi - lo > 32) {
+    const int step = (hi - lo + 31) >> 5;
+    const int q = lo + (lane + 1) * step - 1;
+    const int n = __popc(__ballot_sync(~0u, q < hi && pred(q)));
+    hi = min(hi, lo + (n + 1) * step - 1);
+    lo += n * step;
+  }
+  const int q = lo + lane;
+  return lo + __popc(__ballot_sync(~0u, q < hi && pred(q)));
+}
+
+// One lane's binary search: the first position of a[0, n) not below v
+__device__ __forceinline__ int lower_bound(const int* __restrict__ a, int n,
+                                           int v) {
   int lo = 0, hi = n;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
-    if (a[mid] < v) lo = mid + 1; else hi = mid;
+    if (__ldg(a + mid) < v) lo = mid + 1; else hi = mid;
   }
   return lo;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-extend_add_kernel(T* __restrict__ F, const T* __restrict__ U,
-                  const int* __restrict__ idx, const int* __restrict__ dst,
-                  const int* __restrict__ src, int np, int R, int RU) {
-  extern __shared__ int map[];  // RU: the pair's row map
-  const int slot = blockIdx.x;
-  const int t = threadIdx.x;
-  const int p0 = lower_bound(dst, np, slot);
-  const int p1 = lower_bound(dst, np, slot + 1);
-  T* Fs = F + (size_t)slot * R * R;
-  const int cells = RU * RU;
-  for (int p = p0; p < p1; ++p) {
-    __syncthreads();  // the previous pair's adds and map reads are done
-    for (int i = t; i < RU; i += kThreads) map[i] = idx[(size_t)p * RU + i];
-    __syncthreads();
-    const T* Cp = U + (size_t)(src ? src[p] : p) * cells;
-    for (int e = t; e < cells; e += kThreads) {
-      const int i = e / RU;
-      const int r = map[i];
-      const int c = map[e - i * RU];
-      if (r >= 0 && c >= 0) Fs[(size_t)r * R + c] += Cp[e];
+// Child rows [i0, i1) of one pair, each over its valid columns [0, nv):
+// F[m[i], m[j]] += C[i, j]. A lane takes K = 8 cells a step (two float4 or
+// four double2 child loads and their maps, or eight scalar ones), reads
+// their F cells, then adds and stores: the cells of one row are distinct,
+// so the loads need not wait for the stores.
+template <typename T, bool kVec>
+__device__ __forceinline__ void add_rows(T* __restrict__ Fs, int R,
+                                         const T* __restrict__ C,
+                                         const int* __restrict__ m, int ru,
+                                         int i0, int i1, int nv, int lane) {
+  constexpr int V = kVec ? Vec<T>::n : 1;
+  constexpr int K = 8;
+  constexpr int S = K / V;        // column steps of the warp a lane step
+  for (int i = i0; i < i1; ++i) {
+    T* Fr = Fs + (size_t)__ldg(m + i) * R;
+    const T* Cr = C + (size_t)i * ru;
+    for (int j0 = lane * V; j0 < nv; j0 += 32 * K) {
+      T x[K];
+      int c[K];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int j = j0 + s * 32 * V;
+        if constexpr (kVec) {
+          using VT = typename Vec<T>::type;
+          using VI = typename Vec<T>::map;
+          VT xv = {};
+          VI cv = Vec<T>::none();
+          if (j < nv) {
+            xv = __ldg(reinterpret_cast<const VT*>(Cr + j));
+            cv = __ldg(reinterpret_cast<const VI*>(m + j));
+          }
+#pragma unroll
+          for (int k = 0; k < V; ++k) {
+            x[s * V + k] = Vec<T>::at(xv, k);
+            c[s * V + k] = Vec<T>::at(cv, k);
+          }
+        } else {
+          x[s] = j < nv ? __ldg(Cr + j) : T(0);
+          c[s] = j < nv ? __ldg(m + j) : -1;
+        }
+      }
+      T f[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) f[k] = c[k] >= 0 ? Fr[c[k]] : T(0);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (c[k] >= 0) Fr[c[k]] = f[k] + x[k];
     }
   }
 }
 
-// Maps above the default 48 KB (RU > 12288) need the attribute, which is
-// set once for each instance and device, to the card's most
 template <typename T>
-cudaError_t allow_smem(size_t smem) {
-  if (smem <= kDefaultSmem) return cudaSuccess;
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  static std::atomic<unsigned> done{0};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned bit = dev < 32 ? 1u << dev : 0u;
-  if (bit && (done.load(std::memory_order_acquire) & bit)) return cudaSuccess;
-  err = cudaFuncSetAttribute(extend_add_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)kMaxSmem);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_release);
-  return err;
+__global__ void __launch_bounds__(kThreads)
+extend_add_kernel(T* __restrict__ F, const __grid_constant__ Work<T> w,
+                  int ncls, const int* __restrict__ idx,
+                  const int* __restrict__ dst, const int* __restrict__ src,
+                  const int* __restrict__ blocks, int R, int rows,
+                  int nbands) {
+  const int b = blocks ? __ldg(blocks + blockIdx.x) : (int)blockIdx.x;
+  const int slot = b / nbands;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int h = rows / kWarps;
+  const int r0 = (b - slot * nbands) * rows + warp * h;
+  if (r0 >= R) return;  // the whole warp; the kernel has no block barrier
+  const int r1 = min(r0 + h, R);
+  T* Fs = F + (size_t)slot * R * R;
+  // lane c finds class c's run of pairs into this slot
+  int q0 = 0, q1 = 0;
+  if (lane < ncls) {
+    const int* d = dst + w.pair0[lane];
+    q0 = lower_bound(d, w.np[lane], slot);
+    q1 = q0 + lower_bound(d + q0, w.np[lane] - q0, slot + 1);
+  }
+  for (int c = 0; c < ncls; ++c) {
+    const int p0 = __shfl_sync(~0u, q0, c);
+    const int p1 = __shfl_sync(~0u, q1, c);
+    if (p0 == p1) continue;
+    const int ru = w.ru[c];
+    const int* mc = idx + w.idx0[c];
+    const int* sc = src ? src + w.pair0[c] : nullptr;
+    const bool vec = w.vec[c];
+    for (int p = p0; p < p1; ++p) {
+      const int* m = mc + (size_t)p * ru;
+      // valid rows first and increasing: the child rows on parent rows
+      // [r0, r1) are [i0, i1), and the valid ones [0, nv)
+      const int i0 = warp_partition(0, ru, lane, [=](int i) {
+        const int v = __ldg(m + i);
+        return v >= 0 && v < r0;
+      });
+      const int i1 = warp_partition(i0, ru, lane, [=](int i) {
+        const int v = __ldg(m + i);
+        return v >= 0 && v < r1;
+      });
+      if (i0 == i1) continue;
+      const int nv = warp_partition(i1, ru, lane,
+                                    [=](int i) { return __ldg(m + i) >= 0; });
+      const T* C = w.U[c] + (size_t)(sc ? __ldg(sc + p) : p) * ru * ru;
+      if (vec)
+        add_rows<T, true>(Fs, R, C, m, ru, i0, i1, nv, lane);
+      else
+        add_rows<T, false>(Fs, R, C, m, ru, i0, i1, nv, lane);
+      __syncwarp();  // this pair's adds land before the next pair's reads
+    }
+  }
 }
 
 template <typename T>
-int launch(void* F, const void* U, const void* idx, const void* dst,
-           const void* src, int np, int B, int R, int RU,
+int launch(void* F, const void* const* U, const int* meta, int ncls,
+           const void* idx, const void* dst, const void* src,
+           const void* blocks, int nblocks, int R, int rows, int nbands,
            cudaStream_t stream) {
-  const size_t smem = sizeof(int) * RU;
-  const cudaError_t err = allow_smem<T>(smem);
-  if (err != cudaSuccess) return (int)err;
-  extend_add_kernel<T><<<B, kThreads, smem, stream>>>(
-      (T*)F, (const T*)U, (const int*)idx, (const int*)dst, (const int*)src,
-      np, R, RU);
+  constexpr int V = Vec<T>::n;
+  Work<T> w = {};
+  const bool idx_al = (uintptr_t)idx % 16 == 0;
+  for (int c = 0; c < ncls; ++c) {
+    const int* mt = meta + 4 * c;
+    w.U[c] = (const T*)U[c];
+    w.ru[c] = mt[0];
+    w.pair0[c] = mt[1];
+    w.np[c] = mt[2];
+    w.idx0[c] = mt[3];
+    w.vec[c] = idx_al && mt[0] % V == 0 && mt[3] % V == 0 &&
+               (uintptr_t)U[c] % 16 == 0;
+  }
+  extend_add_kernel<T><<<nblocks, kThreads, 0, stream>>>(
+      (T*)F, w, ncls, (const int*)idx, (const int*)dst, (const int*)src,
+      (const int*)blocks, R, rows, nbands);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// src may be null (pair p reads U[p]); fp64 = 0 for float, 1 for double
-extern "C" int sst_extend_add(void* F, const void* U, const void* idx,
-                              const void* dst, const void* src, int np, int B,
-                              int R, int RU, int fp64, void* stream) {
-  if (np < 0 || B < 0 || R < 1 || RU < 0 || (fp64 != 0 && fp64 != 1))
+// U: a host array of ncls device pointers; meta: a host array of ncls rows
+// (RU, first pair, npairs, first idx entry); src may be null (pair p of a
+// class reads its U[p]); blocks null: block b is (slot, band) = (b /
+// nbands, b % nbands) for all B * nbands of them, else blocks[b] = slot *
+// nbands + band; rows and warps from extend_add_geometry; fp64 = 0 for
+// float, 1 for double
+extern "C" int sst_extend_add(void* F, const void* const* U, const int* meta,
+                              int ncls, const void* idx, const void* dst,
+                              const void* src, const void* blocks,
+                              int nblocks, int B, int R, int rows, int warps,
+                              int fp64, void* stream) {
+  const int h = rows / kWarps;
+  if (ncls < 1 || ncls > kMaxClasses || nblocks < 0 || B < 1 || R < 1 ||
+      warps != kWarps || rows % kWarps != 0 ||
+      (h != 1 && h != 2 && h != 4) || (fp64 != 0 && fp64 != 1) ||
+      !U || !meta || !idx || !dst)
     return (int)cudaErrorInvalidValue;
-  if (np == 0 || B == 0 || RU == 0) return 0;
+  const int nbands = (R + rows - 1) / rows;
+  if ((long long)B * nbands >= (1LL << 31) ||
+      (!blocks && nblocks != B * nbands))
+    return (int)cudaErrorInvalidValue;
+  for (int c = 0; c < ncls; ++c) {
+    const int* mt = meta + 4 * c;
+    if (mt[0] < 1 || mt[1] < 0 || mt[2] < 0 || mt[3] < 0 ||
+        (mt[2] > 0 && !U[c]))
+      return (int)cudaErrorInvalidValue;
+  }
+  if (nblocks == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
-  return fp64 ? launch<double>(F, U, idx, dst, src, np, B, R, RU, s)
-              : launch<float>(F, U, idx, dst, src, np, B, R, RU, s);
+  return fp64 ? launch<double>(F, U, meta, ncls, idx, dst, src, blocks,
+                               nblocks, R, rows, nbands, s)
+              : launch<float>(F, U, meta, ncls, idx, dst, src, blocks,
+                              nblocks, R, rows, nbands, s);
 }

@@ -1,25 +1,36 @@
-"""Time K7 at every pair class that the factor places through it, on one
-card.
+"""Time K7 at every group and every pair class that the factor places
+through it, on one card.
 
-    python3 -m suitesparse_tpu_torch.kernels.extend_add_sweep
+    python3 -m suitesparse_tpu_torch.kernels.extend_add_sweep [--quick]
 
 Plan: the n = 125k model plan (``laplacian_3d(50)``, METIS ordering,
-default tile threshold), whose fp32 factor places through K7 each pair
-class that no tile manifest folds (381 classes). For each, in plan order,
-on random fronts and a random source update block made on the card from
-seed 0, in the factor's form (``src``): K7 held against
-``extend_add_plain`` (1e-5 of the largest entry), then timed beside its
-bound (``class_work`` at 3.35 TB/s) and beside ``extend_add_library``
-(one ``index_put_(accumulate=True)``, the placement the factor made
-before K7). The sums over the classes are the per-factor figures.
+default tile threshold). The factor launches K7 once a group with classes
+to place: in fp32 the classes no tile manifest folds (381 classes in 41
+groups), in fp64 every class (800 in 114 groups). Each group's work list
+(``build_work``, as the factor builds it) on random fronts and random
+source update blocks made on the card from seed 0: the group form
+(``extend_add_group``) held against ``extend_add_group_plain`` (1e-5 of
+the largest entry in fp32, 1e-12 in fp64), then timed beside its band
+height, its summed bound (``class_work`` of each class at 3.35 TB/s) and
+``extend_add_library`` (one ``index_put_(accumulate=True)`` a class,
+the placement the factor made before K7, summed over the group's
+classes). The sums over the groups are the per-factor figures. On the ten
+groups of each dtype with the most child cells, every band height of
+``BANDS`` is timed beside the plan's pick. ``--quick`` stops there and
+leaves out the library calls.
+
+Then each of the 381 fp32 classes alone, in the factor's form (``src``),
+through the one-class form ``extend_add`` (the factor's launch before the
+group form), beside its bound and the library call.
 
 Times as the other sweeps take them (``bmv_sweep._device_ms``): device
-milliseconds, the mean of 20 calls, the L2 cache flushed and a spin kernel
-queued before each, Python's garbage collector held off. After the card's
-name and power limit it prints the sums, the spread of K7's time over its
-bound, the sums by batch size B (one block a slot: a class of B slots
-fills B of the card's 132 SMs) and the 20 slowest classes; every class's
-line goes to ``prof_out/extend_add_classes.txt`` in the checkout.
+milliseconds, the mean of 20 calls (the library's: 3), the L2 cache
+flushed and a spin kernel queued before each, Python's garbage collector
+held off. After the card's name and power limit it prints the per-group
+rows and sums for each dtype, the band heights, the per-class sums and
+the 20 slowest classes; every class's line goes to
+``prof_out/extend_add_classes.txt`` and every group's to
+``prof_out/extend_add_groups.txt`` in the checkout.
 """
 
 from __future__ import annotations
@@ -33,11 +44,14 @@ import torch
 
 from ..prof import OUT_DIR
 from .bmv_sweep import L2_FLUSH_BYTES, _device_ms
-from .extend_add import class_work, extend_add, extend_add_library, \
-    extend_add_plain
+from .extend_add import BANDS, build_work, class_maps, class_work, \
+    extend_add, extend_add_group, extend_add_group_plain, \
+    extend_add_library, extend_add_plain
 
-TOL = 1e-5
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 HBM_BYTES_S = 3.35e12         # H100 SXM device memory rate
+LIB_REPS = 3                  # the library scatter takes up to seconds a group
+TOP = 10                      # groups a dtype whose band heights are timed
 
 
 def unfolded_classes(plan):
@@ -49,6 +63,83 @@ def unfolded_classes(plan):
             folded = set(g._tile.folded) if g._tile is not None else set()
             out += [(g, ci) for ci in range(len(g.pairs)) if ci not in folded]
     return out
+
+
+def group_works(plan, dtype):
+    """(group, its classes, its host work list) of each group the factor
+    launches K7 on in ``dtype``, in plan order."""
+    from ..numeric.supernodal_device import k7_classes
+
+    out = []
+    for gl in plan.groups:
+        for g in gl:
+            skip = set(g._tile.folded) if g._tile is not None \
+                and dtype == torch.float32 else ()
+            classes = k7_classes(g, skip)
+            if classes:
+                out.append((g, classes, build_work(g.B, g.R, classes)))
+    return out
+
+
+def _blocks(plan, work, gen, dev, dtype):
+    """Random fronts and source update blocks for ``work``."""
+    F = torch.randn(work.B, work.R, work.R, generator=gen, device=dev,
+                    dtype=dtype)
+    Us = [torch.randn(plan.groups[k[0]][k[1]].B, int(RU), int(RU),
+                      generator=gen, device=dev, dtype=dtype)
+          for k, (RU, *_r) in zip(work.keys, work.meta)]
+    return F, Us
+
+
+def sweep_groups(plan, dtype, gen, dev, flush, library=True):
+    """The per-group table of one dtype (without the library call's times
+    where ``library`` is false); returns its rows."""
+    itemsize = torch.finfo(dtype).bits // 8
+    rows = []
+    for g, classes, host in group_works(plan, dtype):
+        work = host.to(dev)
+        F, Us = _blocks(plan, work, gen, dev, dtype)
+        got = extend_add_group(F.clone(), Us, work)
+        ref = extend_add_group_plain(F.clone(), Us, work)
+        torch.cuda.synchronize()
+        err = ((got - ref).abs().max() / ref.abs().max()).item()
+        assert err <= TOL[dtype], (g.B, g.R, err)
+        k7 = _device_ms(lambda: extend_add_group(F, Us, work), flush)
+        Fbuf = torch.cat([F.reshape(-1), F.new_zeros(1)])
+        tmaps = [class_maps(work, c) for c in range(len(Us))]
+
+        def scatter():
+            for U, (idx, dst, src) in zip(Us, tmaps):
+                extend_add_library(Fbuf, U, idx, dst, g.R, src)
+
+        lib = _device_ms(scatter, flush, LIB_REPS) if library else np.nan
+        bound = sum(class_work(g.R, idx, dst, itemsize, src)[0]
+                    for _key, src, dst, idx in classes) / HBM_BYTES_S * 1e3
+        rows.append(dict(
+            g=g, classes=classes, host=host, k7=k7, bound=bound, lib=lib,
+            line=f"(B,R)=({g.B},{g.R}) classes={len(Us)} "
+                 f"band={work.geom.rows} blocks="
+                 f"{sum(p[2].numel() for p in work.parts)} "
+                 f"cells={work.cells} K7={k7:.4f} bound={bound:.5f} "
+                 f"library={lib:.4f} K7/bound={k7 / bound:.1f} "
+                 f"err={err:.1e}"))
+        del F, Us, Fbuf, got, ref
+    return rows
+
+
+def band_heights(plan, rows, dtype, gen, dev, flush):
+    """Every band height of BANDS on the TOP groups with the most cells."""
+    for r in sorted(rows, key=lambda r: -r["host"].cells)[:TOP]:
+        g, host = r["g"], r["host"]
+        F, Us = _blocks(plan, host, gen, dev, dtype)
+        times = []
+        for h in BANDS:
+            w = build_work(g.B, g.R, r["classes"], rows=h).to(dev)
+            ms = _device_ms(lambda: extend_add_group(F, Us, w), flush)
+            times.append(f"{h}={ms:.4f}")
+        print(f"  band heights (B,R)=({g.B},{g.R}) plan={host.geom.rows}: "
+              + " ".join(times), flush=True)
+        del F, Us
 
 
 def main() -> int:
@@ -69,7 +160,31 @@ def main() -> int:
     cfg = sstt.DEFAULT.replace(ordering=sstt.Ordering.METIS)
     S = supernodal.supernodal_symbolic(A, sstt.analyze(A, cfg), cfg)
     plan = build_plan(S, A.symperm(S.perm).transpose())
-    rows, by_b = [], {}
+    quick = "--quick" in sys.argv[1:]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    lines = []
+    for dtype in (torch.float32, torch.float64):
+        rows = sweep_groups(plan, dtype, gen, dev, flush, not quick)
+        name = str(dtype).split(".")[-1]
+        lines += [f"{name} {r['line']}" for r in rows]
+        k7 = np.array([r["k7"] for r in rows])
+        print(f"{name}: {len(rows)} groups, "
+              f"{sum(len(r['host'].keys) for r in rows)} classes, "
+              f"{sum(len(r['host'].parts) for r in rows)} launches: K7 sum="
+              f"{k7.sum():.4f} ms bound sum="
+              f"{sum(r['bound'] for r in rows):.4f} ms library sum="
+              f"{sum(r['lib'] for r in rows):.4f} ms; K7 per group min="
+              f"{k7.min():.4f} median={np.median(k7):.4f} max={k7.max():.4f}",
+              flush=True)
+        for r in sorted(rows, key=lambda r: -r["k7"])[:15]:
+            print(f"  {r['line']}", flush=True)
+        band_heights(plan, rows, dtype, gen, dev, flush)
+    with open(os.path.join(OUT_DIR, "extend_add_groups.txt"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    if quick:
+        return 0
+
+    rows = []
     for g, ci in unfolded_classes(plan):
         pc = g.pairs[ci]
         src, dst, idx = g._pair_arrays[ci]
@@ -82,7 +197,7 @@ def main() -> int:
         ref = extend_add_plain(F.clone(), U, it, dt, st)
         torch.cuda.synchronize()
         err = ((got - ref).abs().max() / ref.abs().max()).item()
-        assert err <= TOL, (g.B, g.R, pc.npairs, pc.RU_c, err)
+        assert err <= TOL[torch.float32], (g.B, g.R, pc.npairs, pc.RU_c, err)
         k7 = _device_ms(lambda: extend_add(F, U, it, dt, st), flush)
         Fbuf = torch.cat([F.reshape(-1), F.new_zeros(1)])
         lib = _device_ms(lambda: extend_add_library(Fbuf, U, it, dt, g.R, st),
@@ -93,23 +208,17 @@ def main() -> int:
                      f"({pc.npairs},{pc.RU_c}) B_c={B_c} cells={adds:.0f} "
                      f"K7={k7:.4f} bound={bound:.5f} library={lib:.4f} "
                      f"K7/bound={k7 / bound:.1f} err={err:.1e}"))
-        s = by_b.setdefault(g.B, [0, 0.0, 0.0])
-        s[0], s[1], s[2] = s[0] + 1, s[1] + k7, s[2] + bound
         del F, U, Fbuf, got, ref
     k7s = np.array([r[0] for r in rows])
     ratio = k7s / np.array([r[1] for r in rows])
-    os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "extend_add_classes.txt"), "w") as f:
         f.write("\n".join(r[3] for r in rows) + "\n")
-    print(f"{len(rows)} classes: K7 sum={k7s.sum():.4f} ms bound sum="
-          f"{sum(r[1] for r in rows):.4f} ms library sum="
+    print(f"{len(rows)} classes one launch each: K7 sum={k7s.sum():.4f} ms "
+          f"bound sum={sum(r[1] for r in rows):.4f} ms library sum="
           f"{sum(r[2] for r in rows):.4f} ms; K7 per class min="
           f"{k7s.min():.4f} median={np.median(k7s):.4f} max={k7s.max():.4f}"
           f"; K7/bound min={ratio.min():.1f} median={np.median(ratio):.1f} "
           f"max={ratio.max():.1f}", flush=True)
-    for B, (n, k7, bound) in sorted(by_b.items()):
-        print(f"B={B}: classes={n} K7 sum={k7:.4f} ms bound sum={bound:.4f}",
-              flush=True)
     for r in sorted(rows, key=lambda r: -r[0])[:20]:
         print(r[3], flush=True)
     return 0

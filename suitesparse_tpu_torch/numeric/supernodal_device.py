@@ -12,11 +12,11 @@ in all), so the two factors compare entry by entry.
 Per group: A's values are scattered into the fronts F; child updates whose
 parent group has a tile manifest are added by the tiled extend-add kernel
 (one piece per manifest step, or two with ``Config.tile_pair``; fp32), the
-other pair classes by the extend-add kernel, one launch a class, each
-reading its children where they lie; the fronts are factored by the
-fused potrf+trsm kernel where its gate passes (B >= 32, C <= 96, fp32) and
-by ``cholesky_ex`` + ``solve_triangular`` elsewhere; the update
-U = F22 - L21 L21^T goes up to the parent group.
+other pair classes by the extend-add kernel, one launch a group for all
+of them, each reading its children where they lie; the fronts are
+factored by the fused potrf+trsm kernel where its gate passes (B >= 32,
+C <= 96, fp32) and by ``cholesky_ex`` + ``solve_triangular`` elsewhere;
+the update U = F22 - L21 L21^T goes up to the parent group.
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ import torch
 
 from ..config import DEFAULT, Config
 from ..device import fp32_precision, resolve_device
-from ..kernels.extend_add import extend_add
+from ..kernels.extend_add import build_work, extend_add_group
 from ..kernels.extend_add_tiles import build_group_manifest, extend_add_tiles, \
     run_ptr
 from ..kernels.potrf import MAX_C, potrf_trsm
@@ -36,7 +36,7 @@ from ..sparse import CSC
 from ..symbolic.supernodes import SupernodalSymbolic
 
 __all__ = ["TILE_RMIN", "Plan", "build_plan", "device_plan",
-           "factorize_device"]
+           "factorize_device", "k7_classes"]
 
 TILE_RMIN = 256     # groups with R >= this assemble through the tile kernel
 
@@ -404,7 +404,9 @@ class GroupArrays:
     asrc: torch.Tensor           # gather into Cdata
     adst: torch.Tensor           # flat destination in the (B*R*R) fronts
     nc: torch.Tensor             # (B, 1, 1) actual column counts
-    pairs: list                  # per class (src, dst, idx) int32
+    k7: object                   # ExtendAddWork of the classes no manifest
+    #                              folds (the fp32 factor's K7), or None
+    k7_all: object               # ExtendAddWork of every class (fp64), or None
     tile: tuple | None           # (man, rowmap, colmap, runs) int32
     uslices: list                # per folded class (k0, src key, RU_c, src)
 
@@ -419,6 +421,13 @@ class DevicePlan:
     solve: object = None         # solve routing, built at the first solve
 
 
+def k7_classes(g: GroupPlan, skip=()) -> list:
+    """The pair classes of ``g`` outside ``skip``, in plan order, as
+    :func:`build_work` takes them: (source key, src, dst, idx)."""
+    return [((pc.src_level, pc.src_gi), *arrays) for ci, (pc, arrays)
+            in enumerate(zip(g.pairs, g._pair_arrays)) if ci not in skip]
+
+
 def _upload(plan: Plan, device: torch.device) -> DevicePlan:
     def t64(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
@@ -427,14 +436,14 @@ def _upload(plan: Plan, device: torch.device) -> DevicePlan:
         return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
                                device=device)
 
+    def k7(g, skip):
+        classes = k7_classes(g, skip)
+        return build_work(g.B, g.R, classes).to(device) if classes else None
+
     groups = []
     for glist in plan.groups:
         row = []
         for g in glist:
-            # the extend-add kernel walks each slot's run of pairs: the plan
-            # orders a class's children by parent slot
-            assert all(np.all(np.diff(dst) >= 0)
-                       for (_s, dst, _i) in g._pair_arrays)
             tm = g._tile
             tile, uslices = None, []
             if tm is not None:
@@ -442,12 +451,12 @@ def _upload(plan: Plan, device: torch.device) -> DevicePlan:
                         t32(g._tile_runs))
                 uslices = [(k0, key, RU_c, t64(src))
                            for (_ci, k0, key, RU_c, src) in tm.uslices]
+            k7_all = k7(g, ())
             row.append(GroupArrays(
                 asrc=t64(g.asrc), adst=t64(g.adst),
                 nc=t64(g.nc).reshape(g.B, 1, 1),
-                pairs=[(t32(s), t32(d), t32(i)) for (s, d, i)
-                       in g._pair_arrays],
-                tile=tile, uslices=uslices))
+                k7=k7(g, set(tm.folded)) if tm is not None else k7_all,
+                k7_all=k7_all, tile=tile, uslices=uslices))
         groups.append(row)
     return DevicePlan(plan=plan, device=device, groups=groups)
 
@@ -489,7 +498,7 @@ def _group_compute(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
         Fbuf[ix.adst] = Cdata[ix.asrc]
     F = Fbuf[:-1].view(B, R, R)
 
-    skip = ()
+    skip, work = (), ix.k7_all
     if ix.tile is not None and dtype == torch.float32:
         tm = g._tile
         Ucat = torch.zeros(max(tm.nslots, 1), tm.RUp, tm.RUp, dtype=dtype,
@@ -497,11 +506,9 @@ def _group_compute(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
         for (k0, key, RU_c, src) in ix.uslices:
             Ucat[k0:k0 + src.numel(), :RU_c, :RU_c] = updates[key][src]
         extend_add_tiles(F, Ucat, *ix.tile)
-        skip = set(tm.folded)
-    for ci, (pc, (src, dst, idx)) in enumerate(zip(g.pairs, ix.pairs)):
-        if ci not in skip:
-            extend_add(F, updates[(pc.src_level, pc.src_gi)], idx, dst,
-                       src=src)
+        skip, work = set(tm.folded), ix.k7
+    if work is not None:
+        extend_add_group(F, [updates[key] for key in work.keys], work)
 
     F11 = F[:, :C, :C]
     F11s = torch.tril(F11) + torch.tril(F11, -1).mT

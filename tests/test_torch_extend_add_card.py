@@ -1,7 +1,10 @@
 """K7 (``csrc/extend_add.cu``) on a CUDA card, in the factor's form (each
 pair reads its child out of the source group's whole update block through
 ``src``): the kernel against its plain version in fp32 and fp64, two calls
-bit-equal, and the wrapper's checks on ``src``. Marked ``card``: they skip
+bit-equal, and the wrapper's checks on ``src``; the group form (one launch
+for several classes, ``extend_add_group``) against its plain version, bit
+for bit equal to one launch a class and to itself cut into launches of
+fewer classes, under every band height. Marked ``card``: they skip
 where no card is found (the check is made inside the fixture, not at
 import). On the card (whose Python needs no JAX: ``--noconftest`` skips
 the JAX set-up of ``tests/conftest.py``):
@@ -13,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from suitesparse_tpu_torch.kernels.extend_add import (extend_add,
-                                                      extend_add_plain)
+from suitesparse_tpu_torch.kernels.extend_add import (
+    BANDS, build_work, class_maps, extend_add, extend_add_group,
+    extend_add_group_plain, extend_add_plain)
 
 pytestmark = pytest.mark.card
 
@@ -83,3 +87,65 @@ def test_wrong_src_raises(dev):
         extend_add(F, U.double(), idx, dst, src)
     with pytest.raises(ValueError):
         extend_add(F.half(), U.half(), idx, dst, src)
+
+
+# (B, R, classes): each class (npairs, RU, B_c); an odd R, classes of odd
+# and even RU into the same slots (RU % 4 != 0 takes the scalar loads);
+# one slot of many rows and a pair of RU 700, as the fp64 tile groups have
+GROUPS = ((6, 101, ((9, 37, 12), (5, 40, 7), (12, 16, 20))),
+          (1, 1000, ((1, 700, 2), (2, 300, 3))))
+
+
+def _group(B, R, classes, dtype, dev, seed, rows=None, max_classes=32):
+    rng = np.random.default_rng(seed)
+    cls, Us = [], []
+    for k, (npairs, RU, B_c) in enumerate(classes):
+        idx = np.full((npairs, RU), -1, np.int32)
+        for p, nv in enumerate(rng.integers(RU // 2, RU + 1, npairs)):
+            idx[p, :nv] = np.sort(rng.choice(R, nv, replace=False))
+        dst = np.sort(rng.integers(0, B, npairs)).astype(np.int32)
+        src = rng.permutation(B_c)[:npairs].astype(np.int32)
+        cls.append(((0, k), src, dst, idx))
+        Us.append(torch.as_tensor(rng.standard_normal((B_c, RU, RU)),
+                                  device=dev).to(dtype))
+    F = torch.as_tensor(rng.standard_normal((B, R, R)), device=dev).to(dtype)
+    return F, Us, build_work(B, R, cls, rows, max_classes).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,R,classes", GROUPS)
+def test_group_form_matches_plain_and_one_launch_a_class(dev, B, R, classes,
+                                                         dtype):
+    F0, Us, work = _group(B, R, classes, dtype, dev, seed=R)
+    counter = "fp64_launches" if dtype == torch.float64 else "launches"
+    before = getattr(extend_add, counter)
+    got = extend_add_group(F0.clone(), Us, work)
+    again = extend_add_group(F0.clone(), Us, work)
+    assert getattr(extend_add, counter) == before + 2
+    chain = F0.clone()
+    for c, U in enumerate(Us):
+        extend_add(chain, U, *class_maps(work, c))
+    want = extend_add_group_plain(F0.clone(), Us, work)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again) and torch.equal(got, chain)
+    assert (got - want).abs().max() <= RTOL[dtype] * want.abs().max()
+    # every band height, and one class a launch, give the same bits
+    for rows in BANDS:
+        _F, _U, w = _group(B, R, classes, dtype, dev, seed=R, rows=rows)
+        assert torch.equal(extend_add_group(F0.clone(), Us, w), got)
+    _F, _U, w = _group(B, R, classes, dtype, dev, seed=R, max_classes=1)
+    before = getattr(extend_add, counter)
+    assert torch.equal(extend_add_group(F0.clone(), Us, w), got)
+    assert getattr(extend_add, counter) == before + len(classes)
+
+
+def test_group_form_checks_its_blocks(dev):
+    F, Us, work = _group(*GROUPS[0], torch.float32, dev, seed=0)
+    with pytest.raises(ValueError, match="RU"):
+        extend_add_group(F, Us[::-1], work)
+    with pytest.raises(ValueError):
+        extend_add_group(F, [U.double() for U in Us], work)
+    with pytest.raises(ValueError, match="F"):
+        extend_add_group(F[:-1].contiguous(), Us, work)
+    with pytest.raises(ValueError, match="update blocks"):
+        extend_add_group(F, Us[:-1], work)

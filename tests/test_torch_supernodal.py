@@ -133,23 +133,26 @@ def test_factor_matches_reference_placement_routes(name, dtype, route,
                                              (32, "float64")])
 def test_factor_places_each_unfolded_class_through_k7(tile_rmin, dtype,
                                                       monkeypatch):
-    """One extend_add call per class that no manifest folds (fp64 runs no
-    manifest), in plan order, each on its class's int32 maps and the source
-    group's whole update block; the library scatter is never called."""
+    """One extend_add_group call a group that has a class no manifest
+    folds (fp64 runs no manifest), covering exactly those classes in plan
+    order, each on its int32 maps and the source group's whole update
+    block; the library scatter is never called."""
     import torch
     from suitesparse_tpu_torch.kernels import extend_add as k7
 
     calls, library = [], []
 
-    def spy(F, U, idx, dst, src=None):
-        calls.append((tuple(U.shape), idx.dtype, dst.dtype, src.dtype))
-        return k7.extend_add(F, U, idx, dst, src)
+    def spy(F, Us, work):
+        calls.append(((work.B, work.R),
+                      [(tuple(U.shape), key) for U, key in zip(Us, work.keys)],
+                      (work.idx.dtype, work.dst.dtype, work.src.dtype)))
+        return k7.extend_add_group(F, Us, work)
 
     def library_spy(*args, **kw):
         library.append(args)
         return k7.extend_add_library(*args, **kw)
 
-    monkeypatch.setattr(supernodal_device, "extend_add", spy)
+    monkeypatch.setattr(supernodal_device, "extend_add_group", spy)
     monkeypatch.setattr(k7, "extend_add_library", library_spy)
     A, S = _port_analysis("laplacian_3d_12")
     F = supernodal_device.factorize_device(
@@ -163,15 +166,18 @@ def test_factor_places_each_unfolded_class_through_k7(tile_rmin, dtype,
         for g in gl:
             folded = set(g._tile.folded) if g._tile is not None and \
                 dtype == "float32" else set()
+            classes = []
             for ci, pc in enumerate(g.pairs):
                 if ci not in folded:
                     B_c = plan.groups[pc.src_level][pc.src_gi].B
-                    want.append(((B_c, pc.RU_c, pc.RU_c), torch.int32,
-                                 torch.int32, torch.int32))
+                    classes.append(((B_c, pc.RU_c, pc.RU_c),
+                                    (pc.src_level, pc.src_gi)))
+            if classes:
+                want.append(((g.B, g.R), classes, (torch.int32,) * 3))
     assert calls == want
     if tile_rmin == 32 and dtype == "float32":
-        assert len(want) < sum(len(g.pairs) for gl in plan.groups
-                               for g in gl)
+        assert sum(len(c[1]) for c in want) < sum(
+            len(g.pairs) for gl in plan.groups for g in gl)
 
 
 def test_laplacian_runs_both_kernels_plain(monkeypatch):
