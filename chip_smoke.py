@@ -109,6 +109,18 @@
    1 and 8 right-hand sides (K5 and both K6 kernels must launch, residuals
    below 1e-5, x within 1e-4 * max|x| of the default w2 solve's x), each
    timed beside the default.
+8. Multifrontal QR: ``qrsol`` on ``local_coupling_ls(6000, 2000)`` (the
+   fixture of ``demos/bench_qr.py``) and ``grid_gradient_3d(32)`` (95,559
+   x 32,768), fp32 and fp64 at one right-hand side (seed 7), the grid also
+   at 4 in fp32 (``qr_phase``). Each call must take the device route (a
+   non-finite factor raises); normal-equations residual below 1e-4 (fp32) and 1e-12
+   (fp64), x within 1e-4 / 1e-10 of a dense ``lstsq`` at 6000 x 2000, the
+   grid's fp32 x within 1e-4 of its fp64 x. It prints the analysis and
+   plan times, the first call, the steady ``qrsol`` (min of 3), the factor
+   and the solve apart, the Householder GFLOP/s, the groups and the peak
+   memory; ``qr_s`` (the grid, fp32) and the gates join the metrics line.
+   The QR path runs no hand-written kernel (the reference's reaches no
+   Pallas kernel): ``torch.linalg.qr``, ``solve_triangular``, gathers.
 
 Every kernel count is set to 0 just before each path and read just after.
 Any failure raises (exit code != 0). Without a CUDA device the script exits
@@ -137,6 +149,13 @@ SIZE = 50          # laplacian_3d(50): n = 125,000, the model problem
 FOREST = (512, 6)  # 512 blocks of laplacian_3d(6): n = 110,592
 NRHS = 64
 NRHS_K = 8         # right-hand sides of the w2 kernel routes (K5, K6)
+QR_LC = (6000, 2000)   # demos/bench_qr.py's local_coupling_ls(6000, 2000)
+QR_GRID = 32           # grid_gradient_3d(32): 95,559 x 32,768
+QR_SEED = 7
+QR_NRHS = 4
+QR_NE_TOL = {"float32": 1e-4, "float64": 1e-12}   # normal-equations residual
+QR_LSTSQ_TOL = {"float32": 1e-4, "float64": 1e-10}  # x vs dense lstsq
+QR_GRID_TOL = 1e-4     # grid x: fp32 against fp64
 K7_GROUP = (114, 224)   # (B, R) of the factor's slowest placement group
 K7_CLASSES = ((75, 128), (15, 168), (59, 64))   # its (npairs, RU) classes
 K7_F64_GROUP = 3912     # R of the fp64 factor's largest tile group
@@ -976,6 +995,130 @@ def auto_fallback(F) -> None:
           flush=True)
 
 
+def _normal_residual(A, x, b) -> float:
+    """max|A'r| / (max|A| max|r|), r = b - Ax (``demos/bench_qr.py``'s
+    least-squares optimality measure), the worst column of a block."""
+    r = b - A.matvec(x)
+    atr = np.abs(A.rmatvec(r)).max(axis=0)
+    return float((atr / (np.abs(A.data).max()
+                         * np.maximum(np.abs(r).max(axis=0), 1e-30))).max())
+
+
+def qr_phase() -> dict:
+    """The multifrontal QR through ``qrsol`` on ``local_coupling_ls(6000,
+    2000)`` and ``grid_gradient_3d(32)``, fp32 and fp64 at nrhs 1 (b from
+    seed 7), and the grid at nrhs 4 in fp32. Each call must take the device
+    route (the count of device factors goes up; a device failure raises)
+    and pass its gates: the normal-equations residual (1e-4 fp32, 1e-12 fp64), x
+    against a dense ``np.linalg.lstsq`` at 6000 x 2000 (1e-4 and 1e-10 of
+    max|x|), and the grid's fp32 x against its fp64 x (1e-4). Times: the
+    first ``qrsol`` of each problem (analysis, plan, factor, solve), the
+    analysis and the plan alone, the minimum of 3 pattern-cached ``qrsol``
+    calls (CUDA events, garbage collector held off), and the factor and
+    the solve apart."""
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.numeric import mfqr_device as md
+    from suitesparse_tpu_torch.numeric import multifrontal_qr as mq
+
+    dev = torch.device("cuda", 0)
+    problems = {"lc": sstt.fixtures.local_coupling_ls(*QR_LC),
+                "grid": sstt.fixtures.grid_gradient_3d(QR_GRID)}
+    out, xs = {}, {}
+    gc.disable()
+    try:
+        for name, A in problems.items():
+            b = np.random.default_rng(QR_SEED).standard_normal(A.nrow)
+            cases = [("float32", b), ("float64", b)]
+            if name == "grid":
+                cases.append(("float32", np.random.default_rng(
+                    QR_SEED).standard_normal((A.nrow, QR_NRHS))))
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            for dtype, rhs in cases:
+                nrhs = 1 if rhs.ndim == 1 else rhs.shape[1]
+                key = f"{name}{'' if dtype == 'float32' else '64'}" + \
+                    ("" if nrhs == 1 else f"_nrhs{nrhs}")
+                cfg = sstt.DEFAULT.replace(compute_dtype=dtype)
+                calls = md.device_factors
+                t0 = time.perf_counter()
+                x = sstt.qrsol(A, rhs, cfg)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+                assert md.device_factors == calls + 1, md.device_factors
+                assert x.shape == (A.ncol,) + rhs.shape[1:] and \
+                    np.isfinite(x).all()
+                ne = _normal_residual(A, x, rhs)
+                assert ne < QR_NE_TOL[dtype], (key, ne)
+                xs[key] = x
+                SQ = md._SQ_CACHE[md._analysis_key(A, cfg)]
+                flops = md.householder_flops(SQ, nrhs)
+                qr_s = _best_s(lambda: sstt.qrsol(A, rhs, cfg))
+                F = md.factorize_qr_device(A, SQ, rhs, cfg, dev)
+                factor_s = _best_s(
+                    lambda: md.factorize_qr_device(A, SQ, rhs, cfg, dev))
+                solve_s = _best_s(lambda: md.qr_solve_device(F))
+                del F
+                rec = {"qr_first_s": first_s, "qr_s": qr_s,
+                       "factor_s": factor_s, "solve_s": solve_s,
+                       "flops": flops, "gflops": flops / qr_s / 1e9,
+                       "factor_gflops": flops / factor_s / 1e9,
+                       "normal_residual": ne,
+                       "groups": sum(len(gl) for gl in
+                                     SQ._torch_qr[1].plan.groups)}
+                if name == "lc" and nrhs == 1:
+                    D = A.to_dense()
+                    x_ref = np.linalg.lstsq(D, rhs, rcond=None)[0]
+                    err = np.abs(x - x_ref).max() / np.abs(x_ref).max()
+                    assert err < QR_LSTSQ_TOL[dtype], (key, err)
+                    rec["lstsq_err"] = err
+                out[key] = rec
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            # the analysis and the plan alone, on a fresh analysis
+            t0 = time.perf_counter()
+            SQ2 = mq.analyze_mfqr(A, sstt.DEFAULT)
+            analyze_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            plan = md.device_plan(SQ2, A.permuted(None, SQ2.q), 1, dev).plan
+            torch.cuda.synchronize()
+            plan_s = time.perf_counter() - t0
+            for key in [k for k in out if k.startswith(name)]:
+                out[key].update(analyze_s=analyze_s, plan_s=plan_s,
+                                peak_mem_gb=peak)
+            groups = [g for gl in plan.groups for g in gl]
+            print(f"qr {name}: {A.nrow} x {A.ncol}, nnz {A.nnz}, "
+                  f"supernodes {SQ2.S.nsuper}, levels {len(plan.groups)}, "
+                  f"groups {len(groups)}, pair classes "
+                  f"{sum(len(g.pairs) for g in groups)}, front cells "
+                  f"{sum(g.B * g.M * g.N for g in groups)}, panel cells "
+                  f"{plan.pool_size - plan.pool_data}, largest front "
+                  f"{int(SQ2.front_m.max())} x "
+                  f"{max(len(r) for r in SQ2.S.rows)}, "
+                  f"analyze_s={analyze_s:.3f} plan_s={plan_s:.3f} "
+                  f"peak_mem_gb={peak:.3f}", flush=True)
+            del SQ2, plan
+            for key in [k for k in out if k.startswith(name)]:
+                r = out[key]
+                print(f"qr {key}: first {r['qr_first_s']:.4f} s, qrsol "
+                      f"{r['qr_s']:.4f} s (factor {r['factor_s']:.4f}, "
+                      f"solve {r['solve_s']:.4f}), "
+                      f"{r['flops'] / 1e9:.6g} GFLOP, {r['gflops']:.2f} "
+                      f"GFLOP/s ({r['factor_gflops']:.2f} in the factor), "
+                      f"normal residual {r['normal_residual']:.3e}"
+                      + (f", x vs lstsq {r['lstsq_err']:.3e}"
+                         if "lstsq_err" in r else ""), flush=True)
+    finally:
+        gc.enable()
+    grid_err = np.abs(xs["grid"] - xs["grid64"]).max() / \
+        np.abs(xs["grid64"]).max()
+    assert grid_err < QR_GRID_TOL, grid_err
+    out["grid"]["fp32_vs_fp64"] = grid_err
+    print(f"qr grid: fp32 x vs fp64 x {grid_err:.3e}; device factors "
+          f"{md.device_factors}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1021,7 +1164,9 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.strip()
     card = smi.splitlines()[0]
     print(card)
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"linalg {torch.backends.cuda.preferred_linalg_library()}",
+          flush=True)
     dev = torch.device("cuda", 0)
 
     t0 = time.perf_counter()
@@ -1252,6 +1397,12 @@ def main() -> int:
     forest_classic_solve_s = _best_s(lambda: sstt.solve(Ff, bf, forest_cfg))
     forest_classic_solve64_s = _best_s(
         lambda: sstt.solve(Ff, Bf64, forest_cfg))
+    peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    # ---- multifrontal QR through qrsol ----
+    t0 = time.perf_counter()
+    qr = qr_phase()
+    qr_phase_s = time.perf_counter() - t0
     print(json.dumps({
         "card": card, "n": n, "flops": S.fl,
         "factor_s": factor_s, "gflops": S.fl / factor_s / 1e9,
@@ -1282,7 +1433,18 @@ def main() -> int:
                      "pair_factor": pair_launches,
                      "w2k1": w2k_launches[1],
                      "w2k8": w2k_launches[NRHS_K]},
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}), flush=True)
+        "peak_mem_gb": peak_mem_gb,
+        "qr_s": qr["grid"]["qr_s"], "qr_gflops": qr["grid"]["gflops"],
+        "qr64_s": qr["grid64"]["qr_s"],
+        "qr_lc_s": qr["lc"]["qr_s"], "qr_lc64_s": qr["lc64"]["qr_s"],
+        "qr_normal_residual": max(qr[k]["normal_residual"]
+                                  for k in ("lc", "grid", "grid_nrhs4")),
+        "qr_normal_residual64": max(qr[k]["normal_residual"]
+                                    for k in ("lc64", "grid64")),
+        "qr_lstsq_err": qr["lc"]["lstsq_err"],
+        "qr_lstsq_err64": qr["lc64"]["lstsq_err"],
+        "qr_grid_fp32_vs_fp64": qr["grid"]["fp32_vs_fp64"],
+        "qr_phase_s": qr_phase_s, "qr": qr}), flush=True)
 
     def entry(name, replaces, src, k, launches):
         return {"name": name, "route": "cuda", "source": SRC + src,

@@ -1,4 +1,4 @@
-"""suitesparse_tpu_torch — the supernodal Cholesky path on PyTorch and CUDA.
+"""suitesparse_tpu_torch — sparse Cholesky and QR on PyTorch and CUDA.
 
 A port of :mod:`suitesparse_tpu` to PyTorch for NVIDIA Hopper cards, and a
 package of its own: it imports neither JAX nor the JAX package. The host
@@ -6,7 +6,10 @@ side (orderings, symbolic analysis, plan building, small problems) is the
 port's own copy of the reference's numpy and C++ code (``native/``, built by
 ``g++`` at first use); the device side (the multifrontal factor and the
 multifrontal solve, w2 or classic sweep) runs on torch tensors, with the
-TPU kernels of that path rewritten in CUDA C++ (``kernels/csrc``).
+TPU kernels of that path rewritten in CUDA C++ (``kernels/csrc``). The
+least-squares ``qrsol`` runs the multifrontal QR (COLAMD, the front tree of
+A'A, batched Householder fronts with Q'b, the backward sweep) on the device
+past a size, the host Householder QR below it.
 
     >>> import suitesparse_tpu_torch as sstt
     >>> A = sstt.fixtures.laplacian_3d(20)
@@ -17,6 +20,8 @@ TPU kernels of that path rewritten in CUDA C++ (``kernels/csrc``).
     >>> x = sstt.solve(F, b)
     >>> x = sstt.solve(F, b, sstt.DEFAULT.replace(solve_mode="classic"))
     >>> x = sstt.solve_refined(F, A, b)             # fp64-class residual
+    >>> G = sstt.fixtures.grid_gradient_3d(32)      # 95,559 x 32,768
+    >>> y = sstt.qrsol(G, np.ones(G.nrow))          # min ||Gy - 1||
 
 The device is CUDA unless the caller passes ``device="cpu"``; asking for
 CUDA where there is none raises ``RuntimeError``.
@@ -30,7 +35,7 @@ from . import ordering
 from .config import DEFAULT, Config, FactorKind, Ordering
 from .device import resolve_device
 from .io import fixtures
-from .numeric import simplicial, supernodal, supernodal_solve
+from .numeric import qr, simplicial, supernodal, supernodal_solve
 from .numeric.simplicial import SymbolicChol, chol_solve
 from .numeric.supernodal import SupernodalFactorAdapter, TorchSupernodalFactor
 from .sparse import CSC, from_triplets, residual_norm
@@ -154,6 +159,11 @@ def lusol(A: CSC, b: np.ndarray, config: Config = DEFAULT, device="cuda"):
         "lusol is not in the port yet (ROADMAP queue 1 items 8-9)")
 
 
-def qrsol(A: CSC, b: np.ndarray, config: Config = DEFAULT, device="cuda"):
-    raise NotImplementedError(
-        "qrsol is not in the port yet (ROADMAP queue 1 item 7)")
+def qrsol(A: CSC, b: np.ndarray, config: Config = DEFAULT,
+          device="cuda") -> np.ndarray:
+    """Least squares min ||Ax - b|| (m >= n) or the minimum-norm solution
+    (m < n), cs_qrsol / SuiteSparseQR analog: the multifrontal QR on
+    ``device`` for least-squares problems with m * n >= 65,536, the host
+    Householder QR otherwise (:func:`.numeric.qr.qrsol`)."""
+    with timed("qrsol"):
+        return qr.qrsol(A, b, config, device)

@@ -19,6 +19,7 @@ class Ordering(enum.Enum):
 
     NATURAL = "natural"
     AMD = "amd"
+    COLAMD = "colamd"     # column order of A'A for QR, without forming A'A
     METIS = "nd"          # nested dissection (METIS_NodeND analog)
     NESDIS = "nesdis"     # taken by the same nested dissection here
     BEST = "best"         # AMD and ND, keep lowest nnz(L)

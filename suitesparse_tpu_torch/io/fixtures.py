@@ -1,6 +1,9 @@
-"""Synthetic SPD test matrices (upper-stored), the generators of the JAX
-package's ``io/fixtures.py``: the same functions give the same matrices, so
-the port and the reference can be fed identical problems."""
+"""Synthetic test matrices: the SPD generators (upper-stored) of the JAX
+package's ``io/fixtures.py``, its ``random_sparse`` and the least-squares
+fixture of ``demos/bench_qr.py``: the same functions give the same matrices,
+so the port and the reference can be fed identical problems. Plus
+``grid_gradient_3d``, the 3-D gradient least-squares problem of the QR
+smoke run."""
 
 from __future__ import annotations
 
@@ -9,7 +12,8 @@ import numpy as np
 from ..sparse import CSC, from_triplets
 
 __all__ = ["laplacian_2d", "laplacian_3d", "anisotropic_laplacian_3d",
-           "fem_mesh_spd"]
+           "fem_mesh_spd", "random_sparse", "local_coupling_ls",
+           "grid_gradient_3d"]
 
 
 def laplacian_2d(nx: int, ny: int | None = None, shift: float = 0.0) -> CSC:
@@ -178,3 +182,64 @@ def fem_mesh_spd(n: int, seed: int = 0, radius: float | None = None,
     ej = np.concatenate(ejs) if ejs else np.empty(0, np.int64)
     w = rng.uniform(0.5, 2.0, size=ei.size)
     return _edges_to_spd(n, ei, ej, w)
+
+
+def random_sparse(nrow: int, ncol: int, density: float = 0.05, seed: int = 0,
+                  ensure_full_diag: bool = True) -> CSC:
+    """Random unsymmetric matrix (for LU/QR paths)."""
+    rng = np.random.default_rng(seed)
+    m = max(1, int(density * nrow * ncol))
+    r = rng.integers(0, nrow, size=m)
+    c = rng.integers(0, ncol, size=m)
+    x = rng.standard_normal(m)
+    if ensure_full_diag and nrow == ncol:
+        d = np.arange(nrow, dtype=np.int64)
+        r = np.concatenate([r, d]); c = np.concatenate([c, d])
+        x = np.concatenate([x, np.full(nrow, 4.0 + density * nrow)])
+    return from_triplets(nrow, ncol, r, c, x, sym=0)
+
+
+def local_coupling_ls(m: int, n: int, k: int = 6, seed: int = 3) -> CSC:
+    """m x n least-squares matrix of ``demos/bench_qr.py``: m - n rows each
+    coupling k consecutive columns at a random offset (the pattern of
+    mesh and collocation least squares), then n unit anchor rows, so A has
+    full column rank."""
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [], [], []
+    for i in range(m - n):
+        j0 = rng.integers(0, n - k)
+        rows.append(np.full(k, i))
+        cols.append(j0 + np.arange(k))
+        vals.append(rng.standard_normal(k))
+    rows.append(m - n + np.arange(n))
+    cols.append(np.arange(n))
+    vals.append(np.ones(n))
+    return from_triplets(m, n, np.concatenate(rows), np.concatenate(cols),
+                         np.concatenate(vals), sym=0)
+
+
+def grid_gradient_3d(k: int, seed: int = 0) -> CSC:
+    """Weighted gradient of a k x k x k grid, as least squares: one row per
+    grid edge, edges along axis 0, then 1, then 2, each in C order of its
+    lower node, with -w at the lower node and +w at the upper one, w ~
+    U[0.5, 2); then unit rows at k^3 // 100 distinct nodes (at least one)
+    drawn by the same generator, which fix the constant and give A full
+    column rank. A'A is a weighted 3-D Laplacian plus those anchors: the
+    normal equations of gradient-domain reconstruction, surface-from-normal
+    integration and phase unwrapping."""
+    rng = np.random.default_rng(seed)
+    n = k ** 3
+    idx = np.arange(n, dtype=np.int64).reshape(k, k, k)
+    lo = np.concatenate([idx[:-1, :, :].ravel(), idx[:, :-1, :].ravel(),
+                         idx[:, :, :-1].ravel()])
+    hi = np.concatenate([idx[1:, :, :].ravel(), idx[:, 1:, :].ravel(),
+                         idx[:, :, 1:].ravel()])
+    ne = lo.size
+    w = rng.uniform(0.5, 2.0, ne)
+    anchors = np.sort(rng.choice(n, size=max(1, n // 100), replace=False))
+    na = anchors.size
+    edge = np.arange(ne, dtype=np.int64)
+    rows = np.concatenate([edge, edge, ne + np.arange(na, dtype=np.int64)])
+    cols = np.concatenate([lo, hi, anchors])
+    vals = np.concatenate([-w, w, np.ones(na)])
+    return from_triplets(ne + na, n, rows, cols, vals, sym=0)

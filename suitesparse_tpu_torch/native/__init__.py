@@ -1,13 +1,13 @@
 """Host C++ kernels of the port: orderings, symbolic analysis, host sweeps.
 
-``src/*.cc`` (nested dissection, AMD, etree/postorder/column counts, the
-supernodal symbolic analysis, A+A', symmetric permutation, transpose, and
-the two host triangular sweeps) is compiled by ``g++`` at first use into
-``lib/libsst_host.so`` and bound with ctypes. A content hash of the sources
-in ``lib/build.stamp`` rebuilds the library when a source changes. The
-library is built with ``-march=native``: delete ``lib/`` when the checkout
-comes from another host. There is no Python fallback: without ``g++`` the
-first call raises.
+``src/*.cc`` (nested dissection, AMD, COLAMD, etree/postorder/column counts
+(of A or of A'A), the supernodal symbolic analysis, A+A', symmetric
+permutation, transpose, and the four host triangular sweeps) is compiled by
+``g++`` at first use into ``lib/libsst_host.so`` and bound with ctypes. A
+content hash of the sources in ``lib/build.stamp`` rebuilds the library when
+a source changes. The library is built with ``-march=native``: delete
+``lib/`` when the checkout comes from another host. There is no Python
+fallback: without ``g++`` the first call raises.
 """
 
 from __future__ import annotations
@@ -54,6 +54,9 @@ _SIGNATURES = {
     "sstpu_super_free": (None, [_vp]),
     "sstpu_lsolve": (_c, [_c, _i64p, _i64p, _f64p, _f64p]),
     "sstpu_ltsolve": (_c, [_c, _i64p, _i64p, _f64p, _f64p]),
+    "sstpu_usolve": (_c, [_c, _i64p, _i64p, _f64p, _f64p]),
+    "sstpu_utsolve": (_c, [_c, _i64p, _i64p, _f64p, _f64p]),
+    "sstpu_colamd": (_c, [_c, _c, _i64p, _i64p, _d, _d, _c, _i64p, _i64p]),
 }
 
 
@@ -149,11 +152,28 @@ def nested_dissection(indptr, indices, n: int, nd_small: int = 200,
     return perm
 
 
-def etree(n: int, indptr, indices) -> np.ndarray:
-    """Elimination tree of symmetric A from its upper triangle."""
+def colamd(nrow: int, ncol: int, indptr, indices, dense_row: float = 10.0,
+           dense_col: float = 10.0, aggressive: bool = True) -> np.ndarray:
+    """Row-list column approximate minimum degree (COLAMD) of the general
+    CSC pattern. Returns q with q[k] = kth column."""
+    indptr, indices = _i64(indptr), _i64(indices)
+    perm = np.empty(ncol, dtype=np.int64)
+    rc = _load().sstpu_colamd(nrow, ncol, _p(indptr), _p(indices),
+                              ctypes.c_double(dense_row),
+                              ctypes.c_double(dense_col),
+                              1 if aggressive else 0, None, _p(perm))
+    if rc != 0:
+        raise RuntimeError(f"native colamd failed rc={rc}")
+    return perm
+
+
+def etree(n: int, indptr, indices, nrow: int | None = None) -> np.ndarray:
+    """Elimination tree of symmetric A from its upper triangle, or, given
+    ``nrow``, the column elimination tree of A'A for the ``nrow``-row A."""
     indptr, indices = _i64(indptr), _i64(indices)
     parent = np.empty(n, dtype=np.int64)
-    _load().sstpu_etree(n, _p(indptr), _p(indices), _p(parent), -1)
+    _load().sstpu_etree(n, _p(indptr), _p(indices), _p(parent),
+                        -1 if nrow is None else nrow)
     return parent
 
 
@@ -164,13 +184,16 @@ def postorder(parent) -> np.ndarray:
     return post
 
 
-def col_counts(n: int, indptr, indices, parent, post) -> np.ndarray:
-    """nnz per column of L from the lower-triangle pattern by columns."""
+def col_counts(n: int, indptr, indices, parent, post,
+               nrow: int | None = None) -> np.ndarray:
+    """nnz per column of L from the lower-triangle pattern by columns, or,
+    given ``nrow``, of the Cholesky factor of A'A from A's own pattern."""
     indptr, indices = _i64(indptr), _i64(indices)
     parent, post = _i64(parent), _i64(post)
     counts = np.empty(n, dtype=np.int64)
-    _load().sstpu_col_counts(n, n, _p(indptr), _p(indices), _p(parent),
-                             _p(post), _p(counts), 0)
+    _load().sstpu_col_counts(n, n if nrow is None else nrow, _p(indptr),
+                             _p(indices), _p(parent), _p(post), _p(counts),
+                             0 if nrow is None else 1)
     return counts
 
 
@@ -252,6 +275,16 @@ def lsolve(n: int, indptr, indices, data, x: np.ndarray) -> None:
 def ltsolve(n: int, indptr, indices, data, x: np.ndarray) -> None:
     """In place x = L' \\ x."""
     _tri("sstpu_ltsolve", n, indptr, indices, data, x)
+
+
+def usolve(n: int, indptr, indices, data, x: np.ndarray) -> None:
+    """In place x = U \\ x (diagonal last per column; cs_usolve analog)."""
+    _tri("sstpu_usolve", n, indptr, indices, data, x)
+
+
+def utsolve(n: int, indptr, indices, data, x: np.ndarray) -> None:
+    """In place x = U' \\ x."""
+    _tri("sstpu_utsolve", n, indptr, indices, data, x)
 
 
 def _tri(name: str, n: int, indptr, indices, data, x: np.ndarray) -> None:

@@ -1,0 +1,430 @@
+"""Multifrontal QR on the device: level-batched fronts, one gather a front
+group, a batched Householder R with Q'b, and the backward sweep.
+
+The port of the JAX package's ``numeric/mfqr_device.py``. Its plan
+(:func:`build_qr_plan`) is copied; the device part runs on torch tensors:
+
+  * assembly is pure PLACEMENT: every front cell receives at most one source
+    (an A entry, a right-hand-side entry or one cell of a child's R panel,
+    since contribution rows occupy distinct front rows). So each group's
+    fronts are ONE gather ``pool[gidx]`` from a flat pool that holds
+    ``[A.data | b | 0]`` and then every group's R panel at its
+    ``panel_base``; ``gidx`` is built once a plan on the host (cells no
+    source reaches point at the pool's zero), and :func:`gather_index`
+    checks that no cell has two sources, which makes the gather equal to
+    the reference's scatter plus one-hot matmul placement;
+  * the right-hand side rides as extra front columns:
+    ``torch.linalg.qr(F, mode="r")`` of ``[F | y]`` yields both R and Q'y,
+    and R (its rows padded or cut to the group's K) lands in the pool;
+  * the least-squares solve is one backward sweep, root to leaves, of index
+    gathers, a batched matmul and a batched triangular solve a group.
+
+The path reaches no Pallas kernel in the reference (``jnp.linalg.qr``,
+``triangular_solve`` and one-hot matmuls), so it is library calls and
+gathers here. Segmented execution (the reference's switch at 2e9 front
+cells) is not ported: the port runs one group at a time, so its working set
+is the panel pool plus one group's fronts.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..config import DEFAULT, Config
+from ..device import fp32_precision, resolve_device
+from ..sparse import CSC
+from .multifrontal_qr import QRSymbolicMF, analyze_mfqr
+
+__all__ = ["QRGroupPlan", "QRPlan", "build_qr_plan", "MFQRDeviceFactor",
+           "factorize_qr_device", "qr_solve_device", "mfqrsol_device",
+           "householder_flops", "NonFiniteFactor"]
+
+# device factorizations run: a caller can tell the device route from the
+# host's
+device_factors = 0
+
+
+class NonFiniteFactor(ArithmeticError):
+    """The device QR panels or its x hold a non-finite value: non-finite
+    input, overflow, or an exactly zero pivot (a structurally or
+    numerically rank-deficient A)."""
+
+
+def _pad8(x: int, lo: int = 8) -> int:
+    return max(lo, 8 * ((x + 7) // 8))
+
+
+@dataclasses.dataclass
+class QRGroupPlan:
+    M: int                 # padded front rows
+    N: int                 # padded front cols (incl. nrhs)
+    K: int                 # padded stored R rows (nc + cb rows)
+    B: int
+    snodes: np.ndarray
+    asrc: np.ndarray       # [na] gather into [Adata | bflat]
+    adst: np.ndarray       # [na] flat dst into (B*M*N), sorted, unique
+    nc: np.ndarray
+    pairs: list            # [(src_level, src_gi, K_c, N_c, src, dst,
+                           #   rowmap [np,K_c], colmap [np,N_c])]
+    panel_base: int        # offset of this group's R output in the pool
+    col_idx: np.ndarray    # [B*N] global x-column of each front col (pad -> n)
+    row_col: np.ndarray    # [B*K] global column owning stored R row (pad -> n)
+
+
+@dataclasses.dataclass
+class QRPlan:
+    groups: list
+    pool_data: int         # 1 + nnz + m*nrhs (start of panel region)
+    pool_size: int
+    nrhs: int
+    n: int
+
+
+def build_qr_plan(SQ: QRSymbolicMF, Aq: CSC, nrhs: int) -> QRPlan:
+    """Level-batched front groups of ``SQ`` for ``nrhs`` right-hand sides
+    (the reference's ``build_qr_plan``): each level's fronts bucketed by
+    padded (rows, columns), A entries and b entries as (source, cell)
+    pairs, each child's contribution block as a pair class of row and
+    column maps."""
+    S = SQ.S
+    AqT = Aq.transpose(values=False)
+    # AqT's entries run in (row, col) order: entry t is Aq's src_of_T[t]
+    cols_g = np.repeat(np.arange(Aq.ncol, dtype=np.int64), np.diff(Aq.indptr))
+    src_of_T = np.lexsort((cols_g, Aq.indices))
+
+    m = Aq.nrow
+    children: list = [[] for _ in range(S.nsuper)]
+    for s in range(S.nsuper):
+        if S.sparent[s] != -1:
+            children[S.sparent[s]].append(s)
+
+    pool_data = 1 + Aq.nnz + m * nrhs
+    pool_off = pool_data
+    level_layouts = []
+    place = {}   # snode -> (level, gi, slot, K, N)
+    for d, level_nodes in enumerate(S.levels):
+        buckets: dict = {}
+        for s in level_nodes:
+            nf = len(S.rows[s])
+            mrows = int(SQ.front_m[s])
+            key = (_pad8(mrows), _pad8(nf + nrhs))
+            buckets.setdefault(key, []).append(int(s))
+        placed = []
+        for gi, ((M, N), ss) in enumerate(sorted(buckets.items())):
+            K = _pad8(max(int(S.ncols(s) + SQ.cb_rows[s]) for s in ss))
+            for b, s in enumerate(ss):
+                place[s] = (d, gi, b, K, N)
+            placed.append((M, N, K, ss, pool_off))
+            pool_off += len(ss) * K * N
+        level_layouts.append(placed)
+
+    groups_all = []
+    for placed in level_layouts:
+        glist = []
+        for (M, N, K, ss, pbase) in placed:
+            B = len(ss)
+            a_src, a_dst = [], []
+            nc_arr = np.zeros(B, dtype=np.int32)
+            col_idx = np.full(B * N, SQ.S.n, dtype=np.int64)
+            row_col = np.full(B * K, SQ.S.n, dtype=np.int64)
+            pair_cls: dict = {}
+            for b, s in enumerate(ss):
+                cols = S.rows[s]
+                nf = len(cols)
+                nc = S.ncols(s)
+                nc_arr[b] = nc
+                base = b * M * N
+                col_idx[b * N:b * N + nf] = cols
+                row_col[b * K:b * K + nc] = np.arange(
+                    S.super_first[s], S.super_first[s] + nc)
+                row = 0
+                # A rows (sources: Adata entries, then bflat at nnz + r*nrhs+j)
+                for r in SQ.front_arows[s]:
+                    lo, hi = int(AqT.indptr[r]), int(AqT.indptr[r + 1])
+                    pos = np.searchsorted(cols, AqT.indices[lo:hi])
+                    a_src.append(src_of_T[lo:hi])
+                    a_dst.append(base + row * N + pos)
+                    a_src.append(Aq.nnz + r * nrhs + np.arange(nrhs))
+                    a_dst.append(base + row * N + nf + np.arange(nrhs))
+                    row += 1
+                # children contribution blocks: contiguous R-row slices with
+                # scattered columns
+                for c in children[s]:
+                    mu = int(SQ.cb_rows[c])
+                    if mu == 0:
+                        continue
+                    dc, gc, slot_c, Kc, Nc = place[c]
+                    cols_c = S.rows[c]
+                    nc_c = S.ncols(c)
+                    nf_c = len(cols_c)
+                    pos = np.searchsorted(cols, cols_c[nc_c:])
+                    rowmap = np.full(Kc, -1, dtype=np.int32)
+                    rowmap[nc_c:nc_c + mu] = row + np.arange(mu)
+                    colmap = np.full(Nc, -1, dtype=np.int32)
+                    colmap[nc_c:nf_c] = pos
+                    colmap[nf_c:nf_c + nrhs] = nf + np.arange(nrhs)
+                    cls = pair_cls.setdefault(
+                        (dc, gc), {"Kc": Kc, "Nc": Nc, "src": [], "dst": [],
+                                   "rowmap": [], "colmap": []})
+                    cls["src"].append(slot_c)
+                    cls["dst"].append(b)
+                    cls["rowmap"].append(rowmap)
+                    cls["colmap"].append(colmap)
+                    row += mu
+                if row != SQ.front_m[s]:
+                    raise RuntimeError(f"front {s}: {row} rows placed, "
+                                       f"{SQ.front_m[s]} counted")
+            asrc = (np.concatenate(a_src) if a_src
+                    else np.empty(0, np.int64)).astype(np.int64)
+            adst = (np.concatenate(a_dst) if a_dst
+                    else np.empty(0, np.int64)).astype(np.int64)
+            order = np.argsort(adst, kind="stable")
+            asrc, adst = asrc[order], adst[order]
+            pairs = []
+            for (dc, gc), cls in sorted(pair_cls.items()):
+                dst = np.asarray(cls["dst"], dtype=np.int32)
+                order = np.argsort(dst, kind="stable")
+                pairs.append((dc, gc, cls["Kc"], cls["Nc"],
+                              np.asarray(cls["src"], dtype=np.int32)[order],
+                              dst[order],
+                              np.stack(cls["rowmap"], axis=0)[order],
+                              np.stack(cls["colmap"], axis=0)[order]))
+            glist.append(QRGroupPlan(M=M, N=N, K=K, B=B,
+                                     snodes=np.asarray(ss, dtype=np.int64),
+                                     asrc=asrc, adst=adst, nc=nc_arr,
+                                     pairs=pairs, panel_base=pbase,
+                                     col_idx=col_idx, row_col=row_col))
+        groups_all.append(glist)
+    return QRPlan(groups=groups_all, pool_data=pool_data, pool_size=pool_off,
+                  nrhs=nrhs, n=S.n)
+
+
+def gather_index(plan: QRPlan, g: QRGroupPlan) -> np.ndarray:
+    """Pool position of each of the group's B*M*N front cells: an A or b
+    entry, a cell of a child's R panel, or the pool's zero (its cell
+    ``pool_data - 1``). Raises if a cell has two sources."""
+    size = g.B * g.M * g.N
+    dsts, srcs = [g.adst], [g.asrc]
+    for dc, gc, Kc, Nc, psrc, pdst, rowmap, colmap in g.pairs:
+        cbase = plan.groups[dc][gc].panel_base
+        live = (rowmap >= 0)[:, :, None] & (colmap >= 0)[:, None, :]
+        p, r, c = np.nonzero(live)
+        dsts.append((pdst[p].astype(np.int64) * g.M + rowmap[p, r]) * g.N
+                    + colmap[p, c])
+        srcs.append(cbase + (psrc[p].astype(np.int64) * Kc + r) * Nc + c)
+    dst = np.concatenate(dsts)
+    if np.bincount(dst, minlength=size).max(initial=0) > 1:
+        raise RuntimeError("a QR front cell has two sources: the gather "
+                           "would drop one")
+    gidx = np.full(size, plan.pool_data - 1, dtype=np.int64)
+    gidx[dst] = np.concatenate(srcs)
+    return gidx
+
+
+@dataclasses.dataclass
+class _GroupArrays:
+    """One group's device index arrays."""
+
+    B: int
+    M: int
+    N: int
+    K: int
+    panel_base: int
+    gidx: torch.Tensor     # [B*M*N] pool positions of the front cells
+    yidx: torch.Tensor     # [B*K*nrhs] Q'b cells of the panels (group-local)
+    xidx: torch.Tensor     # [B*N] x row of each beyond-pivot column, else n
+    live: torch.Tensor     # [B, K, K] bool: the pivot block R11 of a slot
+    eye: torch.Tensor      # [K, K] bool identity, R11's padding
+    rows: torch.Tensor     # group-local stored rows b*K + r with r < nc_b
+    cols: torch.Tensor     # the x column each of them solves
+
+
+@dataclasses.dataclass
+class QRDevicePlan:
+    plan: QRPlan
+    groups: list           # [_GroupArrays] in the plan's level order
+
+
+def _upload(SQ: QRSymbolicMF, plan: QRPlan,
+            device: torch.device) -> QRDevicePlan:
+    S = SQ.S
+    n, nrhs = plan.n, plan.nrhs
+    idx_dtype = torch.int32 if plan.pool_size < 2**31 else torch.int64
+
+    def dev(a, dtype=torch.int64):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(device, dtype)
+
+    out = []
+    for glist in plan.groups:
+        for g in glist:
+            B, M, N, K = g.B, g.M, g.N, g.K
+            nf = np.array([len(S.rows[s]) for s in g.snodes], np.int64)
+            nc = g.nc.astype(np.int64)
+            ar_k, ar_n = np.arange(K), np.arange(N)
+            yidx = ((np.arange(B)[:, None, None] * K + ar_k[None, :, None])
+                    * N + nf[:, None, None] + np.arange(nrhs)[None, None, :])
+            beyond = (ar_n[None, :] >= nc[:, None]) & \
+                (ar_n[None, :] < nf[:, None])
+            xidx = np.where(beyond.ravel(), g.col_idx, n)
+            live = (ar_k[None, :, None] < nc[:, None, None]) & \
+                (ar_k[None, None, :] < nc[:, None, None])
+            rows = np.flatnonzero(g.row_col < n)
+            out.append(_GroupArrays(
+                B=B, M=M, N=N, K=K, panel_base=g.panel_base,
+                gidx=dev(gather_index(plan, g), idx_dtype),
+                yidx=dev(yidx.ravel()), xidx=dev(xidx), live=dev(live, bool),
+                eye=torch.eye(K, dtype=torch.bool, device=device),
+                rows=dev(rows), cols=dev(g.row_col[rows])))
+    return QRDevicePlan(plan=plan, groups=out)
+
+
+def device_plan(SQ: QRSymbolicMF, Aq: CSC, nrhs: int,
+                device: torch.device) -> QRDevicePlan:
+    """The plan of ``SQ`` at ``nrhs`` right-hand sides on ``device``, built
+    and uploaded once and cached on ``SQ``, keyed by both (a new nrhs or
+    device rebuilds it). The dtype and the matmul precision are not part of
+    the key because nothing in the plan depends on them: they are applied
+    at each call."""
+    key = (int(nrhs), str(device))
+    cached = getattr(SQ, "_torch_qr", None)
+    if cached is None or cached[0] != key:
+        SQ._torch_qr = None          # let the old plan go before the new
+        dp = _upload(SQ, build_qr_plan(SQ, Aq, nrhs), device)
+        SQ._torch_qr = cached = (key, dp)
+    return cached[1]
+
+
+@dataclasses.dataclass
+class MFQRDeviceFactor:
+    SQ: QRSymbolicMF
+    dplan: QRDevicePlan
+    pool: torch.Tensor     # [A.data | b | 0 | R panels] on the device
+    ok: bool               # every panel finite
+    precision: str
+
+    @property
+    def panels(self) -> torch.Tensor:
+        """The concatenated R outputs, padded (the reference's layout)."""
+        return self.pool[self.dplan.plan.pool_data:]
+
+
+def _factor_group(g: _GroupArrays, pool: torch.Tensor) -> None:
+    """One group: its fronts gathered from the pool, their R (and Q'b in
+    the right-hand-side columns) by one batched Householder QR, R's rows
+    padded or cut to K and written to the group's panels."""
+    F = pool.index_select(0, g.gidx).view(g.B, g.M, g.N)
+    R = torch.linalg.qr(F, mode="r")[1]              # [B, min(M, N), N]
+    out = pool[g.panel_base:g.panel_base + g.B * g.K * g.N].view(
+        g.B, g.K, g.N)
+    k = min(R.shape[1], g.K)
+    out[:, :k] = R[:, :k]
+    if k < g.K:
+        out[:, k:] = 0
+
+
+def factorize_qr_device(A: CSC, SQ: QRSymbolicMF, b: np.ndarray,
+                        config: Config = DEFAULT,
+                        device="cuda") -> MFQRDeviceFactor:
+    """R panels and Q'b of A(:, SQ.q) on ``device`` in
+    ``config.compute_dtype``: per group one gather of its fronts, one
+    batched Householder QR, and R written into the pool."""
+    global device_factors
+    if np.iscomplexobj(A.data) or np.iscomplexobj(b):
+        raise NotImplementedError(
+            "complex QR is not in the port yet (ROADMAP queue 1 item 6)")
+    dev = resolve_device(device)
+    Aq = A.permuted(None, SQ.q)
+    bb = np.asarray(b, dtype=np.float64)
+    bb = bb.reshape(-1, 1) if bb.ndim == 1 else bb
+    dp = device_plan(SQ, Aq, bb.shape[1], dev)
+    plan = dp.plan
+    dtype = torch.float64 if config.compute_dtype == "float64" \
+        else torch.float32
+    pool = torch.empty(plan.pool_size, dtype=dtype, device=dev)
+    src = np.concatenate([Aq.data, bb.ravel(), [0.0]])
+    pool[:plan.pool_data] = torch.from_numpy(src).to(dev, dtype)
+    with fp32_precision(config.precision):
+        for g in dp.groups:
+            _factor_group(g, pool)
+    ok = bool(torch.isfinite(pool[plan.pool_data:]).all())
+    device_factors += 1
+    return MFQRDeviceFactor(SQ=SQ, dplan=dp, pool=pool, ok=ok,
+                            precision=config.precision)
+
+
+def qr_solve_device(F: MFQRDeviceFactor) -> np.ndarray:
+    """x = R \\ (Q'b): the backward sweep over the device panels, root to
+    leaves (``x`` keeps a zero row n that padded columns read)."""
+    dp = F.dplan
+    n, nrhs = dp.plan.n, dp.plan.nrhs
+    x = torch.zeros((n + 1, nrhs), dtype=F.pool.dtype, device=F.pool.device)
+    with fp32_precision(F.precision):
+        for g in reversed(dp.groups):
+            flat = F.pool[g.panel_base:g.panel_base + g.B * g.K * g.N]
+            R = flat.view(g.B, g.K, g.N)
+            y = flat.index_select(0, g.yidx).view(g.B, g.K, nrhs)
+            xg = x.index_select(0, g.xidx).view(g.B, g.N, nrhs)
+            rhs = torch.baddbmm(y, R, xg, alpha=-1.0)    # y - R_beyond x
+            R11 = torch.where(g.live, R[:, :, :g.K], g.eye)
+            xs = torch.linalg.solve_triangular(R11, rhs, upper=True)
+            x.index_copy_(0, g.cols,
+                          xs.reshape(g.B * g.K, nrhs).index_select(0, g.rows))
+    xh = x[:n].double().cpu().numpy()
+    xout = np.empty_like(xh)
+    xout[F.SQ.q] = xh
+    return xout
+
+
+def householder_flops(SQ: QRSymbolicMF, nrhs: int = 1) -> float:
+    """Householder flops of the factor: 2k^2 (max(M, N) - k/3) a front,
+    k = min(M, N), M its structural rows, N its columns plus nrhs."""
+    M = SQ.front_m.astype(np.float64)
+    N = np.array([len(r) for r in SQ.S.rows], np.float64) + nrhs
+    k = np.minimum(M, N)
+    return float(np.sum(2.0 * k * k * (np.maximum(M, N) - k / 3.0)))
+
+
+_SQ_CACHE: dict = {}     # analysis key -> QRSymbolicMF
+
+
+def _analysis_key(A: CSC, config: Config) -> tuple:
+    """Everything of the config the front-tree analysis of A reads: the
+    ordering with COLAMD's absorption, and the supernode relaxation (the
+    reference keys on the pattern only, so a second ordering reused the
+    first's)."""
+    return (A.nrow, A.ncol, A.pattern_key(), config.ordering,
+            config.amd_aggressive, tuple(config.nrelax),
+            tuple(config.zrelax))
+
+
+def mfqrsol_device(A: CSC, b: np.ndarray, config: Config = DEFAULT,
+                   SQ: QRSymbolicMF | None = None,
+                   device="cuda") -> np.ndarray:
+    """Least squares min ||Ax - b|| (m >= n) by the device multifrontal QR.
+
+    Pass a cached ``SQ`` for the analyze-once/solve-many regime; without
+    one the analysis (and through it the device plan) is cached per
+    analysis key, at most 8 of them. Raises :class:`NonFiniteFactor` when
+    the panels or x come out non-finite. A rank-deficient A whose pivots
+    stay nonzero gives a finite but unbounded x, as in the reference (the
+    host QR's basic solution is not ported to the device: ROADMAP queue
+    3, F11)."""
+    if SQ is None:
+        key = _analysis_key(A, config)
+        SQ = _SQ_CACHE.get(key)
+        if SQ is None:
+            if len(_SQ_CACHE) >= 8:
+                _SQ_CACHE.clear()
+            SQ = analyze_mfqr(A, config)
+            _SQ_CACHE[key] = SQ
+    F = factorize_qr_device(A, SQ, b, config, device)
+    if not F.ok:
+        raise NonFiniteFactor("QR factorization produced non-finite panels")
+    x = qr_solve_device(F)
+    if not np.isfinite(x).all():
+        raise NonFiniteFactor("QR solve produced a non-finite x (a zero "
+                              "pivot: A is rank deficient)")
+    return x[:, 0] if np.asarray(b).ndim == 1 else x

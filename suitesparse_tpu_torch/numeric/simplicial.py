@@ -1,8 +1,10 @@
 """Simplicial (column-at-a-time) Cholesky on the host: symbolic analysis,
-up-looking LL' and LDL', and the CSC triangular solves.
+up-looking LL' and LDL', and the CSC triangular solves (lower for the
+Cholesky factors, upper for the host QR's R).
 
 The small-problem path of the port (reference ``cs_schol.c``, ``cs_chol.c``,
-``ldl.c``, ``cs_lsolve.c``/``cs_ltsolve.c``), real-valued. A non-positive
+``ldl.c``, ``cs_lsolve.c``/``cs_ltsolve.c``, ``cs_usolve.c``/
+``cs_utsolve.c``), real-valued. A non-positive
 pivot at column k records ``minor = k`` and stops (the reference's
 ``L->minor`` contract, ``cholmod_core.h:1609-1620``).
 """
@@ -18,7 +20,8 @@ from ..sparse import CSC, invert_permutation
 from ..symbolic.etree import col_counts, ereach, etree, postorder
 
 __all__ = ["SymbolicChol", "symbolic_cholesky", "Factor", "chol_up",
-           "ldl_up", "lsolve", "ltsolve", "chol_solve", "solve_system"]
+           "ldl_up", "lsolve", "ltsolve", "usolve", "utsolve", "chol_solve",
+           "solve_system"]
 
 
 @dataclasses.dataclass
@@ -194,6 +197,37 @@ def ltsolve(L: CSC, b: np.ndarray) -> np.ndarray:
         if p1 > p0 + 1:
             x[j] -= Lx[p0 + 1:p1] @ x[Li[p0 + 1:p1]]
         x[j] = x[j] / Lx[p0]
+    return x
+
+
+def usolve(U: CSC, b: np.ndarray) -> np.ndarray:
+    """x = U \\ b, U upper CSC with the diagonal last per column
+    (cs_usolve analog); b (n,) runs in the host library."""
+    x = np.array(b, dtype=np.float64, copy=True)
+    if x.ndim == 1:
+        native.usolve(U.ncol, U.indptr, U.indices, U.data, x)
+        return x
+    Up, Ui, Ux = U.indptr, U.indices, U.data
+    for j in range(U.ncol - 1, -1, -1):
+        p0, p1 = Up[j], Up[j + 1]
+        x[j] = x[j] / Ux[p1 - 1]
+        if p1 - 1 > p0:
+            x[Ui[p0:p1 - 1]] -= np.outer(Ux[p0:p1 - 1], x[j])
+    return x
+
+
+def utsolve(U: CSC, b: np.ndarray) -> np.ndarray:
+    """x = U' \\ b."""
+    x = np.array(b, dtype=np.float64, copy=True)
+    if x.ndim == 1:
+        native.utsolve(U.ncol, U.indptr, U.indices, U.data, x)
+        return x
+    Up, Ui, Ux = U.indptr, U.indices, U.data
+    for j in range(U.ncol):
+        p0, p1 = Up[j], Up[j + 1]
+        if p1 - 1 > p0:
+            x[j] -= Ux[p0:p1 - 1] @ x[Ui[p0:p1 - 1]]
+        x[j] = x[j] / Ux[p1 - 1]
     return x
 
 

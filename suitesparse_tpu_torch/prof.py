@@ -11,6 +11,9 @@ default; ``solve1``, ``solve64``) and through the classic sweep
 (``solve_mode="classic"``; ``classic1``, ``classic64``), and at 1 and 8
 through the w2 sweep with its plain matmul (``solve8``) and with the K5 and
 K6 kernel routes (``solve_pmv=True, solve_bmv=True``; ``w2k1``, ``w2k8``).
+Then the multifrontal QR: a pattern-cached ``qrsol`` (b from seed 7) on
+``local_coupling_ls(6000, 2000)`` (``qr_lc``) and on
+``grid_gradient_3d(32)`` in fp32 (``qr_grid``) and fp64 (``qr_grid64``).
 Each
 phase gets one warm call, the minimum of 3 unprofiled calls (host clock
 around the call, synchronized), then one call under ``torch.profiler``.
@@ -26,9 +29,11 @@ Per phase it prints one JSON line:
   ``kernels/csrc`` in the call, by its function name (all its instances).
 
 It then times every ``_group_compute`` of one factorization with a device
-synchronize after each group and prints the 25 slowest groups. The full
-tables go to ``prof_out/`` in the checkout: ``prof_<phase>.txt`` and
-``prof_groups.txt``.
+synchronize after each group and prints the 25 slowest groups, and every
+group of the grid's fp32 and fp64 QR factor (``_factor_group``: the
+gather, the batched QR, the write) the same way. The full tables go to
+``prof_out/`` in the checkout: ``prof_<phase>.txt``, ``prof_groups.txt``
+and ``prof_qr_groups.txt``.
 """
 
 from __future__ import annotations
@@ -42,8 +47,8 @@ import time
 import numpy as np
 import torch
 
-from . import DEFAULT, Ordering, analyze, factorize, fixtures, solve
-from .numeric import supernodal_device
+from . import DEFAULT, Ordering, analyze, factorize, fixtures, qrsol, solve
+from .numeric import mfqr_device, supernodal_device
 from .numeric.supernodal import supernodal_symbolic
 
 SIZE = 50
@@ -149,6 +154,39 @@ def group_times(A, S, cfg) -> None:
     print("\n".join(text[:26]), flush=True)
 
 
+def qr_group_times(A, b) -> None:
+    """Each group of the QR factor of ``A`` in fp32 and fp64, synchronized
+    before and after (the analysis is ``qrsol``'s cached one)."""
+    inner = mfqr_device._factor_group
+    text = []
+    for dtype in ("float32", "float64"):
+        cfg = DEFAULT.replace(compute_dtype=dtype)
+        SQ = mfqr_device._SQ_CACHE[mfqr_device._analysis_key(A, cfg)]
+        times = []
+
+        def timed(g, pool):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inner(g, pool)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0, g))
+
+        mfqr_device._factor_group = timed
+        try:
+            mfqr_device.factorize_qr_device(A, SQ, b, cfg, device="cuda")
+        finally:
+            mfqr_device._factor_group = inner
+        times.sort(key=lambda tg: tg[0], reverse=True)
+        text.append(f"{dtype}: per-group sum "
+                    f"{sum(t for t, _g in times):.4f} s over {len(times)} "
+                    f"groups")
+        text += [f"{t:.5f} B={g.B} M={g.M} N={g.N} K={g.K}"
+                 for t, g in times]
+    with open(os.path.join(OUT_DIR, "prof_qr_groups.txt"), "w") as f:
+        f.write("\n".join(text) + "\n")
+    print("\n".join(t for t in text if "per-group" in t), flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("prof: no CUDA device", file=sys.stderr)
@@ -157,7 +195,9 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"linalg {torch.backends.cuda.preferred_linalg_library()}",
+          flush=True)
 
     A = fixtures.laplacian_3d(SIZE)
     n = A.ncol
@@ -186,6 +226,16 @@ def main() -> int:
     profile_phase("w2k1", lambda: solve(F, b, kernels))
     profile_phase("w2k8", lambda: solve(F, B8, kernels))
     group_times(A, Ssim, cfg)
+
+    Alc = fixtures.local_coupling_ls(6000, 2000)
+    Ag = fixtures.grid_gradient_3d(32)
+    blc = np.random.default_rng(7).standard_normal(Alc.nrow)
+    bg = np.random.default_rng(7).standard_normal(Ag.nrow)
+    profile_phase("qr_lc", lambda: qrsol(Alc, blc))
+    profile_phase("qr_grid", lambda: qrsol(Ag, bg))
+    qr64 = DEFAULT.replace(compute_dtype="float64")
+    profile_phase("qr_grid64", lambda: qrsol(Ag, bg, qr64))
+    qr_group_times(Ag, bg)
     return 0
 
 

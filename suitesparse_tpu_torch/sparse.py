@@ -61,6 +61,9 @@ class CSC:
             self._pat_key = memo
         return memo[1]
 
+    def vals_of(self, j: int) -> np.ndarray:
+        return self.data[self.indptr[j]:self.indptr[j + 1]]
+
     def to_dense(self) -> np.ndarray:
         A = np.zeros((self.nrow, self.ncol), dtype=self.data.dtype)
         A[self.indices, _col_ids(self.indptr)] = self.data
@@ -78,6 +81,30 @@ class CSC:
         data = (self.data[pos] if values
                 else np.zeros(len(outi), self.data.dtype))
         return CSC(self.ncol, self.nrow, outp, outi, data, -self.sym)
+
+    def permuted(self, p: np.ndarray | None, q: np.ndarray | None) -> "CSC":
+        """C = P A Q', i.e. C[i, j] = A[p[i], q[j]], for general storage
+        (cs_permute.c / cholmod_ptranspose analog); None is the identity.
+        Rows come out sorted (two counting transposes when p reorders
+        them)."""
+        if self.sym != 0:
+            raise ValueError("permuted expects general storage (sym=0); "
+                             "use symperm")
+        m, n = self.nrow, self.ncol
+        q = (_as_index(q) if q is not None
+             else np.arange(n, dtype=np.int64))
+        starts = self.indptr[q]
+        lens = self.indptr[q + 1] - starts
+        indptr = np.zeros(n + 1, dtype=np.int64)
+        np.cumsum(lens, out=indptr[1:])
+        gather = _concat_ranges(starts, lens)
+        rows, data = self.indices[gather], self.data[gather]
+        if p is None:
+            return CSC(m, n, indptr, rows, data, 0)
+        rows = invert_permutation(p)[rows]
+        tp, ti, tpos = native.transpose(m, n, indptr, rows)
+        _op, oi, opos = native.transpose(n, m, tp, ti)
+        return CSC(m, n, indptr, oi, data[tpos][opos], 0)
 
     def symperm(self, p: np.ndarray) -> "CSC":
         """C = P A P' keeping only the upper triangle, for symmetric A stored
@@ -111,6 +138,12 @@ class CSC:
         vals = A.data if x.ndim == 1 else A.data[:, None]
         np.add.at(y, A.indices, vals * x[cols])
         return y
+
+    def rmatvec(self, x: np.ndarray) -> np.ndarray:
+        """y = A' @ x."""
+        if self.sym != 0:
+            return self.matvec(x)
+        return self.transpose().matvec(x)
 
     def norm1(self) -> float:
         """max column sum of |A| (cholmod_norm analog)."""
@@ -155,6 +188,18 @@ def from_triplets(nrow: int, ncol: int, rows, cols, vals, sym: int = 0) -> CSC:
     indptr = np.zeros(ncol + 1, dtype=np.int64)
     np.cumsum(counts, out=indptr[1:])
     return CSC(nrow, ncol, indptr, r[new_grp], x_sum.astype(vals.dtype), sym)
+
+
+def _concat_ranges(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """The ranges [starts[i], starts[i] + lens[i]) one after another."""
+    nonzero = lens > 0
+    if not nonzero.any():
+        return np.empty(0, dtype=np.int64)
+    srt, lns = starts[nonzero], lens[nonzero]
+    out = np.ones(int(lns.sum()), dtype=np.int64)
+    out[0] = srt[0]
+    out[np.cumsum(lns)[:-1]] = srt[1:] - (srt[:-1] + lns[:-1] - 1)
+    return np.cumsum(out)
 
 
 def invert_permutation(p) -> np.ndarray:

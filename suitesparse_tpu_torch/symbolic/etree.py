@@ -16,10 +16,12 @@ from ..sparse import CSC
 __all__ = ["etree", "postorder", "col_counts", "ereach"]
 
 
-def etree(A: CSC) -> np.ndarray:
-    """Elimination tree of symmetric A from its upper triangle;
+def etree(A: CSC, ata: bool = False) -> np.ndarray:
+    """Elimination tree of symmetric A from its upper triangle, or with
+    ``ata=True`` the column elimination tree of A'A (A'A never formed);
     parent[root] = -1."""
-    return native.etree(A.ncol, A.indptr, A.indices)
+    return native.etree(A.ncol, A.indptr, A.indices,
+                        nrow=A.nrow if ata else None)
 
 
 def postorder(parent: np.ndarray) -> np.ndarray:
@@ -27,8 +29,13 @@ def postorder(parent: np.ndarray) -> np.ndarray:
     return native.postorder(parent)
 
 
-def col_counts(A: CSC, parent: np.ndarray, post: np.ndarray) -> np.ndarray:
-    """nnz per column of the Cholesky factor of A (diagonal included)."""
+def col_counts(A: CSC, parent: np.ndarray, post: np.ndarray,
+               ata: bool = False) -> np.ndarray:
+    """nnz per column of the Cholesky factor of A, or with ``ata=True`` of
+    A'A (diagonal included)."""
+    if ata:
+        return native.col_counts(A.ncol, A.indptr, A.indices, parent, post,
+                                 nrow=A.nrow)
     Alow = A.transpose(values=False) if A.sym == 1 else A
     return native.col_counts(A.ncol, Alow.indptr, Alow.indices, parent,
                              post)

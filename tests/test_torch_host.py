@@ -107,6 +107,17 @@ def test_cholsol_runs_with_jax_and_the_jax_package_blocked():
         "    r = sstt.residual_norm(A, x, b)\n"
         "    assert r < 1e-5, r\n"
         "    print(nx, mode, S.fl >= 5e6, r)\n"
+        "from suitesparse_tpu_torch.numeric import mfqr_device\n"
+        "for A in (sstt.fixtures.local_coupling_ls(600, 200),\n"
+        "          sstt.fixtures.local_coupling_ls(120, 40)):\n"
+        "    b = np.random.default_rng(7).standard_normal(A.nrow)\n"
+        "    calls = mfqr_device.device_factors\n"
+        "    x = sstt.qrsol(A, b, device='cpu')\n"
+        "    r = b - A.matvec(x)\n"
+        "    ne = np.abs(A.rmatvec(r)).max() / (np.abs(A.data).max()\n"
+        "                                        * np.abs(r).max())\n"
+        "    assert ne < 1e-4, ne\n"
+        "    print('qr', A.nrow, mfqr_device.device_factors - calls, ne)\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None and\n"
         "          m.split('.')[0] in ('jax', 'jaxlib', 'suitesparse_tpu')]\n"
         "assert loaded == [], loaded\n")
@@ -118,6 +129,8 @@ def test_cholsol_runs_with_jax_and_the_jax_package_blocked():
     assert lines[0].startswith("12 auto True")       # the device path
     assert lines[1].startswith("12 classic True")
     assert lines[2].startswith("5 auto False")       # the host path
+    assert lines[3].startswith("qr 600 1")           # the device QR
+    assert lines[4].startswith("qr 120 0")           # the host QR
 
 
 @pytest.mark.parametrize("name", sorted(PROBLEMS))
@@ -197,6 +210,7 @@ def test_host_library_builds_into_the_ignored_lib_dir():
     assert cmd[cmd.index("-o") + 1] == os.path.join(PORT, "native", "lib",
                                                     "libsst_host.so")
     assert sorted(os.path.basename(c) for c in cmd if c.endswith(".cc")) == [
-        "amd.cc", "hsolve.cc", "nd.cc", "super.cc", "symbolic.cc"]
+        "amd.cc", "colamd.cc", "hsolve.cc", "nd.cc", "super.cc",
+        "symbolic.cc"]
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "suitesparse_tpu_torch/native/lib/" in f.read().split()
