@@ -121,6 +121,23 @@
    memory; ``qr_s`` (the grid, fp32) and the gates join the metrics line.
    The QR path runs no hand-written kernel (the reference's reaches no
    Pallas kernel): ``torch.linalg.qr``, ``solve_triangular``, gathers.
+9. Unsymmetric multifrontal LU (``lu_phase``): ``lu_fem``, the fixture of
+   ``demos/bench_unsym.py`` (``fem_unsym(30)``: n = 27,000, b = ones)
+   through ``mflu_unsym.mflusol_unsym`` in fp32 and fp64, residual below
+   1e-10 after the ladder and answered on the LU rung (no QR, no host LU),
+   one ``lu_unsym_solve_device`` below 1e-4 (fp32) and 1e-12 (fp64);
+   ``lu_upwind`` (``upwind_unsym(30)``, structural symmetry 0.40) through
+   the router ``multifrontal_lu.mflusol`` in fp32, which must take the
+   device strategy, residual below 1e-10; ``lu_repair``, the
+   singular-home-block matrices of ``tests/test_mflu_unsym.py:96`` (n = 60,
+   seeds 0-5), each below 1e-12, the device QR rung answering at least one
+   and the host LU none. It prints the first call, the analysis and plan
+   seconds, the steady ``lu_unsym_solve_device`` (min of 3) and its factor
+   and sweep apart, the whole ``mflusol_unsym``, the device factors a call
+   runs, the front-LU flops and GFLOP/s, the peak memory, the sizes and the
+   rungs; ``lu_s``, ``lu64_s``, ``lu_upwind_s`` and the gates join the
+   metrics line. No hand-written kernel runs there either
+   (``lu_factor_ex``, ``solve_triangular``, ``baddbmm``, gathers).
 
 Every kernel count is set to 0 just before each path and read just after.
 Any failure raises (exit code != 0). Without a CUDA device the script exits
@@ -156,6 +173,11 @@ QR_NRHS = 4
 QR_NE_TOL = {"float32": 1e-4, "float64": 1e-12}   # normal-equations residual
 QR_LSTSQ_TOL = {"float32": 1e-4, "float64": 1e-10}  # x vs dense lstsq
 QR_GRID_TOL = 1e-4     # grid x: fp32 against fp64
+LU_NX = 30             # demos/bench_unsym.py's fem_unsym(30): n = 27,000
+LU_TOL = 1e-10         # residual after the LU ladder
+LU_ONE_TOL = {"float32": 1e-4, "float64": 1e-12}   # one factor + solve
+LU_REPAIR = (60, 6)    # tests/test_mflu_unsym.py:96: n and seeds
+LU_REPAIR_TOL = 1e-12
 K7_GROUP = (114, 224)   # (B, R) of the factor's slowest placement group
 K7_CLASSES = ((75, 128), (15, 168), (59, 64))   # its (npairs, RU) classes
 K7_F64_GROUP = 3912     # R of the fp64 factor's largest tile group
@@ -1119,6 +1141,175 @@ def qr_phase() -> dict:
     return out
 
 
+def _singular_home_block(seed: int):
+    """``tests/test_mflu_unsym.py:96``'s matrix for ``seed``: random sparse
+    n = 60 with a strong diagonal, then two home rows of the last mid-tree
+    front of 3 or more columns made multiples of a third on that front's
+    pivot columns (its home block exactly singular); None where the seed
+    gives no such front or a condition number over 1e10."""
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.numeric import mflu_unsym as mu
+
+    n = LU_REPAIR[0]
+    rng = np.random.default_rng(seed)
+    M = np.where(rng.random((n, n)) < 0.08, rng.standard_normal((n, n)),
+                 0.0) + np.diag(rng.random(n) + 1)
+    SL = mu.analyze_mflu_unsym(sstt.sparse.from_dense(M))
+    S = SL.SQ.S
+    fronts = [s for s in range(S.nsuper)
+              if S.ncols(s) >= 3 and S.sparent[s] != -1]
+    if not fronts:
+        return None
+    s = fronts[-1]
+    rows = [SL.rowpre[int(r)] for r in SL.front_rows[s][:S.ncols(s)]]
+    cols = [int(SL.SQ.q[S.super_first[s] + k]) for k in range(S.ncols(s))]
+    M[rows[1], cols] = 2.0 * M[rows[0], cols]
+    M[rows[2], cols] = -3.0 * M[rows[0], cols]
+    return None if np.linalg.cond(M) > 1e10 else M
+
+
+def lu_phase() -> dict:
+    """The unsymmetric multifrontal LU on the card (see the module
+    docstring, item 9). Every gate raises; the times are CUDA events
+    around synchronized calls, the garbage collector held off."""
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.numeric import mflu_unsym as mu
+    from suitesparse_tpu_torch.numeric import multifrontal_lu as ml
+
+    dev = torch.device("cuda", 0)
+
+    def ladder(call):
+        """(x, seconds, rung deltas, device factors) of one call."""
+        rungs0, f0 = dict(mu.rungs), mu.device_factors
+        t0 = time.perf_counter()
+        x = call()
+        torch.cuda.synchronize()
+        return (x, time.perf_counter() - t0,
+                {k: mu.rungs[k] - rungs0[k] for k in rungs0},
+                mu.device_factors - f0)
+
+    out = {}
+    gc.disable()
+    try:
+        A = sstt.fixtures.fem_unsym(LU_NX)
+        b = np.ones(A.ncol)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for dtype in ("float32", "float64"):
+            key = "fem" if dtype == "float32" else "fem64"
+            cfg = sstt.DEFAULT.replace(compute_dtype=dtype)
+            x, first_s, rungs, factors = ladder(
+                lambda: mu.mflusol_unsym(A, b, cfg))
+            resid = sstt.residual_norm(A, x, b)
+            assert x.shape == (A.ncol,) and resid < LU_TOL, (key, resid)
+            assert rungs == {"lu": 1, "relaxed": 0, "qr": 0, "klu": 0}, \
+                (key, rungs)
+            _x, mflusol_s, _r, _f = ladder(
+                lambda: mu.mflusol_unsym(A, b, cfg))
+            t0 = time.perf_counter()
+            SL = mu.analyze_mflu_unsym(A, cfg)
+            analyze_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dp = mu.device_plan(SL, A, 1, dev)
+            torch.cuda.synchronize()
+            plan_s = time.perf_counter() - t0
+            x1 = mu.lu_unsym_solve_device(A, b, cfg, SL)
+            one = sstt.residual_norm(A, x1, b)
+            assert np.isfinite(x1).all() and one < LU_ONE_TOL[dtype], \
+                (key, one)
+            lu_s = _best_s(lambda: mu.lu_unsym_solve_device(A, b, cfg, SL))
+            factor_s = _best_s(
+                lambda: mu.factorize_lu_unsym_device(A, SL, b, cfg))
+            F = mu.factorize_lu_unsym_device(A, SL, b, cfg)
+            sweep_s = _best_s(lambda: mu.qr_solve_device(F))
+            del F
+            flops = mu.lu_flops(SL)
+            out[key] = {"first_s": first_s, "mflusol_s": mflusol_s,
+                        "analyze_s": analyze_s, "plan_s": plan_s,
+                        "lu_s": lu_s, "factor_s": factor_s,
+                        "sweep_s": sweep_s, "flops": flops,
+                        "gflops": flops / lu_s / 1e9,
+                        "factor_gflops": flops / factor_s / 1e9,
+                        "residual": resid, "residual_one": one,
+                        "factors_per_call": factors, "rungs": rungs}
+            print(f"lu {key}: first mflusol_unsym {first_s:.3f} s (again "
+                  f"{mflusol_s:.3f} s, {factors} device factors a call, "
+                  f"rungs {rungs}), residual {resid:.3e}; analyze "
+                  f"{analyze_s:.3f} s, plan {plan_s:.3f} s; "
+                  f"lu_unsym_solve_device {lu_s:.4f} s (factor "
+                  f"{factor_s:.4f}, sweep {sweep_s:.4f}), residual "
+                  f"{one:.3e}; {flops / 1e9:.6g} GFLOP, "
+                  f"{flops / lu_s / 1e9:.2f} GFLOP/s "
+                  f"({flops / factor_s / 1e9:.2f} in the factor)",
+                  flush=True)
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        groups = [g for gl in dp.dplan.plan.groups for g in gl]
+        S = SL.SQ.S
+        big = int(np.argmax([S.ncols(s) + SL.nforeign[s]
+                             for s in range(S.nsuper)]))
+        sizes = {"n": A.ncol, "nnz": A.nnz, "supernodes": S.nsuper,
+                 "levels": len(dp.dplan.plan.groups),
+                 "groups": len(groups),
+                 "pair_classes": sum(len(g.pairs) for g in groups),
+                 "front_cells": sum(g.B * g.M * g.N for g in groups),
+                 "panel_cells": dp.dplan.plan.pool_size
+                 - dp.dplan.plan.pool_data,
+                 "largest_front": [int(S.ncols(big) + SL.nforeign[big]),
+                                   len(S.rows[big])],
+                 "peak_mem_gb": peak}
+        out["fem"].update(sizes)
+        print(f"lu fem: {sizes}", flush=True)
+        del SL, dp
+
+        # the router on a structurally unsymmetric pattern
+        Au = sstt.fixtures.upwind_unsym(LU_NX)
+        sym = Au.symmetry()["structural"]
+        xu, first_s, rungs, factors = ladder(lambda: ml.mflusol(Au, b))
+        resid = sstt.residual_norm(Au, xu, b)
+        assert factors > 0, "the router kept the upwind matrix on the host"
+        assert resid < LU_TOL and rungs["klu"] == 0, (resid, rungs)
+        SLu = mu.analyze_mflu_unsym(Au)
+        mu.lu_unsym_solve_device(Au, b, sstt.DEFAULT, SLu)
+        upwind_s = _best_s(
+            lambda: mu.lu_unsym_solve_device(Au, b, sstt.DEFAULT, SLu))
+        out["upwind"] = {"first_s": first_s, "lu_s": upwind_s,
+                         "residual": resid, "structural_symmetry": sym,
+                         "nnz": Au.nnz, "supernodes": SLu.SQ.S.nsuper,
+                         "flops": mu.lu_flops(SLu),
+                         "factors_per_call": factors, "rungs": rungs}
+        print(f"lu upwind: nnz {Au.nnz}, structural symmetry {sym:.3f}, "
+              f"supernodes {SLu.SQ.S.nsuper}; first mflusol {first_s:.3f} s "
+              f"({factors} device factors, rungs {rungs}), residual "
+              f"{resid:.3e}; lu_unsym_solve_device {upwind_s:.4f} s",
+              flush=True)
+        del SLu
+
+        # a truly deficient front: the device QR repairs it
+        repair = {"lu": 0, "relaxed": 0, "qr": 0, "klu": 0}
+        worst, cases = 0.0, 0
+        for seed in range(LU_REPAIR[1]):
+            M = _singular_home_block(seed)
+            if M is None:
+                continue
+            Ar = sstt.sparse.from_dense(M)
+            br = M @ np.ones(M.shape[0])
+            xr, _s, rungs, _f = ladder(lambda: mu.mflusol_unsym(Ar, br))
+            rr = sstt.residual_norm(Ar, xr, br)
+            assert rr < LU_REPAIR_TOL, (seed, rr, rungs)
+            repair = {k: repair[k] + rungs[k] for k in repair}
+            worst, cases = max(worst, rr), cases + 1
+        assert cases >= 3 and repair["qr"] >= 1 and repair["klu"] == 0, \
+            repair
+        out["repair"] = {"cases": cases, "residual": worst, "rungs": repair}
+        print(f"lu repair: {cases} singular-home-block matrices, worst "
+              f"residual {worst:.3e}, rungs {repair}", flush=True)
+    finally:
+        gc.enable()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1403,6 +1594,10 @@ def main() -> int:
     t0 = time.perf_counter()
     qr = qr_phase()
     qr_phase_s = time.perf_counter() - t0
+    # ---- unsymmetric multifrontal LU ----
+    t0 = time.perf_counter()
+    lu = lu_phase()
+    lu_phase_s = time.perf_counter() - t0
     print(json.dumps({
         "card": card, "n": n, "flops": S.fl,
         "factor_s": factor_s, "gflops": S.fl / factor_s / 1e9,
@@ -1444,7 +1639,15 @@ def main() -> int:
         "qr_lstsq_err": qr["lc"]["lstsq_err"],
         "qr_lstsq_err64": qr["lc64"]["lstsq_err"],
         "qr_grid_fp32_vs_fp64": qr["grid"]["fp32_vs_fp64"],
-        "qr_phase_s": qr_phase_s, "qr": qr}), flush=True)
+        "qr_phase_s": qr_phase_s, "qr": qr,
+        "lu_s": lu["fem"]["lu_s"], "lu_gflops": lu["fem"]["gflops"],
+        "lu64_s": lu["fem64"]["lu_s"], "lu_upwind_s": lu["upwind"]["lu_s"],
+        "lu_residual": max(lu[k]["residual"]
+                           for k in ("fem", "fem64", "upwind")),
+        "lu_residual_one": lu["fem"]["residual_one"],
+        "lu_residual_one64": lu["fem64"]["residual_one"],
+        "lu_repair_residual": lu["repair"]["residual"],
+        "lu_phase_s": lu_phase_s, "lu": lu}), flush=True)
 
     def entry(name, replaces, src, k, launches):
         return {"name": name, "route": "cuda", "source": SRC + src,

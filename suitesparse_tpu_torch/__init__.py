@@ -9,7 +9,12 @@ multifrontal solve, w2 or classic sweep) runs on torch tensors, with the
 TPU kernels of that path rewritten in CUDA C++ (``kernels/csrc``). The
 least-squares ``qrsol`` runs the multifrontal QR (COLAMD, the front tree of
 A'A, batched Householder fronts with Q'b, the backward sweep) on the device
-past a size, the host Householder QR below it.
+past a size, the host Householder QR below it. The general square solve:
+``lusol`` is the KLU-class host LU; ``numeric.multifrontal_lu.mflusol``
+sends strongly unsymmetric patterns to the matched-front multifrontal LU on
+the device (weighted matching, batched partial-pivot LU of the fronts with
+the right-hand side riding along, the backward sweep, a QR repair and the
+host LU as its last rungs).
 
     >>> import suitesparse_tpu_torch as sstt
     >>> A = sstt.fixtures.laplacian_3d(20)
@@ -22,6 +27,9 @@ past a size, the host Householder QR below it.
     >>> x = sstt.solve_refined(F, A, b)             # fp64-class residual
     >>> G = sstt.fixtures.grid_gradient_3d(32)      # 95,559 x 32,768
     >>> y = sstt.qrsol(G, np.ones(G.nrow))          # min ||Gy - 1||
+    >>> from suitesparse_tpu_torch.numeric.multifrontal_lu import mflusol
+    >>> x = mflusol(M, b)                           # general square M
+    >>> x = sstt.lusol(M, b)                        # host KLU-class LU
 
 The device is CUDA unless the caller passes ``device="cpu"``; asking for
 CUDA where there is none raises ``RuntimeError``.
@@ -35,7 +43,7 @@ from . import ordering
 from .config import DEFAULT, Config, FactorKind, Ordering
 from .device import resolve_device
 from .io import fixtures
-from .numeric import qr, simplicial, supernodal, supernodal_solve
+from .numeric import lu, qr, simplicial, supernodal, supernodal_solve
 from .numeric.simplicial import SymbolicChol, chol_solve
 from .numeric.supernodal import SupernodalFactorAdapter, TorchSupernodalFactor
 from .sparse import CSC, from_triplets, residual_norm
@@ -154,9 +162,13 @@ def cholsol(A: CSC, b: np.ndarray, config: Config = DEFAULT,
     return solve(F, b, config)
 
 
-def lusol(A: CSC, b: np.ndarray, config: Config = DEFAULT, device="cuda"):
-    raise NotImplementedError(
-        "lusol is not in the port yet (ROADMAP queue 1 items 8-9)")
+def lusol(A: CSC, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
+    """One-call general square solve via BTF + left-looking LU (cs_lusol /
+    klu analog, :func:`.numeric.lu.lusol`). Nothing on this path runs on a
+    device, as in the reference (KLU uses no BLAS); the card's
+    unsymmetric LU is :func:`.numeric.multifrontal_lu.mflusol`."""
+    with timed("lusol"):
+        return lu.lusol(A, b, config)
 
 
 def qrsol(A: CSC, b: np.ndarray, config: Config = DEFAULT,

@@ -59,6 +59,16 @@ class Config:
     # ----- nested dissection (reference cholmod_core.h:702-731) -----
     nd_small: int = 200              # stop dissecting below this many nodes
 
+    # ----- LU (reference klu_defaults.c:20-32, umfpack.h:261-300) -----
+    lu_pivot_tol: float = 0.001      # diagonal-preference threshold (klu tol)
+    lu_btf: bool = True              # block triangular form first
+    # maxtrans work budget, multiples of nnz; <= 0 = unlimited (klu maxwork,
+    # reference btf.h:206)
+    btf_work_limit: float = -1.0
+    lu_scale: int = 2                # 0 none, 1 row-sum, 2 row-max (klu scale)
+    halt_if_singular: bool = True
+    ir_steps: int = 2                # iterative-refinement sweeps (IRSTEP)
+
     # ----- device execution -----
     compute_dtype: str = "float32"   # factor and solve dtype on the device
     # "highest": true fp32 matmuls (TF32 off inside each call)

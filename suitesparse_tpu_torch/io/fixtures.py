@@ -3,7 +3,8 @@ package's ``io/fixtures.py``, its ``random_sparse`` and the least-squares
 fixture of ``demos/bench_qr.py``: the same functions give the same matrices,
 so the port and the reference can be fed identical problems. Plus
 ``grid_gradient_3d``, the 3-D gradient least-squares problem of the QR
-smoke run."""
+smoke run, and the unsymmetric LU problems ``fem_unsym`` (the fixture of
+``demos/bench_unsym.py``) and ``upwind_unsym``."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ from ..sparse import CSC, from_triplets
 
 __all__ = ["laplacian_2d", "laplacian_3d", "anisotropic_laplacian_3d",
            "fem_mesh_spd", "random_sparse", "local_coupling_ls",
-           "grid_gradient_3d"]
+           "grid_gradient_3d", "fem_unsym", "upwind_unsym"]
 
 
 def laplacian_2d(nx: int, ny: int | None = None, shift: float = 0.0) -> CSC:
@@ -243,3 +244,26 @@ def grid_gradient_3d(k: int, seed: int = 0) -> CSC:
     cols = np.concatenate([lo, hi, anchors])
     vals = np.concatenate([-w, w, np.ones(na)])
     return from_triplets(ne + na, n, rows, cols, vals, sym=0)
+
+
+def fem_unsym(nx: int, seed: int = 1) -> CSC:
+    """The unsymmetric FEM-pattern matrix of ``demos/bench_unsym.py``:
+    ``laplacian_3d(nx)`` in full storage plus 0.2 N(0, 1) on every value
+    (seed 1). n = nx^3; the pattern is symmetric, the values are not."""
+    rng = np.random.default_rng(seed)
+    M = laplacian_3d(nx).to_full_storage()
+    return CSC(M.nrow, M.ncol, M.indptr, M.indices,
+               M.data + 0.2 * rng.standard_normal(M.nnz), 0)
+
+
+def upwind_unsym(nx: int, drop: float = 0.75, seed: int = 2) -> CSC:
+    """``fem_unsym(nx)`` with each strictly upper entry dropped with
+    probability ``drop`` (one draw per stored entry, seed 2): a
+    structurally unsymmetric pattern, as an upwinded convection-diffusion
+    operator has (structural symmetry 0.40 at nx = 30)."""
+    A = fem_unsym(nx)
+    rng = np.random.default_rng(seed)
+    cols = np.repeat(np.arange(A.ncol, dtype=np.int64), np.diff(A.indptr))
+    keep = ~((A.indices < cols) & (rng.random(A.nnz) < drop))
+    return from_triplets(A.nrow, A.ncol, A.indices[keep], cols[keep],
+                         A.data[keep])

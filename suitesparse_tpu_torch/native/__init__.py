@@ -2,7 +2,9 @@
 
 ``src/*.cc`` (nested dissection, AMD, COLAMD, etree/postorder/column counts
 (of A or of A'A), the supernodal symbolic analysis, A+A', symmetric
-permutation, transpose, and the four host triangular sweeps) is compiled by
+permutation, transpose, the four host triangular sweeps, and the LU path's
+weighted matching, maximum transversal, strong components, Gilbert-Peierls
+factor and refactor, permutation maps and off-diagonal update) is compiled by
 ``g++`` at first use into ``lib/libsst_host.so`` and bound with ctypes. A
 content hash of the sources in ``lib/build.stamp`` rebuilds the library when
 a source changes. The library is built with ``-march=native``: delete
@@ -57,6 +59,17 @@ _SIGNATURES = {
     "sstpu_usolve": (_c, [_c, _i64p, _i64p, _f64p, _f64p]),
     "sstpu_utsolve": (_c, [_c, _i64p, _i64p, _f64p, _f64p]),
     "sstpu_colamd": (_c, [_c, _c, _i64p, _i64p, _d, _d, _c, _i64p, _i64p]),
+    "sstpu_wmatch": (_c, [_c, _c, _i64p, _i64p, _f64p, _i64p]),
+    "sstpu_maxtrans": (_c, [_c, _c, _i64p, _i64p, _i64p, _d]),
+    "sstpu_strongcomp": (_c, [_c, _i64p, _i64p, _i64p, _i64p]),
+    # n, Ap, Ai, Ax, tol, capacity, Lp, Li, Lx, Up, Ui, Ux, P
+    "sstpu_lu_factor": (_c, [_c, _i64p, _i64p, _f64p, _d, _c, _i64p, _i64p,
+                             _f64p, _i64p, _i64p, _f64p, _i64p]),
+    # n, Ap, Ai, Ax, Lp, Li, Lx, Up, Ui, Ux, P
+    "sstpu_lu_refactor": (_c, [_c, _i64p, _i64p, _f64p, _i64p, _i64p, _f64p,
+                               _i64p, _i64p, _f64p, _i64p]),
+    "sstpu_lu_prep": (None, [_c] + [_i64p] * 5 + [_c] + [_i64p] * 13),
+    "sstpu_offupdate": (_c, [_c, _c, _i64p, _i64p, _f64p, _f64p]),
 }
 
 
@@ -295,3 +308,150 @@ def _tri(name: str, n: int, indptr, indices, data, x: np.ndarray) -> None:
     getattr(_load(), name)(n, _p(indptr), _p(indices),
                            data.ctypes.data_as(_f64p),
                            x.ctypes.data_as(_f64p))
+
+
+def _f64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.float64)
+
+
+def _pd(a: np.ndarray):
+    return a.ctypes.data_as(_f64p)
+
+
+def wmatch(nrow: int, ncol: int, indptr, indices, data) -> tuple:
+    """Weighted maximum-product transversal (MC64 job-5 analog): (nmatch,
+    match) with match[j] the row matched to column j, maximizing the
+    product of |A[match[j], j]|; -1 where a column is unmatched (stored
+    zeros are no edges)."""
+    indptr, indices = _i64(indptr), _i64(indices)
+    data = _f64(np.abs(data))
+    match = np.empty(ncol, dtype=np.int64)
+    nm = _load().sstpu_wmatch(nrow, ncol, _p(indptr), _p(indices), _pd(data),
+                              _p(match))
+    return int(nm), match
+
+
+def maxtrans(nrow: int, ncol: int, indptr, indices,
+             work_limit: float = -1.0) -> tuple:
+    """Maximum transversal (btf_maxtrans analog): (nmatch, match), -1 where
+    a column is unmatched. ``work_limit`` > 0 caps the augmenting-path work
+    at work_limit * nnz (btf.h's maxwork)."""
+    indptr, indices = _i64(indptr), _i64(indices)
+    match = np.empty(ncol, dtype=np.int64)
+    nm = _load().sstpu_maxtrans(nrow, ncol, _p(indptr), _p(indices),
+                                _p(match), ctypes.c_double(work_limit))
+    return int(nm), match
+
+
+def strongcomp(n: int, indptr, indices) -> tuple:
+    """Tarjan strong components of the square pattern's digraph: (nblocks,
+    p, r), A(p, p) block upper triangular with block k at p[r[k]:r[k+1]]."""
+    indptr, indices = _i64(indptr), _i64(indices)
+    p = np.empty(n, dtype=np.int64)
+    r = np.empty(n + 1, dtype=np.int64)
+    nb = _load().sstpu_strongcomp(n, _p(indptr), _p(indices), _p(p), _p(r))
+    return int(nb), p, r[:nb + 1].copy()
+
+
+def lu_factor(n: int, indptr, indices, data, tol: float) -> tuple:
+    """Gilbert-Peierls LU with threshold partial pivoting of one square
+    block (klu_kernel analog): (status, factors), status 0 with factors =
+    (Lp, Li, Lx, Up, Ui, Ux, P), or k + 1 (singular at column k) with
+    factors None. L has its unit diagonal first per column, U its diagonal
+    last, both in pivot space; P[k] is the row of pivot k."""
+    indptr, indices, data = _i64(indptr), _i64(indices), _f64(data)
+    capacity = max(4 * int(indptr[n]) + n, 1024)
+    dll = _load()
+    while True:
+        Lp = np.empty(n + 1, dtype=np.int64)
+        Li = np.empty(capacity, dtype=np.int64)
+        Lx = np.empty(capacity, dtype=np.float64)
+        Up = np.empty(n + 1, dtype=np.int64)
+        Ui = np.empty(capacity, dtype=np.int64)
+        Ux = np.empty(capacity, dtype=np.float64)
+        P = np.empty(n, dtype=np.int64)
+        rc = dll.sstpu_lu_factor(n, _p(indptr), _p(indices), _pd(data),
+                                 ctypes.c_double(tol), capacity, _p(Lp),
+                                 _p(Li), _pd(Lx), _p(Up), _p(Ui), _pd(Ux),
+                                 _p(P))
+        if rc == -1:                      # the factors outgrew the arrays
+            capacity *= 2
+            continue
+        if rc != 0:
+            return int(rc), None
+        lnz, unz = int(Lp[n]), int(Up[n])
+        # shrink in place (no copy of the kept part)
+        for arr, size in ((Li, lnz), (Lx, lnz), (Ui, unz), (Ux, unz)):
+            arr.resize(size, refcheck=False)
+        return 0, (Lp, Li, Lx, Up, Ui, Ux, P)
+
+
+def lu_refactor(n: int, indptr, indices, data, Lp, Li, Lx, Up, Ui, Ux,
+                P) -> int:
+    """New values of an earlier :func:`lu_factor`'s L and U (written into
+    ``Lx`` and ``Ux``) for a block of the same pattern whose rows are in
+    the factor's pivot order when P is the identity (klu_refactor analog).
+    Returns 0, or k + 1 where pivot k came out exactly zero."""
+    indptr, indices, data = _i64(indptr), _i64(indices), _f64(data)
+    for a, dt in ((Lx, np.float64), (Ux, np.float64)):
+        if a.dtype != dt or not a.flags.c_contiguous:
+            raise ValueError("lu_refactor: Lx and Ux must be contiguous "
+                             "float64 arrays")
+    Lp, Li, Up, Ui, P = (_i64(a) for a in (Lp, Li, Up, Ui, P))
+    return int(_load().sstpu_lu_refactor(
+        n, _p(indptr), _p(indices), _pd(data), _p(Lp), _p(Li), _pd(Lx),
+        _p(Up), _p(Ui), _pd(Ux), _p(P)))
+
+
+def lu_prep(n: int, indptr, indices, pinv, q, r) -> tuple:
+    """Permutation and BTF block maps of the KLU-path factor (see
+    ``sstpu_lu_prep`` in symbolic.cc): (ip, ii, pos, diag_pos, blocks,
+    off), the permuted pattern with C.data = A.data[pos]; blocks[k] is None
+    for a 1x1 block, else (bip, bi, bpos) of the local diagonal block;
+    off = (oip, oi, opos) the entries above the diagonal blocks. All
+    positions index the PERMUTED data."""
+    indptr, indices = _i64(indptr), _i64(indices)
+    pinv, q, r = _i64(pinv), _i64(q), _i64(r)
+    nblocks = r.size - 1
+    nnz = int(indptr[n])
+    ip = np.empty(n + 1, dtype=np.int64)
+    ii = np.empty(nnz, dtype=np.int64)
+    pos = np.empty(nnz, dtype=np.int64)
+    diag_pos = np.empty(n, dtype=np.int64)
+    bo = np.empty(nblocks + 1, dtype=np.int64)
+    bip_off = np.empty(nblocks + 1, dtype=np.int64)
+    nk = np.diff(r)
+    bip_cat = np.empty(int(((nk > 1) * (nk + 1)).sum()), dtype=np.int64)
+    bi_cat = np.empty(nnz, dtype=np.int64)
+    bpos_cat = np.empty(nnz, dtype=np.int64)
+    oip = np.empty(n + 1, dtype=np.int64)
+    oi = np.empty(nnz, dtype=np.int64)
+    opos = np.empty(nnz, dtype=np.int64)
+    counts = np.zeros(2, dtype=np.int64)
+    _load().sstpu_lu_prep(n, _p(indptr), _p(indices), _p(pinv), _p(q), _p(r),
+                          nblocks, _p(ip), _p(ii), _p(pos), _p(diag_pos),
+                          _p(bo), _p(bip_off), _p(bip_cat), _p(bi_cat),
+                          _p(bpos_cat), _p(oip), _p(oi), _p(opos),
+                          _p(counts))
+    bn, on = int(counts[0]), int(counts[1])
+    bi_cat, bpos_cat = bi_cat[:bn], bpos_cat[:bn]
+    blocks = []
+    for k in range(nblocks):
+        if r[k + 1] - r[k] <= 1:
+            blocks.append(None)
+        else:
+            blocks.append((bip_cat[bip_off[k]:bip_off[k + 1]],
+                           bi_cat[bo[k]:bo[k + 1]],
+                           bpos_cat[bo[k]:bo[k + 1]]))
+    return ip, ii, pos, diag_pos, blocks, (oip, oi[:on].copy(),
+                                           opos[:on].copy())
+
+
+def offupdate(k1: int, k2: int, indptr, indices, data, x: np.ndarray) -> None:
+    """In place x[Offi] -= Offx * x[j] for the columns j in [k1, k2) (the
+    off-diagonal update of klu_solve)."""
+    if x.dtype != np.float64 or not x.flags.c_contiguous:
+        raise ValueError("offupdate: x must be a contiguous float64 vector")
+    indptr, indices, data = _i64(indptr), _i64(indices), _f64(data)
+    _load().sstpu_offupdate(k1, k2, _p(indptr), _p(indices), _pd(data),
+                            x.ctypes.data_as(_f64p))

@@ -3,7 +3,8 @@
 // factors and the host QR's R: L lower triangular with the DIAGONAL FIRST in
 // each column (lsolve: L x = b, ltsolve: L' x = b), U upper triangular with
 // the DIAGONAL LAST (usolve: U x = b, utsolve: U' x = b). x is one RHS
-// (f64), solved in place. Returns 0.
+// (f64), solved in place. Returns 0. sstpu_offupdate is the KLU block
+// back-substitution's update of the earlier blocks (numeric/lu.py).
 
 #include "common.h"
 
@@ -47,6 +48,20 @@ SSTPU_API i64 sstpu_utsolve(i64 n, const i64* Up, const i64* Ui,
     double acc = x[j];
     for (i64 p = p0; p < p1 - 1; p++) acc -= Ux[p] * x[Ui[p]];
     x[j] = acc / Ux[p1 - 1];
+  }
+  return 0;
+}
+
+// off-diagonal block update (klu_solve's Off loop): for each column j in
+// [k1, k2), x[Offi[p]] -= Offx[p] * x[j] — one call per BTF block instead
+// of a Python loop per column.
+SSTPU_API i64 sstpu_offupdate(i64 k1, i64 k2, const i64* Offp,
+                              const i64* Offi, const double* Offx,
+                              double* x) {
+  for (i64 j = k1; j < k2; j++) {
+    double xj = x[j];
+    if (xj == 0.0) continue;
+    for (i64 p = Offp[j]; p < Offp[j + 1]; p++) x[Offi[p]] -= Offx[p] * xj;
   }
   return 0;
 }

@@ -262,3 +262,108 @@ SSTPU_API void sstpu_transpose(i64 nrow, i64 ncol, const i64* Ap,
       outpos[q] = p;
     }
 }
+
+// Fused permutation + BTF-block extraction for the KLU-path factor
+// (klu_l_factor's in-factor init, done once here as cached position maps;
+// numeric/lu.py _prep_perm): two stable counting passes and ONE walk.
+//
+// Inputs: full-storage pattern (Ap, Ai), row permutation as pinv (new row of
+// old row i), column permutation q (new col j <- old col q[j]), BTF block
+// boundaries r[0..nblocks].
+// Outputs (permuted pattern C = P A Q', columns sorted by row):
+//   ip/ii/pos       — C pattern + data position map (C.data = A.data[pos])
+//   diag_pos[n]     — PERMUTED position of the diagonal entry of each
+//                     1x1 block's column (-1 if absent; n-sized, only
+//                     singleton-block columns are set)
+//   bo/bip_off      — per-block offsets into the concatenated block arrays
+//                     (bo: entries, bip_off: indptr segments; single-column
+//                     blocks occupy empty segments)
+//   bip/bi/bpos     — concatenated per-block local CSC (indices local to the
+//                     block, positions into the PERMUTED data array)
+//   oip/oi/opos     — strictly-above-diagonal-block entries as an n-column
+//                     CSC (klu Offp/Offi analog), positions into permuted
+//                     data
+// Entries BELOW the diagonal block are dropped (BTF upper form has none;
+// as KLU's). counts = {block nnz total, off nnz}.
+SSTPU_API void sstpu_lu_prep(i64 n, const i64* Ap, const i64* Ai,
+                             const i64* pinv, const i64* q,
+                             const i64* r, i64 nblocks,
+                             i64* ip, i64* ii, i64* pos, i64* diag_pos,
+                             i64* bo, i64* bip_off,
+                             i64* bip, i64* bi, i64* bpos,
+                             i64* oip, i64* oi, i64* opos, i64* counts) {
+  i64 nnz = Ap[n];
+  // two stable counting-sort passes with DIRECT payload movement (no index
+  // indirection arrays): by row first (stable in new-column enumeration
+  // order, so row buckets are column-sorted), then rows in order
+  // redistributed by column -> column-major, rows sorted within columns
+  std::vector<i64> rstart(n + 1, 0), fill(n), rcol(nnz), rpos(nnz);
+  for (i64 p = 0; p < nnz; p++) rstart[pinv[Ai[p]] + 1]++;
+  for (i64 i = 0; i < n; i++) rstart[i + 1] += rstart[i];
+  std::copy(rstart.begin(), rstart.end() - 1, fill.begin());
+  for (i64 j = 0; j < n; j++) {
+    i64 oj = q[j];
+    for (i64 p = Ap[oj]; p < Ap[oj + 1]; p++) {
+      i64 t = fill[pinv[Ai[p]]]++;
+      rcol[t] = j;
+      rpos[t] = p;
+    }
+  }
+  std::vector<i64> cnt(n + 1, 0);
+  for (i64 t = 0; t < nnz; t++) cnt[rcol[t] + 1]++;
+  for (i64 j = 0; j < n; j++) cnt[j + 1] += cnt[j];
+  for (i64 j = 0; j <= n; j++) ip[j] = cnt[j];
+  std::copy(cnt.begin(), cnt.end() - 1, fill.begin());
+  for (i64 i = 0; i < n; i++)
+    for (i64 t = rstart[i]; t < rstart[i + 1]; t++) {
+      i64 d = fill[rcol[t]]++;
+      ii[d] = i;
+      pos[d] = rpos[t];
+    }
+  // block / off / diag walk (one pass over permuted entries)
+  std::vector<i64> kb_of(n);
+  for (i64 k = 0; k < nblocks; k++)
+    for (i64 j = r[k]; j < r[k + 1]; j++) kb_of[j] = k;
+  bo[0] = 0;
+  bip_off[0] = 0;
+  for (i64 k = 0; k < nblocks; k++) {
+    i64 nk = r[k + 1] - r[k];
+    bip_off[k + 1] = bip_off[k] + (nk > 1 ? nk + 1 : 0);
+  }
+  i64 bn = 0, on = 0;
+  for (i64 j = 0; j < n; j++) diag_pos[j] = -1;
+  oip[0] = 0;
+  i64 cur_b = -1;
+  for (i64 j = 0; j < n; j++) {
+    i64 k = kb_of[j];
+    i64 k1 = r[k], k2 = r[k + 1];
+    bool multi = (k2 - k1) > 1;
+    if (multi && k != cur_b) {
+      // entering block k: close previous blocks' bo, open indptr segment
+      for (i64 kk = cur_b + 1; kk <= k; kk++) bo[kk] = bn;
+      bip[bip_off[k]] = 0;
+      cur_b = k;
+    }
+    for (i64 t = ip[j]; t < ip[j + 1]; t++) {
+      i64 i = ii[t];
+      if (i >= k1 && i < k2) {
+        if (multi) {
+          bi[bn] = i - k1;
+          bpos[bn] = t;
+          bn++;
+        } else if (i == j) {
+          diag_pos[j] = t;
+        }
+      } else if (i < k1) {
+        oi[on] = i;
+        opos[on] = t;
+        on++;
+      }  // i >= k2: dropped (no BTF-lower entries)
+    }
+    if (multi) bip[bip_off[k] + (j - k1) + 1] = bn - bo[k];
+    oip[j + 1] = on;
+  }
+  for (i64 kk = cur_b + 1; kk <= nblocks; kk++) bo[kk] = bn;
+  counts[0] = bn;
+  counts[1] = on;
+}

@@ -70,8 +70,15 @@ class QRGroupPlan:
     pairs: list            # [(src_level, src_gi, K_c, N_c, src, dst,
                            #   rowmap [np,K_c], colmap [np,N_c])]
     panel_base: int        # offset of this group's R output in the pool
+    # solve-time positions (the sweep reads every position from here)
     col_idx: np.ndarray    # [B*N] global x-column of each front col (pad -> n)
+    rhs_col: np.ndarray    # [B, nrhs] front column of each right-hand side
+    beyond: np.ndarray     # positions b*N + c of the real beyond-pivot columns
     row_col: np.ndarray    # [B*K] global column owning stored R row (pad -> n)
+    # LU mode only (mflu_unsym): padded pivot-column count and per-slot home
+    # block rows
+    Cg: int = 0
+    fm: np.ndarray | None = None
 
 
 @dataclasses.dataclass
@@ -129,6 +136,8 @@ def build_qr_plan(SQ: QRSymbolicMF, Aq: CSC, nrhs: int) -> QRPlan:
             a_src, a_dst = [], []
             nc_arr = np.zeros(B, dtype=np.int32)
             col_idx = np.full(B * N, SQ.S.n, dtype=np.int64)
+            rhs_col = np.empty((B, nrhs), dtype=np.int64)
+            beyond = []
             row_col = np.full(B * K, SQ.S.n, dtype=np.int64)
             pair_cls: dict = {}
             for b, s in enumerate(ss):
@@ -138,6 +147,8 @@ def build_qr_plan(SQ: QRSymbolicMF, Aq: CSC, nrhs: int) -> QRPlan:
                 nc_arr[b] = nc
                 base = b * M * N
                 col_idx[b * N:b * N + nf] = cols
+                rhs_col[b] = nf + np.arange(nrhs)
+                beyond.append(b * N + np.arange(nc, nf))
                 row_col[b * K:b * K + nc] = np.arange(
                     S.super_first[s], S.super_first[s] + nc)
                 row = 0
@@ -196,7 +207,9 @@ def build_qr_plan(SQ: QRSymbolicMF, Aq: CSC, nrhs: int) -> QRPlan:
                                      snodes=np.asarray(ss, dtype=np.int64),
                                      asrc=asrc, adst=adst, nc=nc_arr,
                                      pairs=pairs, panel_base=pbase,
-                                     col_idx=col_idx, row_col=row_col))
+                                     col_idx=col_idx, rhs_col=rhs_col,
+                                     beyond=np.concatenate(beyond),
+                                     row_col=row_col))
         groups_all.append(glist)
     return QRPlan(groups=groups_all, pool_data=pool_data, pool_size=pool_off,
                   nrhs=nrhs, n=S.n)
@@ -248,10 +261,11 @@ class QRDevicePlan:
     groups: list           # [_GroupArrays] in the plan's level order
 
 
-def _upload(SQ: QRSymbolicMF, plan: QRPlan,
-            device: torch.device) -> QRDevicePlan:
-    S = SQ.S
-    n, nrhs = plan.n, plan.nrhs
+def _upload(plan: QRPlan, device: torch.device) -> QRDevicePlan:
+    """The groups' gather and sweep index arrays on ``device``, every
+    position taken from the plan (so a QR plan and the LU's gapped panels
+    share the sweep)."""
+    n = plan.n
     idx_dtype = torch.int32 if plan.pool_size < 2**31 else torch.int64
 
     def dev(a, dtype=torch.int64):
@@ -261,14 +275,12 @@ def _upload(SQ: QRSymbolicMF, plan: QRPlan,
     for glist in plan.groups:
         for g in glist:
             B, M, N, K = g.B, g.M, g.N, g.K
-            nf = np.array([len(S.rows[s]) for s in g.snodes], np.int64)
             nc = g.nc.astype(np.int64)
-            ar_k, ar_n = np.arange(K), np.arange(N)
+            ar_k = np.arange(K)
             yidx = ((np.arange(B)[:, None, None] * K + ar_k[None, :, None])
-                    * N + nf[:, None, None] + np.arange(nrhs)[None, None, :])
-            beyond = (ar_n[None, :] >= nc[:, None]) & \
-                (ar_n[None, :] < nf[:, None])
-            xidx = np.where(beyond.ravel(), g.col_idx, n)
+                    * N + g.rhs_col[:, None, :])
+            xidx = np.full(B * N, n, dtype=np.int64)
+            xidx[g.beyond] = g.col_idx[g.beyond]
             live = (ar_k[None, :, None] < nc[:, None, None]) & \
                 (ar_k[None, None, :] < nc[:, None, None])
             rows = np.flatnonzero(g.row_col < n)
@@ -292,7 +304,7 @@ def device_plan(SQ: QRSymbolicMF, Aq: CSC, nrhs: int,
     cached = getattr(SQ, "_torch_qr", None)
     if cached is None or cached[0] != key:
         SQ._torch_qr = None          # let the old plan go before the new
-        dp = _upload(SQ, build_qr_plan(SQ, Aq, nrhs), device)
+        dp = _upload(build_qr_plan(SQ, Aq, nrhs), device)
         SQ._torch_qr = cached = (key, dp)
     return cached[1]
 
@@ -357,7 +369,10 @@ def factorize_qr_device(A: CSC, SQ: QRSymbolicMF, b: np.ndarray,
 
 def qr_solve_device(F: MFQRDeviceFactor) -> np.ndarray:
     """x = R \\ (Q'b): the backward sweep over the device panels, root to
-    leaves (``x`` keeps a zero row n that padded columns read)."""
+    leaves (``x`` keeps a zero row n that padded columns read). Every
+    position comes from the plan, so the LU's stored U panels
+    (:mod:`.mflu_unsym`: pivots, then the beyond-pivot columns from Cg,
+    then the right-hand sides) take the same sweep."""
     dp = F.dplan
     n, nrhs = dp.plan.n, dp.plan.nrhs
     x = torch.zeros((n + 1, nrhs), dtype=F.pool.dtype, device=F.pool.device)
@@ -368,7 +383,10 @@ def qr_solve_device(F: MFQRDeviceFactor) -> np.ndarray:
             y = flat.index_select(0, g.yidx).view(g.B, g.K, nrhs)
             xg = x.index_select(0, g.xidx).view(g.B, g.N, nrhs)
             rhs = torch.baddbmm(y, R, xg, alpha=-1.0)    # y - R_beyond x
-            R11 = torch.where(g.live, R[:, :, :g.K], g.eye)
+            Rsq = R[:, :, :g.K]
+            if g.K > g.N:     # more stored rows than columns: zero-pad R11
+                Rsq = torch.nn.functional.pad(Rsq, (0, g.K - g.N))
+            R11 = torch.where(g.live, Rsq, g.eye)
             xs = torch.linalg.solve_triangular(R11, rhs, upper=True)
             x.index_copy_(0, g.cols,
                           xs.reshape(g.B * g.K, nrhs).index_select(0, g.rows))

@@ -1,6 +1,7 @@
 """Fill-reducing orderings of the port: AMD and nested dissection on the
-pattern of A + A', COLAMD on the pattern of A'A (for QR), all in the host
-C++ library."""
+pattern of A + A', COLAMD on the pattern of A'A (for QR), and the block
+triangular form of the LU path (:mod:`.btf`), all in the host C++
+library."""
 
 from __future__ import annotations
 

@@ -14,7 +14,10 @@ K6 kernel routes (``solve_pmv=True, solve_bmv=True``; ``w2k1``, ``w2k8``).
 Then the multifrontal QR: a pattern-cached ``qrsol`` (b from seed 7) on
 ``local_coupling_ls(6000, 2000)`` (``qr_lc``) and on
 ``grid_gradient_3d(32)`` in fp32 (``qr_grid``) and fp64 (``qr_grid64``).
-Each
+Then the unsymmetric multifrontal LU: ``lu_unsym_solve_device`` (factor
+and sweep, the analysis cached) on ``fem_unsym(30)`` (the fixture of
+``demos/bench_unsym.py``, b = ones) in fp32 (``lu_fem``) and fp64
+(``lu_fem64``). Each
 phase gets one warm call, the minimum of 3 unprofiled calls (host clock
 around the call, synchronized), then one call under ``torch.profiler``.
 Per phase it prints one JSON line:
@@ -31,9 +34,12 @@ Per phase it prints one JSON line:
 It then times every ``_group_compute`` of one factorization with a device
 synchronize after each group and prints the 25 slowest groups, and every
 group of the grid's fp32 and fp64 QR factor (``_factor_group``: the
-gather, the batched QR, the write) the same way. The full tables go to
-``prof_out/`` in the checkout: ``prof_<phase>.txt``, ``prof_groups.txt``
-and ``prof_qr_groups.txt``.
+gather, the batched QR, the write) the same way, and every group of the
+LU factor in fp32 and fp64 (``mflu_unsym._factor_group``: the gather, the
+batched LU, the solves, the CB update, the write). The full tables go to
+``prof_out/`` in the checkout: ``prof_<phase>.txt``, ``prof_groups.txt``,
+``prof_qr_groups.txt`` and ``prof_lu_groups.txt``; ``lu_profile()`` runs
+the LU's phases alone.
 """
 
 from __future__ import annotations
@@ -48,7 +54,7 @@ import numpy as np
 import torch
 
 from . import DEFAULT, Ordering, analyze, factorize, fixtures, qrsol, solve
-from .numeric import mfqr_device, supernodal_device
+from .numeric import mflu_unsym, mfqr_device, supernodal_device
 from .numeric.supernodal import supernodal_symbolic
 
 SIZE = 50
@@ -187,6 +193,53 @@ def qr_group_times(A, b) -> None:
     print("\n".join(t for t in text if "per-group" in t), flush=True)
 
 
+def lu_group_times(A, b, SL) -> None:
+    """Each group of the LU factor of ``A`` in fp32 and fp64 (the pass at
+    tau 1e-6), synchronized before and after."""
+    inner = mflu_unsym._factor_group
+    text = []
+    for dtype in ("float32", "float64"):
+        times = []
+
+        def timed(g, lg, pool, tau_rel):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            inner(g, lg, pool, tau_rel)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0, g, lg))
+
+        mflu_unsym._factor_group = timed
+        try:
+            mflu_unsym.factorize_lu_unsym_device(
+                A, SL, b, DEFAULT.replace(compute_dtype=dtype), "cuda")
+        finally:
+            mflu_unsym._factor_group = inner
+        times.sort(key=lambda t: t[0], reverse=True)
+        text.append(f"{dtype}: per-group sum "
+                    f"{sum(t for t, _g, _l in times):.4f} s over "
+                    f"{len(times)} groups")
+        text += [f"{t:.5f} B={g.B} M={g.M} N={g.N} K={g.K} Cg={lg.Cg}"
+                 for t, g, lg in times]
+    with open(os.path.join(OUT_DIR, "prof_lu_groups.txt"), "w") as f:
+        f.write("\n".join(text) + "\n")
+    print("\n".join(t for t in text if "per-group" in t), flush=True)
+
+
+def lu_profile() -> None:
+    """The LU's phases (``lu_fem``, ``lu_fem64``) and its per-group
+    factor times."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    A = fixtures.fem_unsym(30)
+    b = np.ones(A.ncol)
+    SL = mflu_unsym.analyze_mflu_unsym(A)
+    profile_phase("lu_fem", lambda: mflu_unsym.lu_unsym_solve_device(
+        A, b, DEFAULT, SL))
+    fp64 = DEFAULT.replace(compute_dtype="float64")
+    profile_phase("lu_fem64", lambda: mflu_unsym.lu_unsym_solve_device(
+        A, b, fp64, SL))
+    lu_group_times(A, b, SL)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("prof: no CUDA device", file=sys.stderr)
@@ -236,6 +289,7 @@ def main() -> int:
     qr64 = DEFAULT.replace(compute_dtype="float64")
     profile_phase("qr_grid64", lambda: qrsol(Ag, bg, qr64))
     qr_group_times(Ag, bg)
+    lu_profile()
     return 0
 
 

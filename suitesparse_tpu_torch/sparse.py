@@ -16,7 +16,8 @@ import numpy as np
 
 from . import native
 
-__all__ = ["CSC", "from_triplets", "invert_permutation", "residual_norm"]
+__all__ = ["CSC", "from_dense", "from_triplets", "invert_permutation",
+           "residual_norm"]
 
 
 def _as_index(a) -> np.ndarray:
@@ -154,6 +155,34 @@ class CSC:
                            minlength=A.ncol)
         return float(sums.max())
 
+    def symmetry(self, tol: float = 0.0) -> dict:
+        """Structural/numeric symmetry report (cholmod_symmetry analog):
+        {'structural': frac, 'numeric': frac, 'hermitian': frac, 'nzdiag':
+        count}, the fractions over the off-diagonal pattern."""
+        A = self.to_full_storage()
+        if A.nrow != A.ncol:
+            raise ValueError("symmetry needs a square matrix")
+        cols = _col_ids(A.indptr)
+        diag = A.indices == cols
+        nzdiag = int(np.count_nonzero(diag))
+        off = ~diag
+        r, c, x = A.indices[off], cols[off], A.data[off]
+        if r.size == 0:
+            return {"structural": 1.0, "numeric": 1.0, "hermitian": 1.0,
+                    "nzdiag": nzdiag}
+        key = r * A.ncol + c
+        keyT = c * A.ncol + r
+        order = np.argsort(key)
+        pos = np.clip(np.searchsorted(key[order], keyT), 0, key.size - 1)
+        hit = key[order][pos] == keyT
+        xv = x[order][pos]
+        num_ok = hit & (np.abs(xv - x) <= tol + tol * np.abs(x))
+        herm_ok = hit & (np.abs(np.conj(xv) - x) <= tol + tol * np.abs(x))
+        return {"structural": float(np.count_nonzero(hit)) / r.size,
+                "numeric": float(np.count_nonzero(num_ok)) / r.size,
+                "hermitian": float(np.count_nonzero(herm_ok)) / r.size,
+                "nzdiag": nzdiag}
+
     def aat_pattern(self) -> "CSC":
         """Pattern of A + A' minus the diagonal, general CSC with data=1
         (the ordering input, reference ``AMD/Source/amd_aat.c``)."""
@@ -188,6 +217,19 @@ def from_triplets(nrow: int, ncol: int, rows, cols, vals, sym: int = 0) -> CSC:
     indptr = np.zeros(ncol + 1, dtype=np.int64)
     np.cumsum(counts, out=indptr[1:])
     return CSC(nrow, ncol, indptr, r[new_grp], x_sum.astype(vals.dtype), sym)
+
+
+def from_dense(A: np.ndarray, sym: int = 0, tol: float = 0.0) -> CSC:
+    """The entries of dense A with |a| > tol as CSC; ``sym`` = 1 keeps the
+    upper triangle (upper-stored symmetric), -1 the lower."""
+    A = np.asarray(A)
+    mask = np.abs(A) > tol
+    if sym == 1:
+        mask &= np.arange(A.shape[0])[:, None] <= np.arange(A.shape[1])
+    elif sym == -1:
+        mask &= np.arange(A.shape[0])[:, None] >= np.arange(A.shape[1])
+    r, c = np.nonzero(mask)
+    return from_triplets(A.shape[0], A.shape[1], r, c, A[r, c], sym=sym)
 
 
 def _concat_ranges(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:

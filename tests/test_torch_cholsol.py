@@ -64,10 +64,12 @@ def test_cuda_without_a_card_raises(monkeypatch):
 
 def test_routes_outside_the_slice_raise():
     A = sstt.fixtures.laplacian_3d(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sstt.lusol(A, np.ones(A.ncol))
+    x = sstt.lusol(A, np.ones(A.ncol))           # ported: the host LU
+    assert sstt.residual_norm(A, x, np.ones(A.ncol)) < 1e-12
     Ac = sstt.fixtures.laplacian_3d(4)
     Ac.data = Ac.data.astype(np.complex128)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        sstt.lusol(Ac, np.ones(Ac.ncol))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sstt.cholsol(Ac, np.ones(Ac.ncol), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

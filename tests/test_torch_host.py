@@ -93,6 +93,7 @@ def test_no_module_of_the_port_imports_jax_or_the_jax_package():
 
 
 def test_cholsol_runs_with_jax_and_the_jax_package_blocked():
+    """cholsol, qrsol, the LU router's device strategy and lusol."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
@@ -118,6 +119,18 @@ def test_cholsol_runs_with_jax_and_the_jax_package_blocked():
         "                                        * np.abs(r).max())\n"
         "    assert ne < 1e-4, ne\n"
         "    print('qr', A.nrow, mfqr_device.device_factors - calls, ne)\n"
+        "from suitesparse_tpu_torch.numeric import mflu_unsym, multifrontal_lu\n"
+        "A = sstt.fixtures.upwind_unsym(6)\n"
+        "b = np.ones(A.ncol)\n"
+        "calls = mflu_unsym.device_factors\n"
+        "x = multifrontal_lu.mflusol(A, b, device='cpu')\n"
+        "r = sstt.residual_norm(A, x, b)\n"
+        "assert r < 1e-10, r\n"
+        "print('lu', mflu_unsym.device_factors - calls > 0, r)\n"
+        "x = sstt.lusol(A, b)\n"
+        "r = sstt.residual_norm(A, x, b)\n"
+        "assert r < 1e-12, r\n"
+        "print('klu', r)\n"
         "loaded = [m for m, v in sys.modules.items() if v is not None and\n"
         "          m.split('.')[0] in ('jax', 'jaxlib', 'suitesparse_tpu')]\n"
         "assert loaded == [], loaded\n")
@@ -131,6 +144,8 @@ def test_cholsol_runs_with_jax_and_the_jax_package_blocked():
     assert lines[2].startswith("5 auto False")       # the host path
     assert lines[3].startswith("qr 600 1")           # the device QR
     assert lines[4].startswith("qr 120 0")           # the host QR
+    assert lines[5].startswith("lu True")            # the device LU
+    assert lines[6].startswith("klu ")               # the host LU
 
 
 @pytest.mark.parametrize("name", sorted(PROBLEMS))
@@ -210,7 +225,7 @@ def test_host_library_builds_into_the_ignored_lib_dir():
     assert cmd[cmd.index("-o") + 1] == os.path.join(PORT, "native", "lib",
                                                     "libsst_host.so")
     assert sorted(os.path.basename(c) for c in cmd if c.endswith(".cc")) == [
-        "amd.cc", "colamd.cc", "hsolve.cc", "nd.cc", "super.cc",
-        "symbolic.cc"]
+        "amd.cc", "btf.cc", "colamd.cc", "hsolve.cc", "lu.cc", "nd.cc",
+        "super.cc", "symbolic.cc", "wmatch.cc"]
     with open(os.path.join(REPO, ".gitignore")) as f:
         assert "suitesparse_tpu_torch/native/lib/" in f.read().split()

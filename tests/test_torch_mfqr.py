@@ -345,6 +345,56 @@ def test_qrsol_end_to_end(name):
     assert np.abs(x32 - x).max() <= 1e-4 * np.abs(x).max()
 
 
+def _contiguous_sweep(F):
+    """The backward sweep as it was before it took its positions from the
+    plan: the right-hand sides at front column nf + j, the beyond-pivot
+    columns at [nc, nf), R11 from the first K columns."""
+    dp, S = F.dplan, F.SQ.S
+    n, nrhs = dp.plan.n, dp.plan.nrhs
+    x = torch.zeros((n + 1, nrhs), dtype=F.pool.dtype)
+    groups = [g for gl in dp.plan.groups for g in gl]
+    for g, ga in zip(reversed(groups), reversed(dp.groups)):
+        B, K, N = g.B, g.K, g.N
+        nf = np.array([len(S.rows[s]) for s in g.snodes], np.int64)
+        nc = g.nc.astype(np.int64)
+        yidx = ((np.arange(B)[:, None, None] * K + np.arange(K)[None, :, None])
+                * N + nf[:, None, None] + np.arange(nrhs)[None, None, :])
+        ar_n = np.arange(N)
+        beyond = (ar_n[None, :] >= nc[:, None]) & (ar_n[None, :] < nf[:, None])
+        xidx = np.where(beyond.ravel(), g.col_idx, n)
+        assert torch.equal(ga.yidx, torch.from_numpy(yidx.ravel()))
+        assert torch.equal(ga.xidx, torch.from_numpy(xidx))
+        flat = F.pool[g.panel_base:g.panel_base + B * K * N]
+        R = flat.view(B, K, N)
+        y = flat.index_select(0, torch.from_numpy(yidx.ravel())) \
+            .view(B, K, nrhs)
+        xg = x.index_select(0, torch.from_numpy(xidx)).view(B, N, nrhs)
+        rhs = torch.baddbmm(y, R, xg, alpha=-1.0)
+        R11 = torch.where(ga.live, R[:, :, :K], ga.eye)
+        xs = torch.linalg.solve_triangular(R11, rhs, upper=True)
+        x.index_copy_(0, ga.cols,
+                      xs.reshape(B * K, nrhs).index_select(0, ga.rows))
+    xh = x[:n].double().numpy()
+    xout = np.empty_like(xh)
+    xout[F.SQ.q] = xh
+    return xout
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32"])
+@pytest.mark.parametrize("name", NAMES)
+def test_generalised_sweep_is_bit_equal_to_the_contiguous_one(name, dtype):
+    """The sweep takes every position from the plan (the LU's gapped
+    panels share it); on QR plans its index arrays and its x are bit for
+    bit those of the contiguous-layout sweep it replaced."""
+    A, _Aj = both(name)
+    SQ = mq.analyze_mfqr(A)
+    b = np.random.default_rng(9).standard_normal((A.nrow, 2))
+    F = md.factorize_qr_device(A, SQ, b, CFG64.replace(compute_dtype=dtype),
+                               device="cpu")
+    assert all(g.K <= g.N for gl in F.dplan.plan.groups for g in gl)
+    assert np.array_equal(md.qr_solve_device(F), _contiguous_sweep(F))
+
+
 def test_householder_flops():
     A, _ = both("case1")
     SQ = mq.analyze_mfqr(A)
