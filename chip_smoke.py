@@ -138,6 +138,35 @@
    rungs; ``lu_s``, ``lu64_s``, ``lu_upwind_s`` and the gates join the
    metrics line. No hand-written kernel runs there either
    (``lu_factor_ex``, ``solve_triangular``, ``baddbmm``, gathers).
+10. Complex input (``complex_phase``, with ``ComplexWarning`` an error):
+   the magnetic Laplacian of a 40^3 grid (``laplacian_3d(40)``, each
+   strictly-upper entry times e^{i theta}, theta ~ U(-pi, pi) from seed 0;
+   n = 64,000, 128,000 real unknowns embedded), b = 1 + i k/n, through
+   ``cholsol``, which must take the 2x2 real embedding: the embedded
+   factor must launch K1, K2 and K7, residual below 1e-5 and max|Hx -
+   b| / max|b| below 1e-4; then K1, K2, K3 and K7 (fp32 and fp64) held
+   against their plain versions at the embedded plan's shapes
+   (``embedded_kernels``: its largest groups, the kernel phase's
+   tolerances), and the embedded factor of a small magnetic Laplacian
+   (k = 10) on the card equal to the CPU factor within 1e-5, its solve
+   within 1e-4 of the host LL^H (``small_complex_check``); the first
+   call with its parts (the n-node and
+   the embedded analysis, the plan, the factor, the solve; the sweep
+   ``solve_mode="auto"`` picked), the steady ``cholsol_complex_device``
+   (analysis cached, min of 3), one classic solve (K3 must launch, below
+   1e-5) and one fp64 call (K7's double instance, below 1e-12, the fp32
+   x within 1e-4 of its x);
+   ``upwind_unsym(29)`` with its values times e^{i theta}, theta ~
+   U(-pi/4, pi/4) from seed 5, through ``multifrontal_lu.mflusol`` (the
+   unsymmetric strategy on the embedding, n = 48,778 real: at 30 the
+   embedded plan is past the segmented switch, ``CPLX_LU_NX``), residual below
+   1e-10 after the ladder, its rungs and wall; ``local_coupling_ls(6000,
+   2000)`` and ``grid_gradient_3d(24)`` times e^{i theta} from seed 7
+   through ``qrsol`` in fp32 (the device QR of the embedding), the complex
+   normal-equations residual below 1e-4 and, at 6000 x 2000, x within
+   1e-4 of a dense ``lstsq``. Parts are the seconds spent in each step
+   over the call, the device synchronized around each. Its JSON line
+   (``complex``) comes before the kernel line.
 
 Every kernel count is set to 0 just before each path and read just after.
 Any failure raises (exit code != 0). Without a CUDA device the script exits
@@ -146,6 +175,7 @@ with code 2 before doing anything. The last line is the device JSON.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import subprocess
@@ -178,6 +208,24 @@ LU_TOL = 1e-10         # residual after the LU ladder
 LU_ONE_TOL = {"float32": 1e-4, "float64": 1e-12}   # one factor + solve
 LU_REPAIR = (60, 6)    # tests/test_mflu_unsym.py:96: n and seeds
 LU_REPAIR_TOL = 1e-12
+CPLX_K = 40            # the magnetic Laplacian of a 40^3 grid: n = 64,000
+CPLX_SEED = 0          # (128,000 real unknowns embedded)
+CPLX_TOL = {"float32": 1e-5, "float64": 1e-12}   # residual_norm
+CPLX_GATE = 1e-4       # max|Hx - b| / max|b|, tests/test_complex_device.py:40
+CPLX_X_TOL = 1e-4      # the fp32 x against the fp64 x
+# upwind_unsym(29) rotated: n = 24,389 (48,778 real unknowns embedded), the
+# largest grid whose embedded LU plan (1.908e9 front cells by the
+# reference's estimate) stays under the segmented switch at 2e9 (not
+# ported, ROADMAP queue 1 item 10); at 30 the plan holds 2.284e9 and the
+# port raises
+CPLX_LU_NX = 29
+CPLX_LU_SEED = 5
+CPLX_LU_TOL = 1e-10    # residual after the LU ladder
+CPLX_QR_LC = (6000, 2000)
+CPLX_QR_GRID = 24      # grid_gradient_3d(24) rotated: about 80k x 27.6k real
+CPLX_QR_SEED = 7
+CPLX_QR_NE_TOL = 1e-4  # complex normal-equations residual
+CPLX_QR_LSTSQ_TOL = 1e-4   # x vs dense lstsq at 6000 x 2000
 K7_GROUP = (114, 224)   # (B, R) of the factor's slowest placement group
 K7_CLASSES = ((75, 128), (15, 168), (59, 64))   # its (npairs, RU) classes
 K7_F64_GROUP = 3912     # R of the fp64 factor's largest tile group
@@ -530,10 +578,13 @@ def _tri_tiles(rng, B, C, dev):
     return torch.as_tensor(L.astype(np.float32), device=dev)
 
 
-def solve_kernels(dp, dpf, dev, rng):
-    """K3 (forward, backward) and K4 against their plain versions at the
-    shapes of the model plan and the forest plan. Returns the records and
-    K4's device ms by (B, C, NR, transpose)."""
+def _k3_rows(rec, r, B, C, RU, nrs, where, dev):
+    """K3 both ways against the plain versions and the library route,
+    two calls bit-equal, NaN above L11's diagonal (K3 reads its lower
+    triangle only; the plain versions and the library take a copy
+    without it); L21 and the (B, RU, NR) vectors as the sweep passes
+    them, views into a packed (B, R, C) panel and a (B, R, NR)
+    buffer."""
     import torch
 
     from suitesparse_tpu_torch.kernels.solve_step import (
@@ -541,6 +592,73 @@ def solve_kernels(dp, dpf, dev, rng):
         solve_step_fwd_plain, solve_step_geometry)
     from suitesparse_tpu_torch.kernels.step_sweep import (library_bwd,
                                                           library_fwd)
+
+    R = C + RU
+    P = torch.empty(B, R, C, device=dev)
+    L11 = _tri_tiles(r, B, C, dev)
+    P[:, C:] = torch.as_tensor(r.uniform(-1.0, 1.0, (B, RU, C))
+                               .astype(np.float32) / C, device=dev)
+    L21 = P[:, C:]
+    Ln = L11.clone()
+    iu = torch.triu_indices(C, C, 1, device=dev)
+    Ln[:, iu[0], iu[1]] = float("nan")
+    for nr in nrs:
+        Y = torch.as_tensor(r.standard_normal((B, C, nr),
+                                              dtype=np.float32),
+                            device=dev)
+        W = torch.as_tensor(r.standard_normal((B, R, nr),
+                                              dtype=np.float32),
+                            device=dev)
+        WB = W[:, C:]
+        shape = f"(B,C,RU,NR)=({B},{C},{RU},{nr}) {where}"
+        # L11's lower triangle and L21, read once
+        io = 4.0 * B * (C * (C + 1) / 2 + RU * C)
+        flops = float(B * nr * (C * C + 2 * RU * C))
+        for name in ("solve_step_fwd", "solve_step_bwd"):
+            tr = name == "solve_step_bwd"
+            g = solve_step_geometry(B, C, RU, nr, tr)
+            plan = " ".join(f"{k}={v}" for k, v in g._asdict().items())
+            kern = solve_step_bwd if tr else solve_step_fwd
+            plain = solve_step_bwd_plain if tr else solve_step_fwd_plain
+            lib = library_bwd if tr else library_fwd
+            out = kern(Ln, L21, Y, WB)
+            out2 = kern(Ln, L21, Y, WB)
+            ref = plain(L11, L21, Y, WB)
+            if not tr:
+                out, out2, ref = [o for o in out if o is not None], \
+                    [o for o in out2 if o is not None], \
+                    [o for o in ref if o is not None]
+            else:
+                out, out2, ref = [out], [out2], [ref]
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(out, out2)), \
+                f"two {name} calls differ at {shape}"
+            errs = [_rel_err(a, b) for a, b in zip(out, ref)]
+            d, e = max(x[0] for x in errs), max(x[1] for x in errs)
+            lib_ms = None
+            if RU:
+                lo = lib(L11, L21, Y, WB)
+                lo = list(lo) if not tr else [lo]
+                torch.cuda.synchronize()
+                e_lib = max(_rel_err(a, b)[1] for a, b in zip(lo, ref))
+                assert e_lib <= K34_TOL, \
+                    f"K3's library route disagrees: {e_lib}"
+                lib_ms = _cuda_ms(lambda: lib(L11, L21, Y, WB), 10)
+            # bytes: the panel, y, wb or xb read; xc and v written
+            nbytes = io + (8.0 * (B * C * nr + B * RU * nr) if not tr
+                           else 4.0 * (2 * B * C * nr + B * RU * nr))
+            _record(rec, name, f"{shape} plan: {plan}", e, d,
+                    _cuda_ms(lambda: kern(Ln, L21, Y, WB), 10),
+                    _cuda_ms(lambda: plain(L11, L21, Y, WB), 2),
+                    nbytes, flops, library_ms=lib_ms)
+
+
+def solve_kernels(dp, dpf, dev, rng):
+    """K3 (forward, backward) and K4 against their plain versions at the
+    shapes of the model plan and the forest plan. Returns the records and
+    K4's device ms by (B, C, NR, transpose)."""
+    import torch
+
     from suitesparse_tpu_torch.kernels.trisolve import (
         batched_trisolve, batched_trisolve_plain)
     from suitesparse_tpu_torch.numeric.supernodal_solve import classic_route
@@ -556,79 +674,13 @@ def solve_kernels(dp, dpf, dev, rng):
         {nr: len(g) for nr, g in taken.items()}
     k3 = sorted(taken[1], key=lambda g: g.B * g.R * g.C, reverse=True)[:4]
 
-    def k3_rows(r, B, C, RU, nrs, where):
-        """K3 both ways against the plain versions and the library route,
-        two calls bit-equal, NaN above L11's diagonal (K3 reads its lower
-        triangle only; the plain versions and the library take a copy
-        without it); L21 and the (B, RU, NR) vectors as the sweep passes
-        them, views into a packed (B, R, C) panel and a (B, R, NR)
-        buffer."""
-        R = C + RU
-        P = torch.empty(B, R, C, device=dev)
-        L11 = _tri_tiles(r, B, C, dev)
-        P[:, C:] = torch.as_tensor(r.uniform(-1.0, 1.0, (B, RU, C))
-                                   .astype(np.float32) / C, device=dev)
-        L21 = P[:, C:]
-        Ln = L11.clone()
-        iu = torch.triu_indices(C, C, 1, device=dev)
-        Ln[:, iu[0], iu[1]] = float("nan")
-        for nr in nrs:
-            Y = torch.as_tensor(r.standard_normal((B, C, nr),
-                                                  dtype=np.float32),
-                                device=dev)
-            W = torch.as_tensor(r.standard_normal((B, R, nr),
-                                                  dtype=np.float32),
-                                device=dev)
-            WB = W[:, C:]
-            shape = f"(B,C,RU,NR)=({B},{C},{RU},{nr}) {where}"
-            # L11's lower triangle and L21, read once
-            io = 4.0 * B * (C * (C + 1) / 2 + RU * C)
-            flops = float(B * nr * (C * C + 2 * RU * C))
-            for name in ("solve_step_fwd", "solve_step_bwd"):
-                tr = name == "solve_step_bwd"
-                g = solve_step_geometry(B, C, RU, nr, tr)
-                plan = " ".join(f"{k}={v}" for k, v in g._asdict().items())
-                kern = solve_step_bwd if tr else solve_step_fwd
-                plain = solve_step_bwd_plain if tr else solve_step_fwd_plain
-                lib = library_bwd if tr else library_fwd
-                out = kern(Ln, L21, Y, WB)
-                out2 = kern(Ln, L21, Y, WB)
-                ref = plain(L11, L21, Y, WB)
-                if not tr:
-                    out, out2, ref = [o for o in out if o is not None], \
-                        [o for o in out2 if o is not None], \
-                        [o for o in ref if o is not None]
-                else:
-                    out, out2, ref = [out], [out2], [ref]
-                torch.cuda.synchronize()
-                assert all(torch.equal(a, b) for a, b in zip(out, out2)), \
-                    f"two {name} calls differ at {shape}"
-                errs = [_rel_err(a, b) for a, b in zip(out, ref)]
-                d, e = max(x[0] for x in errs), max(x[1] for x in errs)
-                lib_ms = None
-                if RU:
-                    lo = lib(L11, L21, Y, WB)
-                    lo = list(lo) if not tr else [lo]
-                    torch.cuda.synchronize()
-                    e_lib = max(_rel_err(a, b)[1] for a, b in zip(lo, ref))
-                    assert e_lib <= K34_TOL, \
-                        f"K3's library route disagrees: {e_lib}"
-                    lib_ms = _cuda_ms(lambda: lib(L11, L21, Y, WB), 10)
-                # bytes: the panel, y, wb or xb read; xc and v written
-                nbytes = io + (8.0 * (B * C * nr + B * RU * nr) if not tr
-                               else 4.0 * (2 * B * C * nr + B * RU * nr))
-                _record(rec, name, f"{shape} plan: {plan}", e, d,
-                        _cuda_ms(lambda: kern(Ln, L21, Y, WB), 10),
-                        _cuda_ms(lambda: plain(L11, L21, Y, WB), 2),
-                        nbytes, flops, library_ms=lib_ms)
-
     for g in k3:
-        k3_rows(rng, g.B, g.C, g.R - g.C, (1, NRHS), "plan")
+        _k3_rows(rec, rng, g.B, g.C, g.R - g.C, (1, NRHS), "plan", dev)
     # the off-plan shapes draw from a stream of their own, so that the
     # inputs of the later phases stay as they were
     off3 = np.random.default_rng(SEED + 3)
     for B, C, RU, nr in K3_OFF_PLAN:
-        k3_rows(off3, B, C, RU, (nr,), "off-plan")
+        _k3_rows(rec, off3, B, C, RU, (nr,), "off-plan", dev)
 
     root = [g for gl in dpf.plan.groups for g in gl
             if classic_route(torch.float32, g.B, g.C, g.R - g.C, 1)
@@ -777,12 +829,14 @@ def w2_kernels(dp, dev, rng):
     return rec
 
 
-def _k7_group_row(rec, name, g, work, dp, dev, rng, dtype, tol, label):
+def _k7_group_row(rec, name, g, work, dp, dev, rng, dtype, tol, label,
+                  skip=()):
     """K7's group form (one launch for all classes of ``work``, the
-    factor's call) against its plain version, two calls bit-equal and
-    equal bit for bit to the same kernel launched one class at a time;
-    timed beside the plain version and the library scatter, class by
-    class (``extend_add_library``, one call a class)."""
+    factor's call: the classes of ``g`` outside ``skip``) against its plain
+    version, two calls bit-equal and equal bit for bit to the same kernel
+    launched one class at a time; timed beside the plain version and the
+    library scatter, class by class (``extend_add_library``, one call a
+    class)."""
     import torch
 
     from suitesparse_tpu_torch.kernels.extend_add import (
@@ -818,8 +872,9 @@ def _k7_group_row(rec, name, g, work, dp, dev, rng, dtype, tol, label):
     e_lib = _rel_err(Fl[:-1].view(B, R, R), Fp)[1]
     assert e_lib <= tol, f"library disagrees with plain: {e_lib}"
     itemsize = F0.element_size()
-    assert len(work.keys) == len(g.pairs)   # all the group's classes
-    nbytes, adds = group_work(build_work(B, R, k7_classes(g)), itemsize)
+    classes = k7_classes(g, skip)
+    assert len(work.keys) == len(classes)
+    nbytes, adds = group_work(build_work(B, R, classes), itemsize)
 
     def library(F):
         for U, (idx, dst, src) in zip(Us, maps):
@@ -1015,6 +1070,49 @@ def auto_fallback(F) -> None:
     print(f"auto solve_mode: w2 with the card's free memory, classic with "
           f"{short} B free and {cached} B cached (W2 needs {need} B)",
           flush=True)
+
+
+def _counters() -> dict:
+    """kernel -> (wrapper, attribute holding its launch count)."""
+    from suitesparse_tpu_torch.kernels.bmatvec import bmatvec
+    from suitesparse_tpu_torch.kernels.extend_add import extend_add
+    from suitesparse_tpu_torch.kernels.extend_add_tiles import \
+        extend_add_tiles
+    from suitesparse_tpu_torch.kernels.pmatvec import pmatvec_t
+    from suitesparse_tpu_torch.kernels.potrf import potrf_trsm
+    from suitesparse_tpu_torch.kernels.solve_step import (solve_step_bwd,
+                                                          solve_step_fwd)
+    from suitesparse_tpu_torch.kernels.trisolve import batched_trisolve
+
+    return {"potrf_trsm": (potrf_trsm, "launches"),
+            "extend_add_tiles": (extend_add_tiles, "launches"),
+            "extend_add_tiles_pair": (extend_add_tiles, "pair_launches"),
+            "solve_step_fwd": (solve_step_fwd, "launches"),
+            "solve_step_bwd": (solve_step_bwd, "launches"),
+            "batched_trisolve": (batched_trisolve, "launches"),
+            "pmatvec_t": (pmatvec_t, "launches"),
+            "bmatvec": (bmatvec, "launches"),
+            "bmatvec_t": (bmatvec, "transposed_launches"),
+            "extend_add": (extend_add, "launches"),
+            "extend_add_f64": (extend_add, "fp64_launches")}
+
+
+def zero_counts() -> None:
+    for w, attr in _counters().values():
+        setattr(w, attr, 0)
+
+
+def counts() -> dict:
+    return {k: getattr(w, attr) for k, (w, attr) in _counters().items()}
+
+
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip() \
+        .splitlines()[0]
 
 
 def _normal_residual(A, x, b) -> float:
@@ -1310,6 +1408,400 @@ def lu_phase() -> dict:
     return out
 
 
+@contextlib.contextmanager
+def _spans(targets: dict):
+    """Seconds spent in each of ``targets`` (name -> (module, function
+    name)) while the block runs, the device synchronized before and after
+    each call; yields the dict it fills, and puts the functions back."""
+    import torch
+
+    out, saved = {}, []
+    for name, (mod, attr) in targets.items():
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+
+        def timed(*args, _fn=fn, _name=name, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = _fn(*args, **kw)
+            torch.cuda.synchronize()
+            out[_name] = out.get(_name, 0.0) + time.perf_counter() - t0
+            return res
+
+        setattr(mod, attr, timed)
+    try:
+        yield out
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def magnetic_laplacian(k: int, seed: int = CPLX_SEED):
+    """``laplacian_3d(k)`` with each strictly-upper entry times e^{i theta},
+    theta ~ U(-pi, pi) from ``default_rng(seed)`` in storage order: a
+    connection Laplacian plus the Dirichlet boundary, Hermitian positive
+    definite; the diagonal's imaginary parts are explicit zeros."""
+    import suitesparse_tpu_torch as sstt
+
+    A = sstt.fixtures.laplacian_3d(k)
+    cols = np.repeat(np.arange(A.ncol), np.diff(A.indptr))
+    off = A.indices < cols
+    theta = np.random.default_rng(seed).uniform(-np.pi, np.pi,
+                                                int(off.sum()))
+    data = A.data.astype(np.complex128)
+    data[off] *= np.exp(1j * theta)
+    return sstt.CSC(A.nrow, A.ncol, A.indptr, A.indices, data, 1)
+
+
+def embedded_kernels(dp, dev, rng) -> dict:
+    """K1, K2, K3 and K7 against their plain versions at the shapes of the
+    embedded magnetic Laplacian's plan ``dp`` (even-width supernodes, maps
+    of 2x2 blocks), at the kernel phase's tolerances: K1 on the three
+    largest groups of its gate, K2 on the manifest with the most steps and
+    on the widest tile group (NaN above U's diagonal, which K2 must not
+    read), K3 both ways at one right-hand side on the four largest groups
+    of its classic route (which sends no group of this plan to K4), K7's
+    group form on the fp32 and the fp64 work list with the most cells.
+    Each kernel call is made twice for bit-equal results. Returns each
+    kernel's largest error."""
+    import torch
+
+    from suitesparse_tpu_torch.kernels.extend_add_tiles import (
+        extend_add_tiles, extend_add_tiles_plain)
+    from suitesparse_tpu_torch.kernels.potrf import (potrf_trsm,
+                                                     potrf_trsm_plain)
+    from suitesparse_tpu_torch.kernels.potrf_sweep import tiles as k1_tiles
+    from suitesparse_tpu_torch.numeric.supernodal_device import \
+        _use_potrf_kernel
+    from suitesparse_tpu_torch.numeric.supernodal_solve import classic_route
+
+    walk = [(g, ix) for gl, il in zip(dp.plan.groups, dp.groups)
+            for g, ix in zip(gl, il)]
+    groups = [g for g, _ix in walk]
+    rec: dict = {}
+
+    def check(name, shape, d, e, tol):
+        print(f"{name} embedded plan {shape} rel_err={e:.3e}", flush=True)
+        assert np.isfinite(e) and e <= tol, \
+            f"{name} disagrees on the embedded plan at {shape}: {e}"
+        fold(name, {"err": e, "abs": d})
+
+    def fold(name, r):
+        k = rec.setdefault(name, {"err": 0.0, "abs": 0.0})
+        k["err"], k["abs"] = max(k["err"], r["err"]), max(k["abs"], r["abs"])
+
+    def largest(gs):
+        return sorted(gs, key=lambda g: g.B * g.R * g.C, reverse=True)
+
+    for g in largest(g for g in groups
+                     if _use_potrf_kernel(torch.float32, g.B, g.C))[:3]:
+        B, C, RU = g.B, g.C, g.R - g.C
+        f11, f21 = k1_tiles(rng, B, C, RU, dev)
+        L11, L21 = potrf_trsm(f11, f21)
+        again = potrf_trsm(f11, f21)
+        P11, P21 = potrf_trsm_plain(f11, f21)
+        torch.cuda.synchronize()
+        assert torch.equal(again[0], L11) and \
+            (RU == 0 or torch.equal(again[1], L21)), (B, C, RU)
+        d, e = _rel_err(L11, P11)
+        if RU:
+            d21, e21 = _rel_err(L21, P21)
+            d, e = max(d, d21), max(e, e21)
+        check("potrf_trsm", f"(B,C,RU)=({B},{C},{RU})", d, e, K1_TOL)
+
+    tiled = [g for g in groups if g._tile is not None]
+    k2_groups = (max(tiled, key=lambda g: g._tile.man.shape[0]),
+                 max(tiled, key=lambda g: g.R))
+    for tg in {id(g): g for g in k2_groups}.values():
+        tm = tg._tile
+        F0 = torch.as_tensor(rng.standard_normal((tg.B, tg.R, tg.R),
+                                                 dtype=np.float32), device=dev)
+        U = rng.standard_normal((max(tm.nslots, 1), tm.RUp, tm.RUp),
+                                dtype=np.float32)
+        U[(rng.random(U.shape, dtype=np.float32) < 0.05)
+          & np.triu(np.ones((tm.RUp, tm.RUp), bool), 1)] = np.nan
+        U = torch.as_tensor(U, device=dev)
+        args = tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                     for a in (tm.man, tm.rowmap, tm.colmap, tg._tile_runs))
+        Fk = extend_add_tiles(F0.clone(), U, *args)
+        Fk2 = extend_add_tiles(F0.clone(), U, *args)
+        Fp = extend_add_tiles_plain(F0.clone(), U, *args[:3])
+        torch.cuda.synchronize()
+        assert torch.equal(Fk, Fk2), (tg.B, tg.R)
+        check("extend_add_tiles", f"(B,R)=({tg.B},{tg.R}) "
+              f"steps={tm.man.shape[0]} RUp={tm.RUp}", *_rel_err(Fk, Fp),
+              K2_TOL)
+        del F0, U, Fk, Fk2, Fp
+
+    rows: dict = {}     # the rows of _k3_rows and _k7_group_row
+    for g in largest(g for g in groups if classic_route(
+            torch.float32, g.B, g.C, g.R - g.C, 1) == "solve_step")[:4]:
+        _k3_rows(rows, rng, g.B, g.C, g.R - g.C, (1,), "embedded plan",
+                 dev)
+    for name, dtype, tol, attr in (
+            ("extend_add", torch.float32, K567_TOL, "k7"),
+            ("extend_add_f64", torch.float64, K7_F64_TOL, "k7_all")):
+        g, ix = max(((g, ix) for g, ix in walk
+                     if getattr(ix, attr) is not None),
+                    key=lambda gi: getattr(gi[1], attr).cells)
+        skip = set(g._tile.folded) if attr == "k7" and g._tile is not None \
+            else ()
+        _k7_group_row(rows, name, g, getattr(ix, attr), dp, dev, rng, dtype,
+                      tol, "embedded plan", skip)
+    for name, r in rows.items():
+        fold(name, r)
+    return rec
+
+
+def small_complex_check(dev):
+    """The embedded factor of a small magnetic Laplacian (k = 10: 2,000
+    real unknowns, tiles from R = 32 so that K2 runs) on the card equal to
+    the CPU factor entry by entry, and the card solve equal to the host
+    LL^H solve."""
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.numeric import complex_embed as ce
+    from suitesparse_tpu_torch.numeric import (supernodal_device,
+                                               supernodal_solve)
+
+    H = magnetic_laplacian(10)
+    cfg = sstt.DEFAULT
+    S = ce.embedded_analysis(H, cfg)
+    M = ce.embed_matrix(H)
+    Fg = supernodal_device.factorize_device(M, S, cfg, dev, tile_rmin=32)
+    Fc = supernodal_device.factorize_device(M, S, cfg, "cpu", tile_rmin=32)
+    assert Fg.ok and Fc.ok
+    lg, lc = Fg.Lx.cpu().numpy(), Fc.Lx.numpy()
+    lx_err = np.abs(lg - lc).max() / np.abs(lc).max()
+    assert lx_err <= 1e-5, f"card factor differs from CPU factor: {lx_err}"
+    n = H.ncol
+    b = 1 + 1j * np.arange(n) / n
+    x = ce.unembed_vec(supernodal_solve.solve_device(Fg, ce.embed_vec(b),
+                                                     cfg))
+    x_ref = sstt.solve(sstt.factorize(H, sstt.analyze(H, cfg), cfg,
+                                      device="cpu"), b)
+    x_err = np.abs(x - x_ref).max() / np.abs(x_ref).max()
+    assert x.shape == (n,) and x_err <= 1e-4, f"small solve off: {x_err}"
+    print(f"small embedded check n={n} ({S.n} real): lx_rel_err="
+          f"{lx_err:.3e} x_rel_err_vs_host_llh={x_err:.3e}", flush=True)
+    return {"lx_err": float(lx_err), "x_err": float(x_err)}
+
+
+def _rotated(A, seed: int, spread: float):
+    """A general CSC with each value times e^{i theta}, theta ~ U(-spread,
+    spread) from ``default_rng(seed)`` in storage order."""
+    import suitesparse_tpu_torch as sstt
+
+    theta = np.random.default_rng(seed).uniform(-spread, spread, A.nnz)
+    return sstt.CSC(A.nrow, A.ncol, A.indptr, A.indices,
+                    A.data * np.exp(1j * theta), 0)
+
+
+def _complex_normal_residual(A, x, b) -> float:
+    """max|A^H r| / (max|A| max|r|), r = b - Ax: the least-squares
+    optimality measure of ``_normal_residual`` for complex A."""
+    r = b - A.matvec(x)
+    ahr = np.conj(A.rmatvec(np.conj(r)))
+    return float(np.abs(ahr).max()
+                 / (np.abs(A.data).max() * max(np.abs(r).max(), 1e-30)))
+
+
+def complex_phase() -> dict:
+    """Complex input on the card through the 2x2 real embedding (see the
+    module docstring, item 10). Every gate raises; ``ComplexWarning`` is an
+    error throughout; times are CUDA events or the host clock around
+    synchronized calls, the garbage collector held off."""
+    import warnings
+
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.numeric import complex_embed as ce
+    from suitesparse_tpu_torch.numeric import mflu_unsym as mu
+    from suitesparse_tpu_torch.numeric import mfqr_device as md
+    from suitesparse_tpu_torch.numeric import multifrontal_lu as ml
+    from suitesparse_tpu_torch.numeric import (supernodal_device,
+                                               supernodal_solve)
+
+    dev = torch.device("cuda", 0)
+    card = _card()
+    out = {"card": card}
+    chol_parts = {"analyze_n": (sstt, "analyze"),
+                  "analyze_embedded": (ce, "_embedded"),
+                  "plan": (supernodal_device, "device_plan"),
+                  "factor": (supernodal_device, "factorize_device"),
+                  "solve": (supernodal_solve, "solve_device")}
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", np.exceptions.ComplexWarning)
+        gc.disable()
+        try:
+            # ---- Hermitian: the magnetic Laplacian, k = 40 ----
+            H = magnetic_laplacian(CPLX_K)
+            n = H.ncol
+            b = 1 + 1j * np.arange(n) / n
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counts()
+            with _spans(chol_parts) as sp:
+                t0 = time.perf_counter()
+                x = sstt.cholsol(H, b)
+                torch.cuda.synchronize()
+                first_s = time.perf_counter() - t0
+            launches = counts()
+            cache = getattr(H, "_embed_chol", None)
+            assert cache is not None and cache[1][0].n == 2 * n, \
+                "cholsol kept the complex Hermitian cell off the embedding"
+            assert launches["potrf_trsm"] > 0 and \
+                launches["extend_add_tiles"] > 0 and \
+                launches["extend_add"] > 0, launches
+            S, P, _src = cache[1]
+            perm = sstt.analyze(H).perm
+            assert ce.embedded_analysis(H, sstt.DEFAULT, perm) is S
+            resid = sstt.residual_norm(H, x, b)
+            gate = np.abs(H.matvec(x) - b).max() / np.abs(b).max()
+            assert x.shape == (n,) and np.isfinite(x).all()
+            assert resid < CPLX_TOL["float32"] and gate < CPLX_GATE, \
+                (resid, gate)
+            parts = {"analyze_s": sp["analyze_n"] + sp["analyze_embedded"],
+                     "plan_s": sp["plan"],
+                     "factor_s": sp["factor"] - sp["plan"],
+                     "solve_s": sp["solve"]}
+            dp = supernodal_device.device_plan(P, S, dev)
+            groups = [g for gl in dp.plan.groups for g in gl]
+            k1 = sum(supernodal_device._use_potrf_kernel(
+                torch.float32, g.B, g.C) for g in groups)
+            widths = np.diff(S.super_first)
+            kernel_check = embedded_kernels(
+                dp, dev, np.random.default_rng(CPLX_SEED))
+            small = small_complex_check(dev)
+            F = supernodal_device.factorize_device(
+                ce.embed_matrix(H), S, sstt.DEFAULT, dev)
+            sweep = supernodal_solve.solve_mode(F, sstt.DEFAULT)
+            del F
+            chol_s = _best_s(lambda: ce.cholsol_complex_device(
+                H, b, perm=perm))
+            zero_counts()
+            classic = sstt.DEFAULT.replace(solve_mode="classic")
+            xc = ce.cholsol_complex_device(H, b, classic, perm=perm)
+            torch.cuda.synchronize()
+            classic_launches = counts()
+            assert classic_launches["solve_step_fwd"] > 0 and \
+                classic_launches["solve_step_bwd"] > 0, classic_launches
+            cresid = sstt.residual_norm(H, xc, b)
+            assert cresid < CPLX_TOL["float32"], cresid
+            cfg64 = sstt.DEFAULT.replace(compute_dtype="float64")
+            zero_counts()
+            t0 = time.perf_counter()
+            x64 = ce.cholsol_complex_device(H, b, cfg64, perm=perm)
+            torch.cuda.synchronize()
+            chol64_s = time.perf_counter() - t0
+            launches64 = counts()
+            resid64 = sstt.residual_norm(H, x64, b)
+            gate64 = np.abs(H.matvec(x64) - b).max() / np.abs(b).max()
+            assert np.isfinite(x64).all() and launches64["extend_add_f64"] > 0
+            assert resid64 < CPLX_TOL["float64"] and gate64 < CPLX_GATE, \
+                (resid64, gate64)
+            dx = np.abs(x - x64).max() / np.abs(x64).max()
+            assert dx <= CPLX_X_TOL, f"fp32 x differs from fp64 x: {dx}"
+            peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+            out["chol"] = {
+                "n": n, "n_embedded": S.n, "nnz": H.nnz,
+                "nnz_embedded": P.nnz, "fl": S.fl, "lnz": S.lnz,
+                "supernodes": S.nsuper, "levels": len(S.levels),
+                "odd_supernodes": int(np.count_nonzero(widths % 2)),
+                "groups": len(groups), "k1_groups": int(k1),
+                "tile_groups": sum(g._tile is not None for g in groups),
+                "first_s": first_s, **parts, "sweep": sweep,
+                "cplx_chol_s": chol_s, "gflops": S.fl / chol_s / 1e9,
+                "cplx_chol64_s": chol64_s, "residual": resid,
+                "gate": gate, "classic_residual": cresid,
+                "residual64": resid64, "gate64": gate64,
+                "fp32_vs_fp64": dx, "peak_mem_gb": peak,
+                "kernel_check": kernel_check, "small_check": small,
+                "launches": launches, "classic_launches": classic_launches,
+                "launches64": launches64}
+            print(f"complex chol: {out['chol']}", flush=True)
+            del dp, S, P, cache, H      # the plan on the analysis
+
+            # ---- LU: upwind_unsym(29), rotated by U(-pi/4, pi/4) ----
+            Au = _rotated(sstt.fixtures.upwind_unsym(CPLX_LU_NX),
+                          CPLX_LU_SEED, np.pi / 4)
+            bu = 1 + 1j * np.arange(Au.ncol) / Au.ncol
+            rungs0, f0 = dict(mu.rungs), mu.device_factors
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            with _spans({"analyze": (mu, "analyze_mflu_unsym"),
+                         "plan": (mu, "device_plan"),
+                         "factor": (mu, "factorize_lu_unsym_device"),
+                         "solve": (mu, "qr_solve_device")}) as sp:
+                t0 = time.perf_counter()
+                xu = ml.mflusol(Au, bu)
+                torch.cuda.synchronize()
+                lu_s = time.perf_counter() - t0
+            rungs = {k: mu.rungs[k] - rungs0[k] for k in rungs0}
+            factors = mu.device_factors - f0
+            lresid = sstt.residual_norm(Au, xu, bu)
+            assert factors > 0, "the complex LU cell stayed off the card"
+            assert np.isfinite(xu).all() and lresid < CPLX_LU_TOL, \
+                (lresid, rungs)
+            out["lu"] = {"n": Au.ncol, "n_embedded": 2 * Au.ncol,
+                         "nnz": Au.nnz,
+                         "structural_symmetry": Au.symmetry()["structural"],
+                         "cplx_lu_s": lu_s, "analyze_s": sp["analyze"],
+                         "plan_s": sp["plan"],
+                         "factor_s": sp["factor"] - sp["plan"],
+                         "solve_s": sp["solve"], "residual": lresid,
+                         "rungs": rungs, "device_factors": factors,
+                         "peak_mem_gb": (torch.cuda.max_memory_allocated()
+                                         - base) / 1e9}
+            print(f"complex lu: {out['lu']}", flush=True)
+
+            # ---- QR: local_coupling_ls(6000, 2000), grid_gradient_3d(24) ----
+            out["qr"] = {}
+            for name, A0 in (("lc", sstt.fixtures.local_coupling_ls(
+                                 *CPLX_QR_LC)),
+                             ("grid", sstt.fixtures.grid_gradient_3d(
+                                 CPLX_QR_GRID))):
+                A = _rotated(A0, CPLX_QR_SEED, np.pi)
+                rng = np.random.default_rng(CPLX_QR_SEED)
+                bq = rng.standard_normal(A.nrow) + \
+                    1j * rng.standard_normal(A.nrow)
+                calls = md.device_factors
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                with _spans({"analyze": (md, "analyze_mfqr"),
+                             "plan": (md, "device_plan"),
+                             "factor": (md, "factorize_qr_device"),
+                             "solve": (md, "qr_solve_device")}) as sp:
+                    t0 = time.perf_counter()
+                    xq = sstt.qrsol(A, bq)
+                    torch.cuda.synchronize()
+                    first_q = time.perf_counter() - t0
+                assert md.device_factors == calls + 1, md.device_factors
+                assert xq.shape == (A.ncol,) and np.isfinite(xq).all()
+                ne = _complex_normal_residual(A, xq, bq)
+                assert ne < CPLX_QR_NE_TOL, (name, ne)
+                qr_s = _best_s(lambda: sstt.qrsol(A, bq))
+                rec = {"m": A.nrow, "n": A.ncol, "nnz": A.nnz,
+                       "first_s": first_q, "analyze_s": sp["analyze"],
+                       "plan_s": sp["plan"],
+                       "factor_s": sp["factor"] - sp["plan"],
+                       "solve_s": sp["solve"], "cplx_qr_s": qr_s,
+                       "normal_residual": ne,
+                       "peak_mem_gb": (torch.cuda.max_memory_allocated()
+                                       - base) / 1e9}
+                if name == "lc":
+                    x_ref = np.linalg.lstsq(A.to_dense(), bq,
+                                            rcond=None)[0]
+                    err = np.abs(xq - x_ref).max() / np.abs(x_ref).max()
+                    assert err < CPLX_QR_LSTSQ_TOL, err
+                    rec["lstsq_err"] = err
+                out["qr"][name] = rec
+                print(f"complex qr {name}: {rec}", flush=True)
+        finally:
+            gc.enable()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1317,43 +1809,10 @@ def main() -> int:
         return 2
     import suitesparse_tpu_torch as sstt
     from suitesparse_tpu_torch.kernels import _build
-    from suitesparse_tpu_torch.kernels.bmatvec import bmatvec
-    from suitesparse_tpu_torch.kernels.extend_add import extend_add
-    from suitesparse_tpu_torch.kernels.extend_add_tiles import \
-        extend_add_tiles
-    from suitesparse_tpu_torch.kernels.pmatvec import pmatvec_t
-    from suitesparse_tpu_torch.kernels.potrf import potrf_trsm
     from suitesparse_tpu_torch.kernels.potrf_sweep import K1_GROUPS
-    from suitesparse_tpu_torch.kernels.solve_step import (solve_step_bwd,
-                                                          solve_step_fwd)
-    from suitesparse_tpu_torch.kernels.trisolve import batched_trisolve
     from suitesparse_tpu_torch.numeric import supernodal, supernodal_device
 
-    # kernel -> (wrapper, attribute holding its launch count)
-    counters = {"potrf_trsm": (potrf_trsm, "launches"),
-                "extend_add_tiles": (extend_add_tiles, "launches"),
-                "extend_add_tiles_pair": (extend_add_tiles, "pair_launches"),
-                "solve_step_fwd": (solve_step_fwd, "launches"),
-                "solve_step_bwd": (solve_step_bwd, "launches"),
-                "batched_trisolve": (batched_trisolve, "launches"),
-                "pmatvec_t": (pmatvec_t, "launches"),
-                "bmatvec": (bmatvec, "launches"),
-                "bmatvec_t": (bmatvec, "transposed_launches"),
-                "extend_add": (extend_add, "launches"),
-                "extend_add_f64": (extend_add, "fp64_launches")}
-
-    def zero_counts():
-        for w, attr in counters.values():
-            setattr(w, attr, 0)
-
-    def counts():
-        return {k: getattr(w, attr) for k, (w, attr) in counters.items()}
-
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0]
+    card = _card()
     print(card)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"linalg {torch.backends.cuda.preferred_linalg_library()}",
@@ -1598,6 +2057,10 @@ def main() -> int:
     t0 = time.perf_counter()
     lu = lu_phase()
     lu_phase_s = time.perf_counter() - t0
+    # ---- complex input through the 2x2 real embedding ----
+    t0 = time.perf_counter()
+    cplx = complex_phase()
+    cplx_phase_s = time.perf_counter() - t0
     print(json.dumps({
         "card": card, "n": n, "flops": S.fl,
         "factor_s": factor_s, "gflops": S.fl / factor_s / 1e9,
@@ -1648,6 +2111,8 @@ def main() -> int:
         "lu_residual_one64": lu["fem64"]["residual_one"],
         "lu_repair_residual": lu["repair"]["residual"],
         "lu_phase_s": lu_phase_s, "lu": lu}), flush=True)
+    print(json.dumps({"complex": cplx, "complex_phase_s": cplx_phase_s}),
+          flush=True)
 
     def entry(name, replaces, src, k, launches):
         return {"name": name, "route": "cuda", "source": SRC + src,

@@ -14,7 +14,10 @@ past a size, the host Householder QR below it. The general square solve:
 sends strongly unsymmetric patterns to the matched-front multifrontal LU on
 the device (weighted matching, batched partial-pivot LU of the fronts with
 the right-hand side riding along, the backward sweep, a QR repair and the
-host LU as its last rungs).
+host LU as its last rungs). Complex input runs through each of these:
+the host complex kernels below a size (LL^H, KLU, Householder QR), the
+card's real pipelines on the 2x2 real embedding above it
+(:mod:`.numeric.complex_embed`).
 
     >>> import suitesparse_tpu_torch as sstt
     >>> A = sstt.fixtures.laplacian_3d(20)
@@ -30,6 +33,7 @@ host LU as its last rungs).
     >>> from suitesparse_tpu_torch.numeric.multifrontal_lu import mflusol
     >>> x = mflusol(M, b)                           # general square M
     >>> x = sstt.lusol(M, b)                        # host KLU-class LU
+    >>> x = sstt.cholsol(H, z)                      # complex Hermitian H
 
 The device is CUDA unless the caller passes ``device="cpu"``; asking for
 CUDA where there is none raises ``RuntimeError``.
@@ -43,7 +47,8 @@ from . import ordering
 from .config import DEFAULT, Config, FactorKind, Ordering
 from .device import resolve_device
 from .io import fixtures
-from .numeric import lu, qr, simplicial, supernodal, supernodal_solve
+from .numeric import (complex_embed, lu, qr, simplicial, supernodal,
+                      supernodal_solve)
 from .numeric.simplicial import SymbolicChol, chol_solve
 from .numeric.supernodal import SupernodalFactorAdapter, TorchSupernodalFactor
 from .sparse import CSC, from_triplets, residual_norm
@@ -98,17 +103,20 @@ def factorize(A: CSC, S: SymbolicChol, config: Config = DEFAULT,
 
     The reference's choice of factor kind: supernodal iff
     flops / nnz(L) >= ``config.supernodal_switch``. A supernodal factor with
-    ``S.fl >= 5e6`` runs on the device; the rest on the host."""
-    if np.iscomplexobj(A.data):
-        raise NotImplementedError(
-            "complex Hermitian input is not in the port yet (ROADMAP queue 1 "
-            "item 6)")
+    ``S.fl >= 5e6`` runs on the device; the rest on the host. Complex
+    Hermitian input takes the host LL^H (the reference's rule: LDL' and the
+    supernodal kernels are real-only; :func:`cholsol` sends big complex
+    problems to the device through the embedding)."""
     dev = resolve_device(device)
     kind = config.factor_kind
     if kind is FactorKind.AUTO:
         kind = (FactorKind.SUPERNODAL_LL
                 if S.fl / max(S.lnz, 1) >= config.supernodal_switch
                 else FactorKind.SIMPLICIAL_LDL)
+        if np.iscomplexobj(A.data) and kind is FactorKind.SIMPLICIAL_LDL:
+            kind = FactorKind.SIMPLICIAL_LL
+    if np.iscomplexobj(A.data) and kind is FactorKind.SUPERNODAL_LL:
+        kind = FactorKind.SIMPLICIAL_LL
     with timed("factorize"):
         if kind is FactorKind.SIMPLICIAL_LL:
             F = simplicial.chol_up(A, S)
@@ -143,7 +151,8 @@ def solve_refined(F, A: CSC, b: np.ndarray, iters: int = 2,
     """x = A \\ b with ``iters`` steps of host-fp64 iterative refinement
     (the UMFPACK IRSTEP pattern, ``umfpack_solve.c:102``, applied to
     Cholesky): fp64-class residuals from an fp32 factor."""
-    b = np.asarray(b, dtype=np.float64)
+    b = np.asarray(b)
+    b = b.astype(np.complex128 if np.iscomplexobj(b) else np.float64)
     x = solve(F, b, config)
     for _ in range(max(iters, 0)):
         x = x + solve(F, b - A.matvec(x), config)
@@ -152,12 +161,17 @@ def solve_refined(F, A: CSC, b: np.ndarray, iters: int = 2,
 
 def cholsol(A: CSC, b: np.ndarray, config: Config = DEFAULT,
             device="cuda") -> np.ndarray:
-    """One-call SPD solve (cs_cholsol): analyze, factorize, solve."""
-    if np.iscomplexobj(A.data):
-        raise NotImplementedError(
-            "complex Hermitian input is not in the port yet (ROADMAP queue 1 "
-            "item 6)")
+    """One-call SPD solve (cs_cholsol): analyze, factorize, solve.
+
+    Complex Hermitian A with ``S.fl >= CPLX_DEVICE_FL`` runs on ``device``
+    through the 2x2 real embedding (the supernodal factor and solve of the
+    embedded SPD matrix, :mod:`.numeric.complex_embed`); smaller ones take
+    the host LL^H."""
     S = analyze(A, config)
+    if np.iscomplexobj(A.data) and S.fl >= complex_embed.CPLX_DEVICE_FL:
+        return complex_embed.cholsol_complex_device(A, b, config,
+                                                    perm=S.perm,
+                                                    device=device)
     F = factorize(A, S, config, device)
     return solve(F, b, config)
 

@@ -6,16 +6,16 @@ ordering; ``klu_factor.c:384``/``klu_kernel.c`` Gilbert–Peierls
 left-looking LU with threshold diagonal-preference pivoting;
 ``klu_refactor.c`` same-pattern refactorization; ``klu_solve.c:14`` block
 back-substitution with off-diagonal updates; row scaling per
-``klu_scale.c``). The numeric kernels run in the host C++ library
-(``native/src/lu.cc``); the reference's Python Gilbert–Peierls fallback is
-not copied, so without ``g++`` the first call raises.
+``klu_scale.c``). The numeric kernels of real blocks run in the host C++
+library (``native/src/lu.cc``), so without ``g++`` the first real call
+raises; complex blocks take the reference's Python Gilbert–Peierls kernel
+(:func:`_lu_gp_python`), as in the reference.
 
 This path stays on the host by design, as in the reference: KLU uses no
 BLAS (circuit matrices give tiny supernodes), so nothing here runs on a
 device. The card's LU is the unsymmetric multifrontal LU
 (:func:`.multifrontal_lu.mflusol`, :mod:`.mflu_unsym`), whose escalation
-ladder ends in :func:`lusol`. Complex input is not in the port yet
-(ROADMAP queue 1 item 6).
+ladder ends in :func:`lusol`.
 """
 
 from __future__ import annotations
@@ -75,19 +75,11 @@ class LUNumeric:
         return self.singular_col == -1
 
 
-def _real(A: CSC, what: str = "A") -> CSC:
-    if np.iscomplexobj(A.data):
-        raise NotImplementedError(
-            f"complex {what} in the LU is not in the port yet (ROADMAP queue "
-            "1 item 6)")
-    return A.to_full_storage()
-
-
 def analyze_lu(A: CSC, config: Config = DEFAULT) -> LUSymbolic:
     n = A.ncol
     if A.nrow != n:
         raise ValueError("LU requires square A")
-    Ag = _real(A)
+    Ag = A.to_full_storage()
     if config.lu_btf:
         B = btf_order(Ag, work_limit=config.btf_work_limit)
     else:
@@ -173,7 +165,7 @@ def _prep_perm(S: LUSymbolic, Ascaled: CSC, rowperm, colperm, tag: str):
 
 def factor_lu(A: CSC, S: LUSymbolic, config: Config = DEFAULT) -> LUNumeric:
     n = S.n
-    Ascaled, Rs = _scale_rows(_real(A), config.lu_scale)
+    Ascaled, Rs = _scale_rows(A.to_full_storage(), config.lu_scale)
     Aperm, bmaps, diag_pos, _off0, pdata = _prep_perm(
         S, Ascaled, S.rowperm, S.colperm, "analyze")
 
@@ -194,15 +186,19 @@ def factor_lu(A: CSC, S: LUSymbolic, config: Config = DEFAULT) -> LUNumeric:
             diag[j] = d
             continue
         bip, bi, bpos = bmaps[k]
-        status, fac = native.lu_factor(nk, bip, bi, pdata[bpos],
-                                       config.lu_pivot_tol)
+        if np.iscomplexobj(pdata):
+            blu, status = _lu_gp_python(
+                CSC(nk, nk, bip, bi, pdata[bpos], 0), config.lu_pivot_tol)
+        else:
+            status, fac = native.lu_factor(nk, bip, bi, pdata[bpos],
+                                           config.lu_pivot_tol)
+            blu = BlockLU(*fac) if status == 0 else None
         if status != 0:
             if singular_col == -1:
                 singular_col = k1 + status - 1
             if config.halt_if_singular:
                 break
             continue
-        blu = BlockLU(*fac)
         blocks[k] = blu
         rowperm3[k1:k2] = S.rowperm[k1:k2][blu.P]
 
@@ -219,10 +215,14 @@ def refactor_lu(A: CSC, N: LUNumeric, config: Config = DEFAULT) -> LUNumeric:
     """Recompute factor values for a matrix with the SAME pattern
     (klu_refactor analog — the circuit-simulation fast path, no pivot
     search). The new values are written into ``N``'s block factors, which
-    the returned factor shares."""
+    the returned factor shares. Complex A is factored afresh
+    (:func:`factor_lu`): the refactor kernel is the host library's, which
+    is real-only."""
+    if np.iscomplexobj(A.data):
+        return factor_lu(A, N.S, config)
     S = N.S
     n = S.n
-    Ascaled, Rs = _scale_rows(_real(A), config.lu_scale)
+    Ascaled, Rs = _scale_rows(A.to_full_storage(), config.lu_scale)
     Aperm, bmaps, diag_pos, offmap, pdata = _prep_perm(
         S, Ascaled, N.rowperm, S.colperm, "final")  # final row space
     singular_col = -1
@@ -253,18 +253,117 @@ def refactor_lu(A: CSC, N: LUNumeric, config: Config = DEFAULT) -> LUNumeric:
                      Rs=Rs, Off=Off, singular_col=singular_col)
 
 
+def _lu_gp_python(C: CSC, tol: float) -> tuple[BlockLU | None, int]:
+    """Gilbert–Peierls left-looking LU of one block in Python (cs_lu-style),
+    real or complex: the reference's kernel for the blocks the host library
+    does not take. Returns (factor, status) as ``native.lu_factor`` does
+    (status 0 ok, k + 1 when column k has no pivot)."""
+    n = C.ncol
+    pinv = np.full(n, -1, dtype=np.int64)
+    P = np.empty(n, dtype=np.int64)
+    x = np.zeros(n, dtype=np.complex128 if np.iscomplexobj(C.data)
+                 else np.float64)
+    marked = np.zeros(n, dtype=bool)
+    Lp = np.zeros(n + 1, dtype=np.int64)
+    Up = np.zeros(n + 1, dtype=np.int64)
+    Lcols_i: list[np.ndarray] = []
+    Lcols_x: list[np.ndarray] = []
+    Ucols_i: list[np.ndarray] = []
+    Ucols_x: list[np.ndarray] = []
+    Lidx: list = [None] * n  # per factored column: (orig rows, values)
+
+    for k in range(n):
+        # symbolic: the DFS reach of column k through the finished columns
+        topo: list[int] = []
+        pattern: list[int] = []
+        stack: list[tuple[int, int]] = []
+        for rr0 in C.indices[C.indptr[k]:C.indptr[k + 1]]:
+            if marked[rr0]:
+                continue
+            stack.append((int(rr0), 0))
+            marked[rr0] = True
+            while stack:
+                rr, ei = stack[-1]
+                j = pinv[rr]
+                if j < 0:
+                    pattern.append(rr)
+                    stack.pop()
+                    continue
+                rows_j = Lidx[j][0]
+                descended = False
+                while ei < len(rows_j):
+                    rn = int(rows_j[ei])
+                    ei += 1
+                    if not marked[rn]:
+                        marked[rn] = True
+                        stack[-1] = (rr, ei)
+                        stack.append((rn, 0))
+                        descended = True
+                        break
+                if not descended:
+                    stack[-1] = (rr, ei)
+                    topo.append(rr)
+                    stack.pop()
+        # numeric: the sparse triangular solve in topological order
+        lo, hi = C.indptr[k], C.indptr[k + 1]
+        x[C.indices[lo:hi]] = C.data[lo:hi]
+        for rr in reversed(topo):
+            j = pinv[rr]
+            xj = x[rr]
+            if xj != 0.0:
+                rows_j, vals_j = Lidx[j]
+                x[rows_j] -= vals_j * xj
+        # pivot: the largest candidate, the diagonal where it is within tol
+        cand = np.array(pattern, dtype=np.int64)
+        if cand.size == 0:
+            return None, k + 1
+        av = np.abs(x[cand])
+        amax = av.max()
+        if amax == 0.0:
+            return None, k + 1
+        prow = int(cand[int(np.argmax(av))])
+        if tol > 0 and k in cand and abs(x[k]) >= tol * amax:
+            prow = k
+        pivot = x[prow]
+        ui = np.array([pinv[rr] for rr in reversed(topo)] + [k],
+                      dtype=np.int64)
+        ux = np.array([x[rr] for rr in reversed(topo)] + [pivot])
+        Ucols_i.append(ui)
+        Ucols_x.append(ux)
+        P[k] = prow
+        pinv[prow] = k
+        others = cand[cand != prow]
+        li = np.concatenate([[prow], others])
+        lx = np.concatenate([[1.0], x[others] / pivot])
+        Lcols_i.append(li)
+        Lcols_x.append(lx)
+        Lidx[k] = (others.copy(), lx[1:].copy())
+        Lp[k + 1] = Lp[k] + li.size
+        Up[k + 1] = Up[k] + ui.size
+        for rr in topo:
+            marked[rr] = False
+            x[rr] = 0.0
+        for rr in pattern:
+            marked[rr] = False
+            x[rr] = 0.0
+    Li = pinv[np.concatenate(Lcols_i)] if Lcols_i else np.empty(0, np.int64)
+    return BlockLU(Lp=Lp, Li=Li, Lx=np.concatenate(Lcols_x),
+                   Up=Up, Ui=np.concatenate(Ucols_i),
+                   Ux=np.concatenate(Ucols_x), P=P), 0
+
+
 def solve_lu(N: LUNumeric, b: np.ndarray) -> np.ndarray:
     """x = A \\ b by block back-substitution (klu_solve analog); b (n,) or
-    (n, k)."""
+    (n, k), real or complex. A real factor and a real b (n,) sweep in the
+    host library; the rest in numpy."""
     if not N.ok:
         raise ValueError(f"LU factorization singular at column "
                          f"{N.singular_col}")
-    if np.iscomplexobj(b):
-        raise NotImplementedError(
-            "a complex right-hand side in the LU is not in the port yet "
-            "(ROADMAP queue 1 item 6)")
     S = N.S
-    b = np.asarray(b, dtype=np.float64)
+    b = np.asarray(b)
+    cplx = np.iscomplexobj(b) or np.iscomplexobj(N.diag)
+    b = b.astype(np.complex128 if cplx else np.float64)
+    host = b.ndim == 1 and not cplx
     # scale + row-permute the rhs
     if b.ndim > 1:
         y = (b[N.rowperm].T / N.Rs[N.rowperm]).T
@@ -277,7 +376,7 @@ def solve_lu(N: LUNumeric, b: np.ndarray) -> np.ndarray:
         nk = k2 - k1
         if nk == 1:
             y[k1] = y[k1] / N.diag[k1]
-        elif y.ndim == 1:
+        elif host:
             # the host sweeps straight on the factor arrays (klu_solve)
             blu = N.blocks[k]
             yk = np.ascontiguousarray(y[k1:k2])
@@ -292,13 +391,13 @@ def solve_lu(N: LUNumeric, b: np.ndarray) -> np.ndarray:
         # off-diagonal updates to earlier blocks
         if Offp[k2] == Offp[k1]:
             continue  # no off entries in this block's columns
-        if y.ndim == 1:
+        if host:
             native.offupdate(k1, k2, Offp, Offi, Offx, y)
             continue
         for j in range(k1, k2):
             lo, hi = Offp[j], Offp[j + 1]
             if hi > lo:
-                y[Offi[lo:hi]] -= np.outer(Offx[lo:hi], y[j])
+                y[Offi[lo:hi]] -= np.multiply.outer(Offx[lo:hi], y[j])
     x = np.empty_like(y)
     x[S.colperm] = y
     return x
@@ -312,7 +411,9 @@ def solve_lu_refined(N: LUNumeric, A: CSC, b: np.ndarray,
     x = solve_lu(N, b)
     if ir_steps <= 0:
         return x
-    b = np.asarray(b, dtype=np.float64)
+    b = np.asarray(b)
+    if not np.iscomplexobj(b):
+        b = b.astype(np.float64)
     prev = np.inf
     for _ in range(ir_steps):
         r = b - A.matvec(x)

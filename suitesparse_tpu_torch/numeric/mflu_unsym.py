@@ -43,8 +43,11 @@ Tiny home pivots are perturbed (GESP); a second pass with a relaxed
 perturbation replays the factor when a panel comes out non-finite; fp64
 iterative refinement, a repair by the device multifrontal QR and the host
 KLU path (:func:`.lu.lusol`) guard the last mile (:func:`mflusol_unsym`).
-The segmented execution past 2e9 front cells (ROADMAP queue 1 item 10) and
-complex input (item 6) raise ``NotImplementedError``.
+The segmented execution past 2e9 front cells (ROADMAP queue 1 item 10)
+raises ``NotImplementedError``. Complex input to :func:`mflusol_unsym`
+runs this real LU on the 2x2 real embedding
+(:func:`.complex_embed.lusol_complex_device`), as in the reference; the
+device factor itself is real-only.
 """
 
 from __future__ import annotations
@@ -479,9 +482,9 @@ def factorize_lu_unsym_device(A: CSC, SL: LUUnsymSymbolic, b: np.ndarray,
     too."""
     global relaxed_factors
     if np.iscomplexobj(A.data) or np.iscomplexobj(b):
-        raise NotImplementedError(
-            "complex input to the unsymmetric multifrontal LU is not in the "
-            "port yet (ROADMAP queue 1 item 6)")
+        raise ValueError(
+            "the device LU factor is real-only: complex input takes "
+            "mflusol_unsym, which runs it on the 2x2 real embedding")
     dev = resolve_device(device)
     bb = np.asarray(b, dtype=np.float64)
     bb = (bb.reshape(-1, 1) if bb.ndim == 1 else bb)[SL.rowpre]
@@ -543,11 +546,12 @@ def mflusol_unsym(A: CSC, b: np.ndarray, config: Config = DEFAULT,
 
     A non-finite factor (:class:`.mfqr_device.NonFiniteFactor`) or a
     structurally singular A (``ValueError`` from the analysis) moves the
-    call down the ladder; every other error propagates."""
+    call down the ladder; every other error propagates. Complex A or b
+    takes the whole ladder on the 2x2 real embedding
+    (:func:`.complex_embed.lusol_complex_device`)."""
     if np.iscomplexobj(A.data) or np.iscomplexobj(b):
-        raise NotImplementedError(
-            "complex input to the unsymmetric multifrontal LU is not in the "
-            "port yet (ROADMAP queue 1 item 6)")
+        from .complex_embed import lusol_complex_device
+        return lusol_complex_device(A, b, config, device)
     Ag = A.to_full_storage()
     b = np.asarray(b, dtype=np.float64)
     x, rx, rung = None, np.inf, None

@@ -345,8 +345,9 @@ def factorize_qr_device(A: CSC, SQ: QRSymbolicMF, b: np.ndarray,
     batched Householder QR, and R written into the pool."""
     global device_factors
     if np.iscomplexobj(A.data) or np.iscomplexobj(b):
-        raise NotImplementedError(
-            "complex QR is not in the port yet (ROADMAP queue 1 item 6)")
+        raise ValueError(
+            "the device QR factor is real-only: complex input takes qrsol, "
+            "which runs it on the 2x2 real embedding")
     dev = resolve_device(device)
     Aq = A.permuted(None, SQ.q)
     bb = np.asarray(b, dtype=np.float64)

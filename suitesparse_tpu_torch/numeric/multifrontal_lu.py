@@ -14,8 +14,11 @@ Reference analog: UMFPACK (``umf_kernel.c:36`` frontal matrices,
     pattern(A+A') (AMD on A+A' with a zero-free diagonal from a maximum
     transversal), a dense LU with STATIC diagonal pivoting inside each
     front and iterative refinement, on the host (:func:`factorize_lu_host`,
-    as in the reference; its device version ``mflu_device`` is ROADMAP
-    queue 1 item 9).
+    as in the reference; its device version ``mflu_device``, which no
+    entry point of the reference reaches, is ROADMAP queue 1 item 9).
+
+Complex input takes the same routes on the 2x2 real embedding
+(:mod:`.complex_embed`).
 """
 
 from __future__ import annotations
@@ -296,15 +299,27 @@ def mflusol(A: CSC, b: np.ndarray, config: Config = DEFAULT,
     diagonal, and runs on the host; strongly unsymmetric patterns route to
     the matched-front LU on ``device``
     (:func:`.mflu_unsym.mflusol_unsym`) — the same decision the reference
-    makes between its SYMMETRIC and UNSYMMETRIC strategies."""
+    makes between its SYMMETRIC and UNSYMMETRIC strategies.
+
+    Complex input on the symmetric strategy runs it on the 2x2 real
+    embedding, whose pattern is symmetric too (the reference's host
+    factor is real and drops the imaginary part there); the unsymmetric
+    strategy embeds in :func:`.mflu_unsym.mflusol_unsym`."""
     sym = A.symmetry() if A.sym == 0 else {"structural": 1.0,
                                            "nzdiag": A.ncol}
     if sym["structural"] < 0.5 or sym["nzdiag"] < 0.9 * A.ncol:
         return mflusol_unsym(A, b, config, device)
     if np.iscomplexobj(A.data) or np.iscomplexobj(b):
-        raise NotImplementedError(
-            "complex input to the multifrontal LU is not in the port yet "
-            "(ROADMAP queue 1 item 6)")
+        from .complex_embed import embed_matrix, embed_vec, unembed_vec
+        M = embed_matrix(A.to_full_storage())
+        return unembed_vec(_mflusol_symmetric(M, embed_vec(b), config))
+    return _mflusol_symmetric(A, b, config)
+
+
+def _mflusol_symmetric(A: CSC, b: np.ndarray, config: Config) -> np.ndarray:
+    """The SYMMETRIC strategy on the host for real A: the analysis, the
+    static-pivot factor, the solve and ``config.ir_steps`` refinement
+    steps."""
     S = analyze_mflu(A, config)
     F = factorize_lu_host(A, S, config)
     x = solve_mflu(F, b)

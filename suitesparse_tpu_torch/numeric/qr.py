@@ -9,7 +9,8 @@ over the column elimination tree (the pattern of R(:,k) is the reach of the
 leftmost columns of A(:,k)'s rows, Householder vectors stored sparse). It
 takes the small problems and the underdetermined ones; least-squares
 problems past a size go to the multifrontal QR on the device
-(:mod:`.mfqr_device`).
+(:mod:`.mfqr_device`). Complex problems take the same routes on the 2x2
+real embedding (:mod:`.complex_embed`).
 
 Solves (cs_qrsol parity):
   m >= n: least squares  min ||Ax-b||  via x = R \\ (Q'b)
@@ -27,7 +28,7 @@ from ..device import resolve_device
 from ..ordering.colamd import colamd_order
 from ..sparse import CSC, invert_permutation
 from ..symbolic.etree import col_counts, etree, postorder
-from . import mfqr_device
+from . import complex_embed, mfqr_device
 from .simplicial import usolve, utsolve
 
 __all__ = ["QRSymbolic", "QRFactor", "symbolic_qr", "qr_host", "apply_qt",
@@ -286,23 +287,40 @@ def qrsol(A: CSC, b: np.ndarray, config: Config = DEFAULT,
     :class:`.mfqr_device.NonFiniteFactor` where its panels or x come out
     non-finite; a caller who wants the host QR then passes
     ``device="cpu"``. Small problems use the host Householder QR; m < n
-    the minimum-norm solution through the QR of A'."""
-    if np.iscomplexobj(A.data) or np.iscomplexobj(b):
-        raise NotImplementedError(
-            "complex qrsol is not in the port yet (ROADMAP queue 1 item 6)")
+    the minimum-norm solution through the QR of A'.
+
+    Complex A or b takes the same routes on the 2x2 real embedding, which
+    keeps ||Ax - b||_2 and ||x||_2: the device QR of the embedded matrix
+    past the size (:func:`.complex_embed.qrsol_complex_device`), the host
+    QR of it below and for m < n (the reference runs its real host QR on
+    complex input with m * n below the size and drops the imaginary
+    part)."""
     dev = resolve_device(device)
     if A.sym != 0:
         # QR is a general-matrix factorization: expand symmetric storage
         # first (SuiteSparseQR converts stype != 0 the same way)
         A = A.to_full_storage()
     m, n = A.shape
+    on_device = m >= n and m * n >= DEVICE_MIN_CELLS
+    if np.iscomplexobj(A.data) or np.iscomplexobj(b):
+        if on_device:
+            return complex_embed.qrsol_complex_device(A, b, config, dev)
+        z = _qrsol_host(complex_embed.embed_matrix(A),
+                        complex_embed.embed_vec(b), config)
+        return complex_embed.unembed_vec(z)
+    if on_device:
+        return mfqr_device.mfqrsol_device(A, b, config, device=dev)
+    return _qrsol_host(A, b, config)
+
+
+def _qrsol_host(A: CSC, b: np.ndarray, config: Config) -> np.ndarray:
+    """The host Householder QR's least-squares (m >= n) or minimum-norm
+    (m < n, through the QR of A') solution, real A and b (n,)."""
+    m, n = A.shape
     if m >= n:
-        if m * n >= DEVICE_MIN_CELLS:
-            return mfqr_device.mfqrsol_device(A, b, config, device=dev)
         S = symbolic_qr(A, config)
         F = qr_host(A, S)
         return qr_solve(F, b)
-    # underdetermined: QR of A', min-norm solution x = Q (R'^{-1} b(q))
     At = A.transpose()
     S = symbolic_qr(At, config)
     F = qr_host(At, S)

@@ -4,7 +4,11 @@ Cholesky factors, upper for the host QR's R).
 
 The small-problem path of the port (reference ``cs_schol.c``, ``cs_chol.c``,
 ``ldl.c``, ``cs_lsolve.c``/``cs_ltsolve.c``, ``cs_usolve.c``/
-``cs_utsolve.c``), real-valued. A non-positive
+``cs_utsolve.c``). LL' takes complex Hermitian input (A = L L^H, the
+reference's complex simplicial path); LDL' is real-only. The triangular
+solves of a real factor and one right-hand side run in the host C++
+library; complex ones take the reference's Python loops, as its
+``_native_tri`` rule says. A non-positive
 pivot at column k records ``minor = k`` and stops (the reference's
 ``L->minor`` contract, ``cholmod_core.h:1609-1620``).
 """
@@ -88,14 +92,17 @@ def chol_up(A: CSC, S: SymbolicChol) -> Factor:
     """Up-looking simplicial LL' of C = A(p,p) (cs_chol analog): per column
     k the pattern of L[k, :k] is the etree reach of C[:,k], a sparse
     triangular solve against the finished columns gives the row, and the
-    pivot is the square root of what remains."""
+    pivot is the square root of what remains. Complex Hermitian A gives
+    A(p,p) = L L^H (L[k, i] = conj(y_i), the diagonal real)."""
     n = S.n
     C = _permuted(A, S.perm)
+    cplx = np.iscomplexobj(C.data)
+    dtype = np.complex128 if cplx else np.float64
     Lp = S.Lp
     Li = np.zeros(S.lnz, dtype=np.int64)
-    Lx = np.zeros(S.lnz, dtype=np.float64)
+    Lx = np.zeros(S.lnz, dtype=dtype)
     fill = Lp[:-1].copy() + 1    # next write slot; the diagonal sits at Lp[k]
-    x = np.zeros(n, dtype=np.float64)
+    x = np.zeros(n, dtype=dtype)
     mark = np.full(n, -1, dtype=np.int64)
     reach_buf = np.zeros(n, dtype=np.int64)
     minor = n
@@ -103,18 +110,18 @@ def chol_up(A: CSC, S: SymbolicChol) -> Factor:
         top = ereach(C, k, S.parent, mark, reach_buf)
         lo, hi = C.indptr[k], C.indptr[k + 1]
         x[C.indices[lo:hi]] = C.data[lo:hi]
-        d = x[k]
+        d = x[k].real if cplx else x[k]
         x[k] = 0.0
         for t in range(top, n):
             i = reach_buf[t]
-            yi = x[i] / Lx[Lp[i]]
+            yi = x[i] / (Lx[Lp[i]].real if cplx else Lx[Lp[i]])
             x[i] = 0.0
             p0, p1 = Lp[i] + 1, fill[i]
             x[Li[p0:p1]] -= yi * Lx[p0:p1]
-            d -= yi * yi
+            d -= (yi * np.conj(yi)).real if cplx else yi * yi
             q = fill[i]
             Li[q] = k
-            Lx[q] = yi
+            Lx[q] = np.conj(yi) if cplx else yi
             fill[i] = q + 1
         if d <= 0.0 or not np.isfinite(d):
             minor = k
@@ -127,7 +134,11 @@ def chol_up(A: CSC, S: SymbolicChol) -> Factor:
 
 
 def ldl_up(A: CSC, S: SymbolicChol, dbound: float = 0.0) -> Factor:
-    """Up-looking simplicial LDL' (LDL/ldl.c analog; indefinite D allowed)."""
+    """Up-looking simplicial LDL' (LDL/ldl.c analog; indefinite D allowed).
+    Real-only: complex Hermitian input takes :func:`chol_up`."""
+    if np.iscomplexobj(A.data):
+        raise ValueError("LDL' is real-only; complex Hermitian input takes "
+                         "chol_up")
     n = S.n
     C = _permuted(A, S.perm)
     Lp = S.Lp
@@ -169,11 +180,20 @@ def ldl_up(A: CSC, S: SymbolicChol, dbound: float = 0.0) -> Factor:
     return Factor(L=CSC(n, n, Lp, Li, Lx, 0), perm=S.perm, d=D, minor=minor)
 
 
+def _work(M: CSC, b: np.ndarray) -> tuple[np.ndarray, bool]:
+    """A copy of b to solve in (complex128 where M or b is complex,
+    float64 otherwise), and whether the host library can take it (a real
+    factor, one right-hand side)."""
+    cplx = np.iscomplexobj(M.data) or np.iscomplexobj(b)
+    x = np.array(b, dtype=np.complex128 if cplx else np.float64, copy=True)
+    return x, not cplx and x.ndim == 1
+
+
 def lsolve(L: CSC, b: np.ndarray) -> np.ndarray:
-    """x = L \\ b, L lower CSC with the diagonal first per column; b (n,)
-    runs in the host library, b (n, k) column-sweeps here."""
-    x = np.array(b, dtype=np.float64, copy=True)
-    if x.ndim == 1:
+    """x = L \\ b, L lower CSC with the diagonal first per column; a real
+    b (n,) runs in the host library, the rest column-sweeps here."""
+    x, native_ok = _work(L, b)
+    if native_ok:
         native.lsolve(L.ncol, L.indptr, L.indices, L.data, x)
         return x
     Lp, Li, Lx = L.indptr, L.indices, L.data
@@ -181,17 +201,17 @@ def lsolve(L: CSC, b: np.ndarray) -> np.ndarray:
         p0, p1 = Lp[j], Lp[j + 1]
         x[j] = x[j] / Lx[p0]
         if p1 > p0 + 1:
-            x[Li[p0 + 1:p1]] -= np.outer(Lx[p0 + 1:p1], x[j])
+            x[Li[p0 + 1:p1]] -= np.multiply.outer(Lx[p0 + 1:p1], x[j])
     return x
 
 
 def ltsolve(L: CSC, b: np.ndarray) -> np.ndarray:
-    """x = L' \\ b."""
-    x = np.array(b, dtype=np.float64, copy=True)
-    if x.ndim == 1:
+    """x = L' \\ b (L^H for a complex factor)."""
+    x, native_ok = _work(L, b)
+    if native_ok:
         native.ltsolve(L.ncol, L.indptr, L.indices, L.data, x)
         return x
-    Lp, Li, Lx = L.indptr, L.indices, L.data
+    Lp, Li, Lx = L.indptr, L.indices, np.conj(L.data)
     for j in range(L.ncol - 1, -1, -1):
         p0, p1 = Lp[j], Lp[j + 1]
         if p1 > p0 + 1:
@@ -202,9 +222,9 @@ def ltsolve(L: CSC, b: np.ndarray) -> np.ndarray:
 
 def usolve(U: CSC, b: np.ndarray) -> np.ndarray:
     """x = U \\ b, U upper CSC with the diagonal last per column
-    (cs_usolve analog); b (n,) runs in the host library."""
-    x = np.array(b, dtype=np.float64, copy=True)
-    if x.ndim == 1:
+    (cs_usolve analog); a real b (n,) runs in the host library."""
+    x, native_ok = _work(U, b)
+    if native_ok:
         native.usolve(U.ncol, U.indptr, U.indices, U.data, x)
         return x
     Up, Ui, Ux = U.indptr, U.indices, U.data
@@ -212,17 +232,17 @@ def usolve(U: CSC, b: np.ndarray) -> np.ndarray:
         p0, p1 = Up[j], Up[j + 1]
         x[j] = x[j] / Ux[p1 - 1]
         if p1 - 1 > p0:
-            x[Ui[p0:p1 - 1]] -= np.outer(Ux[p0:p1 - 1], x[j])
+            x[Ui[p0:p1 - 1]] -= np.multiply.outer(Ux[p0:p1 - 1], x[j])
     return x
 
 
 def utsolve(U: CSC, b: np.ndarray) -> np.ndarray:
-    """x = U' \\ b."""
-    x = np.array(b, dtype=np.float64, copy=True)
-    if x.ndim == 1:
+    """x = U' \\ b (U^H for a complex factor)."""
+    x, native_ok = _work(U, b)
+    if native_ok:
         native.utsolve(U.ncol, U.indptr, U.indices, U.data, x)
         return x
-    Up, Ui, Ux = U.indptr, U.indices, U.data
+    Up, Ui, Ux = U.indptr, U.indices, np.conj(U.data)
     for j in range(U.ncol):
         p0, p1 = Up[j], Up[j + 1]
         if p1 - 1 > p0:
@@ -255,7 +275,8 @@ def solve_system(F, b: np.ndarray, sys: str = "A") -> np.ndarray:
     "DLt" L'\\(D\\b), "L" L\\b, "Lt" L'\\b, "D" D\\b, "P" Pb, "Pt" P'b."""
     if not F.ok:
         raise ValueError(f"factorization failed at column {F.minor}")
-    b = np.asarray(b, dtype=np.float64)
+    b = np.asarray(b, dtype=np.complex128 if np.iscomplexobj(F.L.data)
+                   or np.iscomplexobj(b) else np.float64)
     if sys == "A":
         return chol_solve(F, b)
     if sys == "P":

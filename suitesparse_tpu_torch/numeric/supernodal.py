@@ -211,9 +211,10 @@ def supernodal_symbolic(A: CSC, S_or_simpl,
 def factorize(A: CSC, S_or_simpl, config: Config = DEFAULT,
               device="cuda") -> SupernodalFactorAdapter:
     if np.iscomplexobj(A.data):
-        raise NotImplementedError(
-            "complex Hermitian factorization (the 2x2 real embedding) is not "
-            "in the port yet (ROADMAP queue 1 item 6)")
+        raise ValueError(
+            "the supernodal factor is real-only: complex Hermitian input "
+            "takes cholsol (the 2x2 real embedding on the device, the host "
+            "LL^H below its size) or factorize (the host LL^H)")
     dev = resolve_device(device)
     S = supernodal_symbolic(A, S_or_simpl, config)
     if _should_use_device(S, config):

@@ -422,11 +422,15 @@ def _solve_state(F, mode: str, dtype, splan: SolvePlan, config: Config):
 
 def solve_device(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
     """x = A \\ b through the device factor ``F`` (handles the permutation;
-    ``b`` is (n,) or (n, nrhs))."""
+    ``b`` is (n,) or (n, nrhs) and real; complex systems run through
+    ``cholsol``'s 2x2 real embedding)."""
     S = F.S
     if not F.ok:
         raise ValueError(f"solve_device: the factor failed at column "
                          f"{F.minor}")
+    if np.iscomplexobj(b):
+        raise ValueError("solve_device takes a real b; complex systems run "
+                         "through cholsol's 2x2 real embedding")
     dp = F.dplan
     dtype = compute_dtype(config)
     rt = _routing(S, dp)

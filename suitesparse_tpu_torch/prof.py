@@ -17,7 +17,8 @@ Then the multifrontal QR: a pattern-cached ``qrsol`` (b from seed 7) on
 Then the unsymmetric multifrontal LU: ``lu_unsym_solve_device`` (factor
 and sweep, the analysis cached) on ``fem_unsym(30)`` (the fixture of
 ``demos/bench_unsym.py``, b = ones) in fp32 (``lu_fem``) and fp64
-(``lu_fem64``). Each
+(``lu_fem64``). Then the complex Hermitian cell through the 2x2 real
+embedding (``cplx_chol``, ``cplx_chol64``: ``complex_profile()``). Each
 phase gets one warm call, the minimum of 3 unprofiled calls (host clock
 around the call, synchronized), then one call under ``torch.profiler``.
 Per phase it prints one JSON line:
@@ -38,8 +39,9 @@ gather, the batched QR, the write) the same way, and every group of the
 LU factor in fp32 and fp64 (``mflu_unsym._factor_group``: the gather, the
 batched LU, the solves, the CB update, the write). The full tables go to
 ``prof_out/`` in the checkout: ``prof_<phase>.txt``, ``prof_groups.txt``,
-``prof_qr_groups.txt`` and ``prof_lu_groups.txt``; ``lu_profile()`` runs
-the LU's phases alone.
+``prof_qr_groups.txt``, ``prof_lu_groups.txt`` and
+``prof_cplx_groups.txt``; ``lu_profile()`` and ``complex_profile()`` run
+the LU's and the complex cell's phases alone.
 """
 
 from __future__ import annotations
@@ -53,12 +55,15 @@ import time
 import numpy as np
 import torch
 
-from . import DEFAULT, Ordering, analyze, factorize, fixtures, qrsol, solve
+from . import (CSC, DEFAULT, Ordering, analyze, factorize, fixtures, qrsol,
+               solve)
 from .numeric import mflu_unsym, mfqr_device, supernodal_device
 from .numeric.supernodal import supernodal_symbolic
 
 SIZE = 50
 NRHS = 64
+CPLX_K = 40      # the complex cell: the magnetic Laplacian of a 40^3 grid
+CPLX_SEED = 0
 OUT_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))), "prof_out")
 # CUPTI bookkeeping rows that the profiler files under the device but that
@@ -124,8 +129,9 @@ def profile_phase(name: str, fn) -> dict:
     return rec
 
 
-def group_times(A, S, cfg) -> None:
-    """Each group of one factorization, synchronized before and after."""
+def group_times(A, S, cfg, fname: str = "prof_groups.txt") -> None:
+    """Each group of one factorization, synchronized before and after;
+    the table goes to ``prof_out/<fname>``."""
     times = []
     inner = supernodal_device._group_compute
 
@@ -155,7 +161,7 @@ def group_times(A, S, cfg) -> None:
     rows.sort(reverse=True)
     text = [f"per-group sum {sum(times):.4f} s over {len(times)} groups"]
     text += [r for _t, r in rows]
-    with open(os.path.join(OUT_DIR, "prof_groups.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, fname), "w") as f:
         f.write("\n".join(text) + "\n")
     print("\n".join(text[:26]), flush=True)
 
@@ -240,6 +246,45 @@ def lu_profile() -> None:
     lu_group_times(A, b, SL)
 
 
+def magnetic_laplacian(k: int, seed: int = CPLX_SEED):
+    """``laplacian_3d(k)`` with each strictly-upper entry times e^{i theta},
+    theta ~ U(-pi, pi) from ``default_rng(seed)`` in storage order: a
+    connection Laplacian plus the Dirichlet boundary, Hermitian positive
+    definite (the complex cell of ``chip_smoke.py``)."""
+    A = fixtures.laplacian_3d(k)
+    cols = np.repeat(np.arange(A.ncol), np.diff(A.indptr))
+    off = A.indices < cols
+    theta = np.random.default_rng(seed).uniform(-np.pi, np.pi,
+                                                int(off.sum()))
+    data = A.data.astype(np.complex128)
+    data[off] *= np.exp(1j * theta)
+    return CSC(A.nrow, A.ncol, A.indptr, A.indices, data, 1)
+
+
+def complex_profile() -> None:
+    """The complex Hermitian cell: the magnetic Laplacian of a 40^3 grid
+    (n = 64,000, 128,000 real unknowns embedded), b = 1 + i k/n, through
+    ``cholsol_complex_device`` (the embedded factor and the w2 solve, the
+    analysis cached) in fp32 (``cplx_chol``) and fp64 (``cplx_chol64``),
+    and the embedded factor's per-group times (``prof_cplx_groups.txt``)."""
+    from .numeric import complex_embed
+
+    os.makedirs(OUT_DIR, exist_ok=True)
+    H = magnetic_laplacian(CPLX_K)
+    n = H.ncol
+    b = 1 + 1j * np.arange(n) / n
+    perm = analyze(H).perm
+    profile_phase("cplx_chol", lambda: complex_embed.cholsol_complex_device(
+        H, b, DEFAULT, perm))
+    fp64 = DEFAULT.replace(compute_dtype="float64")
+    profile_phase("cplx_chol64",
+                  lambda: complex_embed.cholsol_complex_device(
+                      H, b, fp64, perm))
+    S = complex_embed.embedded_analysis(H, DEFAULT, perm)
+    group_times(complex_embed.embed_matrix(H), S, DEFAULT,
+                "prof_cplx_groups.txt")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("prof: no CUDA device", file=sys.stderr)
@@ -290,6 +335,7 @@ def main() -> int:
     profile_phase("qr_grid64", lambda: qrsol(Ag, bg, qr64))
     qr_group_times(Ag, bg)
     lu_profile()
+    complex_profile()
     return 0
 
 

@@ -3,7 +3,9 @@
 ``CSC`` mirrors the JAX package's container (the ``cholmod_sparse`` CSC
 struct, reference ``cholmod_core.h:1214-1263``): int64 indices, sorted
 unique rows per column, ``sym`` as cholmod's ``stype`` (0 general, 1 upper
-stored symmetric). The structural kernels run in the port's host C++
+stored symmetric). Values are real or complex; a stored triangle of complex
+values is Hermitian (its reflection is conjugated), and an explicit zero
+stays in the pattern. The structural kernels run in the port's host C++
 library (:mod:`.native`).
 """
 
@@ -40,7 +42,7 @@ class CSC:
     ncol: int
     indptr: np.ndarray   # int64, size ncol+1
     indices: np.ndarray  # int64, size nnz
-    data: np.ndarray     # float, size nnz
+    data: np.ndarray     # float or complex, size nnz
     sym: int = 0
 
     @property
@@ -69,7 +71,7 @@ class CSC:
         A = np.zeros((self.nrow, self.ncol), dtype=self.data.dtype)
         A[self.indices, _col_ids(self.indptr)] = self.data
         if self.sym != 0:
-            full = A + A.T
+            full = A + A.conj().T
             d = np.arange(min(self.nrow, self.ncol))
             full[d, d] = A[d, d]
             return full
@@ -109,16 +111,21 @@ class CSC:
 
     def symperm(self, p: np.ndarray) -> "CSC":
         """C = P A P' keeping only the upper triangle, for symmetric A stored
-        upper (``sym=1``); cs_symperm.c analog."""
+        upper (``sym=1``); cs_symperm.c analog. An entry that moves to the
+        other triangle is conjugated (Hermitian storage)."""
         if self.sym != 1:
             raise ValueError("symperm expects upper-stored symmetric (sym=1)")
         outp, outi, pos = native.symperm(self.ncol, self.indptr,
                                          self.indices, invert_permutation(p))
-        pos = np.where(pos < 0, ~pos, pos)
-        return CSC(self.ncol, self.ncol, outp, outi, self.data[pos], 1)
+        flip = pos < 0
+        data = self.data[np.where(flip, ~pos, pos)]
+        if np.iscomplexobj(data):
+            data = np.where(flip, np.conj(data), data)
+        return CSC(self.ncol, self.ncol, outp, outi, data, 1)
 
     def to_full_storage(self) -> "CSC":
-        """Symmetric-stored (sym=1) -> general storage, both triangles."""
+        """Symmetric-stored (sym=1) -> general storage, both triangles (the
+        reflection conjugated for complex values)."""
         if self.sym == 0:
             return self
         cols = _col_ids(self.indptr)
@@ -127,7 +134,7 @@ class CSC:
             self.nrow, self.ncol,
             np.concatenate([self.indices, cols[off]]),
             np.concatenate([cols, self.indices[off]]),
-            np.concatenate([self.data, self.data[off]]), sym=0)
+            np.concatenate([self.data, np.conj(self.data[off])]), sym=0)
 
     def matvec(self, x: np.ndarray) -> np.ndarray:
         """y = A @ x for dense x (n,) or (n, k); cholmod_sdmult analog."""
@@ -194,11 +201,12 @@ class CSC:
 
 
 def from_triplets(nrow: int, ncol: int, rows, cols, vals, sym: int = 0) -> CSC:
-    """Triplet -> CSC with duplicates summed (cs_compress + cs_dupl analog)."""
+    """Triplet -> CSC with duplicates summed (cs_compress + cs_dupl analog);
+    zero values stay in the pattern."""
     rows = _as_index(rows)
     cols = _as_index(cols)
     vals = np.asarray(vals)
-    if vals.dtype.kind != "f":
+    if vals.dtype.kind not in "fc":
         vals = vals.astype(np.float64)
     if not rows.size == cols.size == vals.size:
         raise ValueError("from_triplets: rows, cols and vals differ in size")
@@ -212,7 +220,10 @@ def from_triplets(nrow: int, ncol: int, rows, cols, vals, sym: int = 0) -> CSC:
     r, c, x = rows[order], cols[order], vals[order]
     new_grp = np.ones(r.size, dtype=bool)
     new_grp[1:] = (r[1:] != r[:-1]) | (c[1:] != c[:-1])
-    x_sum = np.bincount(np.cumsum(new_grp) - 1, weights=x)
+    grp = np.cumsum(new_grp) - 1
+    x_sum = np.bincount(grp, weights=x.real)
+    if np.iscomplexobj(x):
+        x_sum = x_sum + 1j * np.bincount(grp, weights=x.imag)
     counts = np.bincount(c[new_grp], minlength=ncol)
     indptr = np.zeros(ncol + 1, dtype=np.int64)
     np.cumsum(counts, out=indptr[1:])

@@ -66,14 +66,15 @@ def test_routes_outside_the_slice_raise():
     A = sstt.fixtures.laplacian_3d(4)
     x = sstt.lusol(A, np.ones(A.ncol))           # ported: the host LU
     assert sstt.residual_norm(A, x, np.ones(A.ncol)) < 1e-12
+    # complex input, once outside the slice, now solves on every route
     Ac = sstt.fixtures.laplacian_3d(4)
     Ac.data = Ac.data.astype(np.complex128)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sstt.lusol(Ac, np.ones(Ac.ncol))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sstt.cholsol(Ac, np.ones(Ac.ncol), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sstt.qrsol(Ac, np.ones(Ac.ncol), device="cpu")
+    bc = np.ones(Ac.ncol) + 1j * np.arange(Ac.ncol) / Ac.ncol
+    D = Ac.to_dense()
+    for x in (sstt.lusol(Ac, bc), sstt.cholsol(Ac, bc, device="cpu"),
+              sstt.qrsol(Ac, bc, device="cpu")):
+        assert x.dtype == np.complex128
+        assert np.abs(D @ x - bc).max() < 1e-12 * np.abs(bc).max()
 
 
 def test_imports_and_solves_with_jax_blocked():

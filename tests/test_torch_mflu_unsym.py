@@ -19,7 +19,8 @@
   (< 1e-10), the singular-home-block case (< 1e-12 through the device QR
   rung, never the host LU) and the tiny-diagonal case (no rung past the
   LU); the router ``mflusol`` picks the reference's strategy; complex
-  input and the segmented switch raise ``NotImplementedError``.
+  input solves (``tests/test_torch_complex.py`` holds it against the
+  reference) and the segmented switch raises ``NotImplementedError``.
 """
 
 import numpy as np
@@ -477,15 +478,21 @@ def test_find_singletons_equals_the_reference(name):
 
 
 def test_complex_input_and_the_segmented_switch_raise(monkeypatch):
-    A = sstt.sparse.from_dense(rand_unsym(30, 0.15, 1))
+    """Complex input, once refused, now solves (through the 2x2 real
+    embedding on the device routes, the host KLU's complex kernel in
+    ``lusol``); the device factor itself refuses it and names
+    ``mflusol_unsym``. The segmented switch still raises."""
+    D = rand_unsym(30, 0.15, 1)
+    A = sstt.sparse.from_dense(D)
     Ac = sstt.CSC(A.nrow, A.ncol, A.indptr, A.indices, A.data * (1 + 1j), 0)
-    for call in (lambda: mu.mflusol_unsym(Ac, np.ones(30), device="cpu"),
-                 lambda: mu.lu_unsym_solve_device(A, np.ones(30) * 1j,
-                                                  device="cpu"),
-                 lambda: ml.mflusol(Ac, np.ones(30), device="cpu"),
-                 lambda: sstt.lusol(Ac, np.ones(30))):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call()
+    b = np.ones(30) + 1j * np.arange(30) / 30
+    for call in (lambda: mu.mflusol_unsym(Ac, b, device="cpu"),
+                 lambda: ml.mflusol(Ac, b, device="cpu"),
+                 lambda: sstt.lusol(Ac, b)):
+        x = call()
+        assert np.abs(D * (1 + 1j) @ x - b).max() < 1e-10 * np.abs(b).max()
+    with pytest.raises(ValueError, match="mflusol_unsym"):
+        mu.lu_unsym_solve_device(A, np.ones(30) * 1j, device="cpu")
     monkeypatch.setattr(mu, "SEGMENT_CELLS", 1000)
     with pytest.raises(NotImplementedError, match="item 10"):
         mu.lu_unsym_solve_device(A, np.ones(30), device="cpu")

@@ -199,10 +199,19 @@ def test_a_zero_pivot_on_the_device_route_raises(dtype):
 
 
 def test_complex_input_raises():
-    A, _, _ = random_rect(20, 12, seed=16)
+    """Complex input, once refused, now solves through the 2x2 real
+    embedding: complex A, and a real A with a complex b, give dense
+    ``lstsq``'s x; the device factor itself still refuses complex values
+    and names ``qrsol``."""
+    A, _, D = random_rect(20, 12, seed=16)
     Ac = sstt.CSC(A.nrow, A.ncol, A.indptr, A.indices,
-                  A.data.astype(np.complex128))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        sstt.qrsol(Ac, np.ones(20), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 6"):
-        sstt.qrsol(A, np.ones(20, dtype=np.complex128), device="cpu")
+                  A.data * np.exp(1j * np.arange(A.nnz)))
+    Dc = Ac.to_dense()
+    b = np.ones(20) + 1j * np.arange(20) / 20
+    for M, Md in ((Ac, Dc), (A, D)):
+        x = sstt.qrsol(M, b, device="cpu")
+        x_ref = np.linalg.lstsq(Md, b, rcond=None)[0]
+        assert np.abs(x - x_ref).max() < 1e-10 * np.abs(x_ref).max()
+    SQ = mfqr_device.analyze_mfqr(A)
+    with pytest.raises(ValueError, match="qrsol"):
+        mfqr_device.factorize_qr_device(Ac, SQ, np.ones(20), device="cpu")
