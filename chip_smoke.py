@@ -156,17 +156,36 @@
    (analysis cached, min of 3), one classic solve (K3 must launch, below
    1e-5) and one fp64 call (K7's double instance, below 1e-12, the fp32
    x within 1e-4 of its x);
-   ``upwind_unsym(29)`` with its values times e^{i theta}, theta ~
+   ``upwind_unsym(30)`` with its values times e^{i theta}, theta ~
    U(-pi/4, pi/4) from seed 5, through ``multifrontal_lu.mflusol`` (the
-   unsymmetric strategy on the embedding, n = 48,778 real: at 30 the
-   embedded plan is past the segmented switch, ``CPLX_LU_NX``), residual below
-   1e-10 after the ladder, its rungs and wall; ``local_coupling_ls(6000,
-   2000)`` and ``grid_gradient_3d(24)`` times e^{i theta} from seed 7
-   through ``qrsol`` in fp32 (the device QR of the embedding), the complex
-   normal-equations residual below 1e-4 and, at 6000 x 2000, x within
-   1e-4 of a dense ``lstsq``. Parts are the seconds spent in each step
-   over the call, the device synchronized around each. Its JSON line
+   unsymmetric strategy on the embedding, n = 54,000 real) under the auto
+   segment budget, residual below 1e-10 after the ladder, its rungs, wall,
+   peak and which way it ran (in one piece or in segments);
+   ``local_coupling_ls(6000, 2000)`` and ``grid_gradient_3d(24)`` times
+   e^{i theta} from seed 7 through ``qrsol`` in fp32 (the device QR of the
+   embedding), the complex normal-equations residual below 1e-4 and, at
+   6000 x 2000, x within 1e-4 of a dense ``lstsq``. Parts are the seconds
+   spent in each step over the call, the device synchronized around each;
+   a line gives the seconds of each step of the phase. Its JSON line
    (``complex``) comes before the kernel line.
+11. Segmented execution (``segmented_phase``): four cells, each factored
+   in one piece under the auto budget and then forced into at least 4
+   segments by ``Config.segment_bytes`` (an eighth of the one-piece
+   estimate): the model problem ``laplacian_3d(50)`` in fp32 (the same K1,
+   K2 and K7 launch counts as the one-piece factor, ``Lx`` within 1e-6 *
+   max|Lx| of it, a w2 solve below 1e-5), the QR grid
+   ``grid_gradient_3d(32)`` (x within 1e-4 of the one-piece x, the
+   normal-equations residual below 1e-4), the LU ``fem_unsym(30)`` and the
+   complex LU on the embedded rotated ``upwind_unsym(30)`` (x within 1e-4
+   of the one-piece x, one factor's residual below 1e-4; the complex cell
+   also through the whole ``mflusol`` ladder in segments, below 1e-10, and
+   its segmented peak below the one-piece peak by at least half of its
+   gather indices). Each cell prints the segment count, the walls of the
+   segmented and the one-piece factor (min of 3), the peak memory of each
+   (``max_memory_allocated`` after ``reset_peak_memory_stats``, the
+   one-piece upload let go before each), the byte estimate and budget, the
+   largest difference and the residual. Its JSON line (``segmented``)
+   comes before the kernel line.
 
 Every kernel count is set to 0 just before each path and read just after.
 Any failure raises (exit code != 0). Without a CUDA device the script exits
@@ -213,12 +232,10 @@ CPLX_SEED = 0          # (128,000 real unknowns embedded)
 CPLX_TOL = {"float32": 1e-5, "float64": 1e-12}   # residual_norm
 CPLX_GATE = 1e-4       # max|Hx - b| / max|b|, tests/test_complex_device.py:40
 CPLX_X_TOL = 1e-4      # the fp32 x against the fp64 x
-# upwind_unsym(29) rotated: n = 24,389 (48,778 real unknowns embedded), the
-# largest grid whose embedded LU plan (1.908e9 front cells by the
-# reference's estimate) stays under the segmented switch at 2e9 (not
-# ported, ROADMAP queue 1 item 10); at 30 the plan holds 2.284e9 and the
-# port raises
-CPLX_LU_NX = 29
+# upwind_unsym(30) rotated: n = 27,000 (54,000 real unknowns embedded); its
+# embedded plan holds 2.284e9 front cells by the reference's estimate, past
+# the reference's segmented switch at 2e9, and about 2 GB by the port's
+CPLX_LU_NX = 30
 CPLX_LU_SEED = 5
 CPLX_LU_TOL = 1e-10    # residual after the LU ladder
 CPLX_QR_LC = (6000, 2000)
@@ -226,6 +243,9 @@ CPLX_QR_GRID = 24      # grid_gradient_3d(24) rotated: about 80k x 27.6k real
 CPLX_QR_SEED = 7
 CPLX_QR_NE_TOL = 1e-4  # complex normal-equations residual
 CPLX_QR_LSTSQ_TOL = 1e-4   # x vs dense lstsq at 6000 x 2000
+SEG_MIN = 4            # segments each cell of segmented_phase must run in
+SEG_SHARE = 8          # its budget: the one-piece estimate over this
+SEG_LX_TOL = 1e-6      # segmented Lx against the one-piece Lx (fp32)
 K7_GROUP = (114, 224)   # (B, R) of the factor's slowest placement group
 K7_CLASSES = ((75, 128), (15, 168), (59, 64))   # its (npairs, RU) classes
 K7_F64_GROUP = 3912     # R of the fp64 factor's largest tile group
@@ -1343,17 +1363,17 @@ def lu_phase() -> dict:
                   f"({flops / factor_s / 1e9:.2f} in the factor)",
                   flush=True)
         peak = (torch.cuda.max_memory_allocated() - base) / 1e9
-        groups = [g for gl in dp.dplan.plan.groups for g in gl]
+        groups = [g for gl in dp.plan.groups for g in gl]
         S = SL.SQ.S
         big = int(np.argmax([S.ncols(s) + SL.nforeign[s]
                              for s in range(S.nsuper)]))
         sizes = {"n": A.ncol, "nnz": A.nnz, "supernodes": S.nsuper,
-                 "levels": len(dp.dplan.plan.groups),
+                 "levels": len(dp.plan.groups),
                  "groups": len(groups),
                  "pair_classes": sum(len(g.pairs) for g in groups),
                  "front_cells": sum(g.B * g.M * g.N for g in groups),
-                 "panel_cells": dp.dplan.plan.pool_size
-                 - dp.dplan.plan.pool_data,
+                 "panel_cells": dp.plan.pool_size
+                 - dp.plan.pool_data,
                  "largest_front": [int(S.ncols(big) + SL.nforeign[big]),
                                    len(S.rows[big])],
                  "peak_mem_gb": peak}
@@ -1406,6 +1426,18 @@ def lu_phase() -> dict:
     finally:
         gc.enable()
     return out
+
+
+@contextlib.contextmanager
+def _step(steps: dict, name: str):
+    """Seconds of the block, the device synchronized at its end, into
+    ``steps[name]``."""
+    import torch
+
+    t0 = time.perf_counter()
+    yield
+    torch.cuda.synchronize()
+    steps[name] = time.perf_counter() - t0
 
 
 @contextlib.contextmanager
@@ -1625,9 +1657,10 @@ def complex_phase() -> dict:
     dev = torch.device("cuda", 0)
     card = _card()
     out = {"card": card}
+    steps: dict = {}     # seconds of each step of the phase
     chol_parts = {"analyze_n": (sstt, "analyze"),
                   "analyze_embedded": (ce, "_embedded"),
-                  "plan": (supernodal_device, "device_plan"),
+                  "plan": (supernodal_device, "_plan_entry"),
                   "factor": (supernodal_device, "factorize_device"),
                   "solve": (supernodal_solve, "solve_device")}
     with warnings.catch_warnings():
@@ -1635,13 +1668,14 @@ def complex_phase() -> dict:
         gc.disable()
         try:
             # ---- Hermitian: the magnetic Laplacian, k = 40 ----
-            H = magnetic_laplacian(CPLX_K)
+            with _step(steps, "build_h"):
+                H = magnetic_laplacian(CPLX_K)
             n = H.ncol
             b = 1 + 1j * np.arange(n) / n
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()
             zero_counts()
-            with _spans(chol_parts) as sp:
+            with _spans(chol_parts) as sp, _step(steps, "first_cholsol"):
                 t0 = time.perf_counter()
                 x = sstt.cholsol(H, b)
                 torch.cuda.synchronize()
@@ -1654,7 +1688,8 @@ def complex_phase() -> dict:
                 launches["extend_add_tiles"] > 0 and \
                 launches["extend_add"] > 0, launches
             S, P, _src = cache[1]
-            perm = sstt.analyze(H).perm
+            with _step(steps, "analyze_again"):
+                perm = sstt.analyze(H).perm
             assert ce.embedded_analysis(H, sstt.DEFAULT, perm) is S
             resid = sstt.residual_norm(H, x, b)
             gate = np.abs(H.matvec(x) - b).max() / np.abs(b).max()
@@ -1670,19 +1705,23 @@ def complex_phase() -> dict:
             k1 = sum(supernodal_device._use_potrf_kernel(
                 torch.float32, g.B, g.C) for g in groups)
             widths = np.diff(S.super_first)
-            kernel_check = embedded_kernels(
-                dp, dev, np.random.default_rng(CPLX_SEED))
-            small = small_complex_check(dev)
-            F = supernodal_device.factorize_device(
-                ce.embed_matrix(H), S, sstt.DEFAULT, dev)
-            sweep = supernodal_solve.solve_mode(F, sstt.DEFAULT)
-            del F
-            chol_s = _best_s(lambda: ce.cholsol_complex_device(
-                H, b, perm=perm))
+            with _step(steps, "embedded_kernels"):
+                kernel_check = embedded_kernels(
+                    dp, dev, np.random.default_rng(CPLX_SEED))
+            with _step(steps, "small_complex_check"):
+                small = small_complex_check(dev)
+            with _step(steps, "auto_sweep_factor"):
+                F = supernodal_device.factorize_device(
+                    ce.embed_matrix(H), S, sstt.DEFAULT, dev)
+                sweep = supernodal_solve.solve_mode(F, sstt.DEFAULT)
+                del F
+            with _step(steps, "steady_cholsol"):
+                chol_s = _best_s(lambda: ce.cholsol_complex_device(
+                    H, b, perm=perm))
             zero_counts()
             classic = sstt.DEFAULT.replace(solve_mode="classic")
-            xc = ce.cholsol_complex_device(H, b, classic, perm=perm)
-            torch.cuda.synchronize()
+            with _step(steps, "classic_cholsol"):
+                xc = ce.cholsol_complex_device(H, b, classic, perm=perm)
             classic_launches = counts()
             assert classic_launches["solve_step_fwd"] > 0 and \
                 classic_launches["solve_step_bwd"] > 0, classic_launches
@@ -1690,10 +1729,9 @@ def complex_phase() -> dict:
             assert cresid < CPLX_TOL["float32"], cresid
             cfg64 = sstt.DEFAULT.replace(compute_dtype="float64")
             zero_counts()
-            t0 = time.perf_counter()
-            x64 = ce.cholsol_complex_device(H, b, cfg64, perm=perm)
-            torch.cuda.synchronize()
-            chol64_s = time.perf_counter() - t0
+            with _step(steps, "fp64_cholsol"):
+                x64 = ce.cholsol_complex_device(H, b, cfg64, perm=perm)
+            chol64_s = steps["fp64_cholsol"]
             launches64 = counts()
             resid64 = sstt.residual_norm(H, x64, b)
             gate64 = np.abs(H.matvec(x64) - b).max() / np.abs(b).max()
@@ -1722,23 +1760,26 @@ def complex_phase() -> dict:
             print(f"complex chol: {out['chol']}", flush=True)
             del dp, S, P, cache, H      # the plan on the analysis
 
-            # ---- LU: upwind_unsym(29), rotated by U(-pi/4, pi/4) ----
+            # ---- LU: upwind_unsym(30), rotated by U(-pi/4, pi/4) ----
             Au = _rotated(sstt.fixtures.upwind_unsym(CPLX_LU_NX),
                           CPLX_LU_SEED, np.pi / 4)
             bu = 1 + 1j * np.arange(Au.ncol) / Au.ncol
             rungs0, f0 = dict(mu.rungs), mu.device_factors
+            seg0 = mu.segmented_factors
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
             with _spans({"analyze": (mu, "analyze_mflu_unsym"),
-                         "plan": (mu, "device_plan"),
+                         "plan": (mu, "_plan_entry"),
                          "factor": (mu, "factorize_lu_unsym_device"),
-                         "solve": (mu, "qr_solve_device")}) as sp:
+                         "solve": (mu, "qr_solve_device")}) as sp, \
+                    _step(steps, "lu_mflusol"):
                 t0 = time.perf_counter()
                 xu = ml.mflusol(Au, bu)
                 torch.cuda.synchronize()
                 lu_s = time.perf_counter() - t0
             rungs = {k: mu.rungs[k] - rungs0[k] for k in rungs0}
             factors = mu.device_factors - f0
+            seg_factors = mu.segmented_factors - seg0
             lresid = sstt.residual_norm(Au, xu, bu)
             assert factors > 0, "the complex LU cell stayed off the card"
             assert np.isfinite(xu).all() and lresid < CPLX_LU_TOL, \
@@ -1751,9 +1792,13 @@ def complex_phase() -> dict:
                          "factor_s": sp["factor"] - sp["plan"],
                          "solve_s": sp["solve"], "residual": lresid,
                          "rungs": rungs, "device_factors": factors,
+                         "ran": "segmented" if seg_factors else "one-piece",
+                         "segmented_factors": seg_factors,
                          "peak_mem_gb": (torch.cuda.max_memory_allocated()
                                          - base) / 1e9}
-            print(f"complex lu: {out['lu']}", flush=True)
+            print(f"complex lu ({card}): ran {out['lu']['ran']} under the "
+                  f"auto budget, peak {out['lu']['peak_mem_gb']:.4f} GB "
+                  f"above the phase's base; {out['lu']}", flush=True)
 
             # ---- QR: local_coupling_ls(6000, 2000), grid_gradient_3d(24) ----
             out["qr"] = {}
@@ -1768,8 +1813,9 @@ def complex_phase() -> dict:
                 calls = md.device_factors
                 torch.cuda.reset_peak_memory_stats()
                 base = torch.cuda.memory_allocated()
+                t_qr = time.perf_counter()
                 with _spans({"analyze": (md, "analyze_mfqr"),
-                             "plan": (md, "device_plan"),
+                             "plan": (md, "_plan_entry"),
                              "factor": (md, "factorize_qr_device"),
                              "solve": (md, "qr_solve_device")}) as sp:
                     t0 = time.perf_counter()
@@ -1795,10 +1841,181 @@ def complex_phase() -> dict:
                     err = np.abs(xq - x_ref).max() / np.abs(x_ref).max()
                     assert err < CPLX_QR_LSTSQ_TOL, err
                     rec["lstsq_err"] = err
+                steps[f"qr_{name}"] = time.perf_counter() - t_qr
                 out["qr"][name] = rec
                 print(f"complex qr {name}: {rec}", flush=True)
         finally:
             gc.enable()
+    out["steps_s"] = steps
+    print(f"complex phase steps ({card}), seconds: {steps}", flush=True)
+    return out
+
+
+def segmented_phase(A=None, S=None) -> dict:
+    """Segmented execution on the card (see the module docstring, item
+    11): each cell factored in one piece under the auto budget, then
+    forced into segments; every gate raises. ``A`` and ``S``: the model
+    problem and its supernodal analysis, when the caller has them. Times
+    are CUDA events (min of 3 after a warm call), the garbage collector
+    held off; each peak is ``max_memory_allocated`` above the allocation
+    at its reset, the plan's one-piece upload let go before."""
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.numeric import complex_embed as ce
+    from suitesparse_tpu_torch.numeric import mflu_unsym as mu
+    from suitesparse_tpu_torch.numeric import mfqr_device as md
+    from suitesparse_tpu_torch.numeric import multifrontal_lu as ml
+    from suitesparse_tpu_torch.numeric import segmented, supernodal
+    from suitesparse_tpu_torch.numeric import supernodal_device as sd
+
+    dev = torch.device("cuda", 0)
+    card = _card()
+    cfg = sstt.DEFAULT
+    out = {"card": card}
+
+    def measure(dp, run):
+        """(result, seconds, peak GB above the base, launches) of the
+        first call of ``run``, the plan's one-piece upload let go."""
+        dp.groups = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts()
+        t0 = time.perf_counter()
+        res = run()
+        torch.cuda.synchronize()
+        return (res, time.perf_counter() - t0,
+                (torch.cuda.max_memory_allocated() - base) / 1e9, counts())
+
+    def cell(name, dp, factor, nseg, gate):
+        """``factor(config)`` in one piece under the auto budget, then
+        forced into segments; ``nseg(F)`` its segment count; ``gate(F1,
+        Fs, launches1, launches_s)`` the cell's gates (raise past a
+        tolerance) and the numbers they read."""
+        F1, first1, peak1, l1 = measure(dp, lambda: factor(cfg))
+        assert nseg(F1) == 1, (name, "the auto budget segmented it")
+        est = segmented.one_piece_bytes(dp.index_bytes,
+                                        dp.costs[torch.float32])
+        seg_cfg = cfg.replace(segment_bytes=max(1, est // SEG_SHARE))
+        Fs, first_s, peak_s, ls = measure(dp, lambda: factor(seg_cfg))
+        segs = nseg(Fs)
+        assert segs >= SEG_MIN, (name, segs)
+        rec = {"segments": segs, "groups": len(dp.host),
+               "estimate_bytes": est, "budget_bytes": seg_cfg.segment_bytes,
+               "index_bytes": dp.index_bytes,
+               "one_piece_s": _best_s(lambda: factor(cfg)),
+               "segmented_s": _best_s(lambda: factor(seg_cfg)),
+               "one_piece_first_s": first1, "segmented_first_s": first_s,
+               "one_piece_peak_gb": peak1, "segmented_peak_gb": peak_s,
+               **gate(F1, Fs, l1, ls)}
+        print(f"segmented {name} ({card}): {segs} segments of "
+              f"{len(dp.host)} groups at a budget of "
+              f"{rec['budget_bytes']} B (one-piece estimate {est} B); "
+              f"factor {rec['segmented_s']:.4f} s segmented, "
+              f"{rec['one_piece_s']:.4f} s one-piece; peak "
+              f"{peak_s:.4f} / {peak1:.4f} GB; {rec}", flush=True)
+        return rec, seg_cfg
+
+    gc.disable()
+    try:
+        # ---- Cholesky: the model problem, fp32 ----
+        if S is None:
+            A = sstt.fixtures.laplacian_3d(SIZE)
+            mcfg = cfg.replace(ordering=sstt.Ordering.METIS)
+            S = supernodal.supernodal_symbolic(A, sstt.analyze(A, mcfg),
+                                               mcfg)
+        dp = sd._plan_entry(A, S, dev, sd.TILE_RMIN, False)
+        b = 1.0 + np.arange(A.ncol) / A.ncol
+
+        def chol_gate(F1, Fs, l1, ls):
+            lx_err = ((Fs.Lx - F1.Lx).abs().max()
+                      / F1.Lx.abs().max()).item()
+            assert Fs.ok and lx_err <= SEG_LX_TOL, lx_err
+            kern = ("potrf_trsm", "extend_add_tiles", "extend_add")
+            assert all(l1[k] == ls[k] > 0 for k in kern), (l1, ls)
+            x = sstt.solve(supernodal.SupernodalFactorAdapter(Fs), b, cfg)
+            resid = sstt.residual_norm(A, x, b)
+            assert np.isfinite(x).all() and resid < RESID_TOL, resid
+            return {"lx_rel_err": lx_err, "residual": resid,
+                    "launches": {k: ls[k] for k in kern}}
+
+        out["chol"], _c = cell(
+            "chol", dp, lambda c: sd.factorize_device(A, S, c, dev),
+            lambda F: F.segments, chol_gate)
+        del S, dp, A
+
+        # ---- QR: grid_gradient_3d(32), fp32 ----
+        A = sstt.fixtures.grid_gradient_3d(QR_GRID)
+        bq = np.random.default_rng(QR_SEED).standard_normal(A.nrow)
+        SQ = md._SQ_CACHE.get(md._analysis_key(A, cfg)) or \
+            md.analyze_mfqr(A, cfg)
+        dp = md._plan_entry(SQ, A.permuted(None, SQ.q), 1, dev)
+
+        def x_gate(A, b, resid_fn, tol, resid_tol):
+            """The QR's and the LU's gates: x against the one-piece x
+            (relative to its largest entry) and the residual."""
+            def gate(F1, Fs, _l1, _ls):
+                x1, xs = md.qr_solve_device(F1), md.qr_solve_device(Fs)
+                err = np.abs(xs - x1).max() / np.abs(x1).max()
+                resid = resid_fn(A, xs[:, 0], b)
+                assert np.isfinite(xs).all() and err <= tol and \
+                    resid < resid_tol, (err, resid)
+                return {"x_rel_err": err, "residual": resid}
+            return gate
+
+        out["qr"], _c = cell(
+            "qr", dp, lambda c: md.factorize_qr_device(A, SQ, bq, c, dev),
+            lambda F: 1 if F.segments is None else len(F.segments),
+            x_gate(A, bq, _normal_residual, QR_GRID_TOL,
+                   QR_NE_TOL["float32"]))
+        del SQ, dp, A
+
+        # ---- LU: fem_unsym(30), fp32 ----
+        def lu_cell(name, A, b):
+            SL = mu.analyze_mflu_unsym(A, cfg)
+            dp = mu._plan_entry(SL, A, 1, dev)
+            rec, seg_cfg = cell(
+                name, dp,
+                lambda c: mu.factorize_lu_unsym_device(A, SL, b, c, dev),
+                lambda F: 1 if F.segments is None else len(F.segments),
+                x_gate(A, b, sstt.residual_norm, LU_ONE_TOL["float32"],
+                       LU_ONE_TOL["float32"]))
+            gidx = sum(h.gidx.numel() * h.gidx.element_size()
+                       for h in dp.host)
+            rec["gather_index_bytes"] = gidx
+            return rec, seg_cfg, gidx
+
+        A = sstt.fixtures.fem_unsym(LU_NX)
+        out["lu"], _c, _g = lu_cell("lu", A, np.ones(A.ncol))
+
+        # ---- the complex LU: the embedded rotated upwind_unsym(30) ----
+        Au = _rotated(sstt.fixtures.upwind_unsym(CPLX_LU_NX), CPLX_LU_SEED,
+                      np.pi / 4)
+        bu = 1 + 1j * np.arange(Au.ncol) / Au.ncol
+        M = ce.embed_matrix(Au.to_full_storage())
+        rec, seg_cfg, gidx = lu_cell("complex lu", M, ce.embed_vec(bu))
+        gap = rec["one_piece_peak_gb"] - rec["segmented_peak_gb"]
+        assert gap * 1e9 >= 0.5 * gidx, (gap, gidx)
+        seg0 = mu.segmented_factors
+        t0 = time.perf_counter()
+        xu = ml.mflusol(Au, bu, seg_cfg)
+        torch.cuda.synchronize()
+        rec["mflusol_s"] = time.perf_counter() - t0
+        rec["mflusol_segmented_factors"] = mu.segmented_factors - seg0
+        rec["mflusol_residual"] = lresid = sstt.residual_norm(Au, xu, bu)
+        assert rec["mflusol_segmented_factors"] > 0 and \
+            np.isfinite(xu).all() and lresid < CPLX_LU_TOL, rec
+        rec["peak_gap_gb"] = gap
+        out["complex_lu"] = rec
+        print(f"segmented complex lu ({card}): peak {gap:.4f} GB below the "
+              f"one-piece's ({gidx / 1e9:.4f} GB of gather indices); "
+              f"mflusol in segments {rec['mflusol_s']:.3f} s, "
+              f"{rec['mflusol_segmented_factors']} segmented factors, "
+              f"residual {lresid:.3e}", flush=True)
+    finally:
+        gc.enable()
     return out
 
 
@@ -2061,6 +2278,10 @@ def main() -> int:
     t0 = time.perf_counter()
     cplx = complex_phase()
     cplx_phase_s = time.perf_counter() - t0
+    # ---- segmented execution of the three device factors ----
+    t0 = time.perf_counter()
+    seg = segmented_phase(A, S)
+    seg_phase_s = time.perf_counter() - t0
     print(json.dumps({
         "card": card, "n": n, "flops": S.fl,
         "factor_s": factor_s, "gflops": S.fl / factor_s / 1e9,
@@ -2112,6 +2333,8 @@ def main() -> int:
         "lu_repair_residual": lu["repair"]["residual"],
         "lu_phase_s": lu_phase_s, "lu": lu}), flush=True)
     print(json.dumps({"complex": cplx, "complex_phase_s": cplx_phase_s}),
+          flush=True)
+    print(json.dumps({"segmented": seg, "segmented_phase_s": seg_phase_s}),
           flush=True)
 
     def entry(name, replaces, src, k, launches):

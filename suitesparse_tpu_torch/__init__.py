@@ -66,6 +66,8 @@ def _fill_reducing_perm(A: CSC, config: Config) -> np.ndarray:
         return np.arange(A.ncol, dtype=np.int64)
     if config.ordering is Ordering.AMD:
         return ordering.amd_order(A, config)
+    if config.ordering is Ordering.COLAMD:
+        return ordering.colamd_order(A, config)
     if config.ordering in (Ordering.METIS, Ordering.NESDIS):
         return ordering.nested_dissection_order(A, config)
     if config.ordering is Ordering.BEST:

@@ -91,6 +91,16 @@ class Config:
     tile_pair: bool = False
     solve_pmv: bool = False
     solve_bmv: bool = False
+    # segmented execution of the device factors (the Cholesky, the QR and
+    # the unsymmetric LU; the counterpart of the reference's SSTPU_SEGMENT
+    # and SSTPU_SEG_CELLS), in bytes of what a factor holds beyond its
+    # output (index arrays, one group's front and workspace):
+    #   0         auto: on a CUDA device a share of the free memory at call
+    #             time (numeric/segmented.py, AUTO_SHARE); on the CPU the
+    #             factor always runs in one piece;
+    #   positive  the budget itself: a factor whose one-piece estimate
+    #             passes it runs in segments that each stay under it.
+    segment_bytes: int = 0
 
     # ----- diagnostics -----
     check_inputs: bool = True        # assert the analysis input is sym=1

@@ -43,8 +43,10 @@ Tiny home pivots are perturbed (GESP); a second pass with a relaxed
 perturbation replays the factor when a panel comes out non-finite; fp64
 iterative refinement, a repair by the device multifrontal QR and the host
 KLU path (:func:`.lu.lusol`) guard the last mile (:func:`mflusol_unsym`).
-The segmented execution past 2e9 front cells (ROADMAP queue 1 item 10)
-raises ``NotImplementedError``. Complex input to :func:`mflusol_unsym`
+Past ``Config.segment_bytes`` (or its auto budget on the card) the factor,
+its relaxed pass and the sweep upload the groups' index arrays a segment at
+a time (:mod:`.segmented`, the reference's ``run_qrplan_segmented``), the
+QR's runner with the LU's group body. Complex input to :func:`mflusol_unsym`
 runs this real LU on the 2x2 real embedding
 (:func:`.complex_embed.lusol_complex_device`), as in the reference; the
 device factor itself is real-only.
@@ -62,9 +64,9 @@ from ..config import DEFAULT, Config
 from ..device import fp32_precision, resolve_device
 from ..sparse import CSC, residual_norm
 from . import lu
-from .mfqr_device import (MFQRDeviceFactor, NonFiniteFactor, QRDevicePlan,
-                          QRGroupPlan, QRPlan, _pad8, _upload, mfqrsol_device,
-                          qr_solve_device)
+from . import mfqr_device as md
+from .mfqr_device import (MFQRDeviceFactor, NonFiniteFactor, QRGroupPlan,
+                          QRPlan, _pad8, mfqrsol_device, qr_solve_device)
 from .multifrontal_qr import QRSymbolicMF, _children, analyze_mfqr
 
 __all__ = ["LUUnsymSymbolic", "analyze_mflu_unsym", "build_lu_unsym_plan",
@@ -72,16 +74,15 @@ __all__ = ["LUUnsymSymbolic", "analyze_mflu_unsym", "build_lu_unsym_plan",
            "mflusol_unsym", "lu_flops"]
 
 # device factor passes run (each refinement step is a whole factor, the
-# right-hand side riding along), and those of them at the relaxed tau
+# right-hand side riding along), those of them at the relaxed tau, and the
+# factors that ran in segments
 device_factors = 0
 relaxed_factors = 0
+segmented_factors = 0
 # the rung of the escalation ladder that answered each mflusol_unsym call
 rungs = {"lu": 0, "relaxed": 0, "qr": 0, "klu": 0}
 TAU_REL = 1e-6          # GESP perturbation of a tiny home pivot
 TAU_RELAXED = 1e-3      # the second pass's, when a panel is non-finite
-# the reference switches to its segmented runner past this many front
-# cells; the port raises there (ROADMAP queue 1 item 10)
-SEGMENT_CELLS = 2.0e9
 
 
 @dataclasses.dataclass
@@ -334,7 +335,8 @@ def build_lu_unsym_plan(SL: LUUnsymSymbolic, Aq: CSC, nrhs: int) -> QRPlan:
 
 def plan_cells(plan: QRPlan) -> int:
     """The reference's working-set estimate of a plan in cells
-    (``segmented.qrplan_total_cells``), which its segmented switch reads."""
+    (``segmented.qrplan_total_cells``), which its segmented switch reads
+    (the port's switch reads bytes: :mod:`.segmented`)."""
     cells = 0
     for gl in plan.groups:
         for g in gl:
@@ -347,8 +349,8 @@ def plan_cells(plan: QRPlan) -> int:
 
 @dataclasses.dataclass
 class _LUGroupArrays:
-    """One group's device arrays of the LU factor (beside the gather and
-    sweep arrays the QR's upload gives it)."""
+    """One group's arrays of the LU factor (beside the gather and sweep
+    arrays of the QR's)."""
 
     Cg: int
     dead: torch.Tensor     # [B, Cg] bool: the padded pivot columns of a slot
@@ -357,53 +359,40 @@ class _LUGroupArrays:
     ozero: torch.Tensor | None   # panel rows no front row reaches (zeroed)
 
 
-@dataclasses.dataclass
-class LUDevicePlan:
-    dplan: QRDevicePlan    # the plan, the gathers and the sweep's arrays
-    lu_groups: list        # [_LUGroupArrays] in the plan's level order
-
-
-def _upload_lu(plan: QRPlan, device: torch.device) -> list:
-    out = []
-    for glist in plan.groups:
-        for g in glist:
-            B, M, K, Cg = g.B, g.M, g.K, g.Cg
-            nc = g.nc.astype(np.int64)[:, None]
-            k = np.arange(K)[None, :]
-            row = np.where(k < nc, k, Cg + k - nc)       # [B, K] front row
-            keep = row < M
-            osel = np.where(keep, np.arange(B)[:, None] * M + row, 0)
-            zero = np.flatnonzero(~keep.ravel())
-            out.append(_LUGroupArrays(
-                Cg=Cg,
-                dead=torch.as_tensor(np.arange(Cg)[None, :] >= nc).to(device),
-                osel=torch.as_tensor(osel.ravel()).to(device),
-                ozero=torch.as_tensor(zero).to(device) if zero.size
-                else None))
+def _host_arrays(plan: QRPlan) -> list:
+    """The QR's host arrays of each group with the LU's attached."""
+    out = md._host_arrays(plan)
+    for ga, g in zip(out, (g for gl in plan.groups for g in gl)):
+        B, M, K, Cg = g.B, g.M, g.K, g.Cg
+        nc = g.nc.astype(np.int64)[:, None]
+        k = np.arange(K)[None, :]
+        row = np.where(k < nc, k, Cg + k - nc)       # [B, K] front row
+        keep = row < M
+        osel = np.where(keep, np.arange(B)[:, None] * M + row, 0)
+        zero = np.flatnonzero(~keep.ravel())
+        ga.lu = _LUGroupArrays(
+            Cg=Cg, dead=torch.as_tensor(np.arange(Cg)[None, :] >= nc),
+            osel=torch.as_tensor(osel.ravel()),
+            ozero=torch.as_tensor(zero) if zero.size else None)
     return out
 
 
+def _plan_entry(SL: LUUnsymSymbolic, A: CSC, nrhs: int,
+                device: torch.device) -> md.QRDevicePlan:
+    def build():
+        plan = build_lu_unsym_plan(SL, A.permuted(SL.rowpre, SL.SQ.q), nrhs)
+        return plan, _host_arrays(plan)
+
+    return md._entry(SL, "_torch_lu", nrhs, device, build)
+
+
 def device_plan(SL: LUUnsymSymbolic, A: CSC, nrhs: int,
-                device: torch.device) -> LUDevicePlan:
-    """The LU plan of ``SL`` at ``nrhs`` right-hand sides on ``device``,
-    built and uploaded once and cached on ``SL``, keyed by both; the dtype
-    and the precision apply at each call. Raises ``NotImplementedError``
-    past the reference's segmented switch."""
-    key = (int(nrhs), str(device))
-    cached = getattr(SL, "_torch_lu", None)
-    if cached is None or cached[0] != key:
-        SL._torch_lu = None          # let the old plan go before the new
-        plan = build_lu_unsym_plan(
-            SL, A.permuted(SL.rowpre, SL.SQ.q), nrhs)
-        if plan_cells(plan) > SEGMENT_CELLS:
-            raise NotImplementedError(
-                f"the LU plan holds {plan_cells(plan):.3g} front cells, past "
-                f"the segmented switch at {SEGMENT_CELLS:.3g}: the segmented "
-                "runner is not in the port yet (ROADMAP queue 1 item 10)")
-        dp = LUDevicePlan(dplan=_upload(plan, device),
-                          lu_groups=_upload_lu(plan, device))
-        SL._torch_lu = cached = (key, dp)
-    return cached[1]
+                device: torch.device) -> md.QRDevicePlan:
+    """The LU plan of ``SL`` at ``nrhs`` right-hand sides with every
+    group's index arrays on ``device``, built and uploaded once and cached
+    on ``SL``, keyed by both; the dtype and the precision apply at each
+    call."""
+    return md._upload(_plan_entry(SL, A, nrhs, device))
 
 
 def _value_map(SL: LUUnsymSymbolic, A: CSC) -> np.ndarray:
@@ -461,26 +450,28 @@ def _factor_group(g, lg: _LUGroupArrays, pool: torch.Tensor,
         out.index_fill_(0, lg.ozero, 0.0)
 
 
-def _factor(dp: LUDevicePlan, pool: torch.Tensor, tau_rel: float,
+def _factor(arrays, pool: torch.Tensor, pool_data: int, tau_rel: float,
             precision: str) -> bool:
-    """Every group in level order; True when every panel is finite."""
+    """Every group of ``arrays`` ((position, arrays on the device) in plan
+    order); True when every panel is finite."""
     global device_factors
     with fp32_precision(precision):
-        for g, lg in zip(dp.dplan.groups, dp.lu_groups, strict=True):
-            _factor_group(g, lg, pool, tau_rel)
+        for _pos, g in arrays:
+            _factor_group(g, g.lu, pool, tau_rel)
     device_factors += 1
-    return bool(torch.isfinite(pool[dp.dplan.plan.pool_data:]).all())
+    return bool(torch.isfinite(pool[pool_data:]).all())
 
 
 def factorize_lu_unsym_device(A: CSC, SL: LUUnsymSymbolic, b: np.ndarray,
                               config: Config = DEFAULT,
                               device="cuda") -> MFQRDeviceFactor:
     """The stored U panels of A(rowpre, q) with L^-1 P b in their
-    right-hand-side columns, on ``device`` in ``config.compute_dtype``.
-    A second pass at tau 1e-3 replays the factor when a panel comes out
-    non-finite; :class:`.mfqr_device.NonFiniteFactor` when that one does
-    too."""
-    global relaxed_factors
+    right-hand-side columns, on ``device`` in ``config.compute_dtype``; in
+    segments past ``config.segment_bytes`` (:mod:`.segmented`). A second
+    pass at tau 1e-3 replays the factor when a panel comes out non-finite
+    (in the same segments); :class:`.mfqr_device.NonFiniteFactor` when that
+    one does too."""
+    global relaxed_factors, segmented_factors
     if np.iscomplexobj(A.data) or np.iscomplexobj(b):
         raise ValueError(
             "the device LU factor is real-only: complex input takes "
@@ -488,25 +479,34 @@ def factorize_lu_unsym_device(A: CSC, SL: LUUnsymSymbolic, b: np.ndarray,
     dev = resolve_device(device)
     bb = np.asarray(b, dtype=np.float64)
     bb = (bb.reshape(-1, 1) if bb.ndim == 1 else bb)[SL.rowpre]
-    dp = device_plan(SL, A, bb.shape[1], dev)
-    plan = dp.dplan.plan
+    dp = _plan_entry(SL, A, bb.shape[1], dev)
+    plan = dp.plan
     dtype = torch.float64 if config.compute_dtype == "float64" \
         else torch.float32
+    groups, segs = md._segments(dp, dtype, config)
     src = torch.from_numpy(np.concatenate(
         [A.data[_value_map(SL, A)], bb.ravel(), [0.0]])).to(dev, dtype)
     pool = torch.empty(plan.pool_size, dtype=dtype, device=dev)
     pool[:plan.pool_data] = src
-    ok = _factor(dp, pool, TAU_REL, config.precision)
+
+    def passes(tau_rel):
+        return _factor(md._walk(dp, groups, segs, md._factor_part), pool,
+                       plan.pool_data, tau_rel, config.precision)
+
+    ok = passes(TAU_REL)
     if not ok:
         # device-local stand-in for UMFPACK's delayed pivots: the same
         # factor with a stronger perturbation (refinement absorbs it)
         relaxed_factors += 1
-        ok = _factor(dp, pool, TAU_RELAXED, config.precision)
+        ok = passes(TAU_RELAXED)
     if not ok:
         raise NonFiniteFactor("unsymmetric multifrontal LU produced "
                               "non-finite panels")
-    return MFQRDeviceFactor(SQ=SL.SQ, dplan=dp.dplan, pool=pool, ok=ok,
-                            precision=config.precision)
+    if segs is not None:
+        segmented_factors += 1
+    return MFQRDeviceFactor(SQ=SL.SQ, dplan=dp, pool=pool, ok=ok,
+                            precision=config.precision, groups=groups,
+                            segments=segs)
 
 
 def lu_unsym_solve_device(A: CSC, b: np.ndarray, config: Config = DEFAULT,

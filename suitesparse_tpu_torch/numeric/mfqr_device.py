@@ -21,9 +21,13 @@ The port of the JAX package's ``numeric/mfqr_device.py``. Its plan
 
 The path reaches no Pallas kernel in the reference (``jnp.linalg.qr``,
 ``triangular_solve`` and one-hot matmuls), so it is library calls and
-gathers here. Segmented execution (the reference's switch at 2e9 front
-cells) is not ported: the port runs one group at a time, so its working set
-is the panel pool plus one group's fronts.
+gathers here. Each group's index arrays are built once a plan on the host;
+the factor runs one group at a time, so it holds the pool, the index
+arrays and one group's fronts. The one-piece factor uploads every group's
+arrays once and keeps them; past ``Config.segment_bytes`` (or its auto
+budget on the card) the factor and the sweep upload them a segment at a
+time (:mod:`.segmented`, the reference's ``run_qrplan_segmented``), and the
+pool stays whole.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ import torch
 from ..config import DEFAULT, Config
 from ..device import fp32_precision, resolve_device
 from ..sparse import CSC
+from . import segmented
 from .multifrontal_qr import QRSymbolicMF, analyze_mfqr
 
 __all__ = ["QRGroupPlan", "QRPlan", "build_qr_plan", "MFQRDeviceFactor",
@@ -239,7 +244,8 @@ def gather_index(plan: QRPlan, g: QRGroupPlan) -> np.ndarray:
 
 @dataclasses.dataclass
 class _GroupArrays:
-    """One group's device index arrays."""
+    """One group's index arrays (on the host, or uploaded to the device):
+    the factor's gather (and the LU's arrays), the sweep's positions."""
 
     B: int
     M: int
@@ -253,23 +259,46 @@ class _GroupArrays:
     eye: torch.Tensor      # [K, K] bool identity, R11's padding
     rows: torch.Tensor     # group-local stored rows b*K + r with r < nc_b
     cols: torch.Tensor     # the x column each of them solves
+    lu: object = None      # the LU factor's arrays (mflu_unsym), or None
+
+
+def _factor_part(g: _GroupArrays) -> _GroupArrays:
+    """The arrays the factor reads."""
+    return dataclasses.replace(g, yidx=None, xidx=None, live=None, eye=None,
+                               rows=None, cols=None)
+
+
+def _sweep_part(g: _GroupArrays) -> _GroupArrays:
+    """The arrays the backward sweep reads."""
+    return dataclasses.replace(g, gidx=None, lu=None)
 
 
 @dataclasses.dataclass
 class QRDevicePlan:
+    """A plan, its groups' index arrays on the host and, for the one-piece
+    factor, uploaded to one device."""
+
     plan: QRPlan
-    groups: list           # [_GroupArrays] in the plan's level order
+    device: torch.device
+    host: list             # [_GroupArrays] on the host, in plan order
+    groups: list | None = None   # their one-piece upload, or None (not
+    #                              uploaded, or let go by a segmented factor)
+    index_bytes: int = 0   # bytes of the one-piece upload
+    costs: dict = dataclasses.field(default_factory=dict)
+    #                        dtype -> [(index, work) bytes a group]
+    schedule: tuple | None = None   # (key, segments) of the last segmented
+    #                                 factor (numeric/segmented.py)
 
 
-def _upload(plan: QRPlan, device: torch.device) -> QRDevicePlan:
-    """The groups' gather and sweep index arrays on ``device``, every
-    position taken from the plan (so a QR plan and the LU's gapped panels
-    share the sweep)."""
+def _host_arrays(plan: QRPlan) -> list:
+    """The groups' gather and sweep index arrays on the host, in plan
+    order, every position taken from the plan (so a QR plan and the LU's
+    gapped panels share the sweep)."""
     n = plan.n
     idx_dtype = torch.int32 if plan.pool_size < 2**31 else torch.int64
 
-    def dev(a, dtype=torch.int64):
-        return torch.as_tensor(np.ascontiguousarray(a)).to(device, dtype)
+    def host(a, dtype=torch.int64):
+        return torch.as_tensor(np.ascontiguousarray(a)).to(dtype)
 
     out = []
     for glist in plan.groups:
@@ -286,27 +315,88 @@ def _upload(plan: QRPlan, device: torch.device) -> QRDevicePlan:
             rows = np.flatnonzero(g.row_col < n)
             out.append(_GroupArrays(
                 B=B, M=M, N=N, K=K, panel_base=g.panel_base,
-                gidx=dev(gather_index(plan, g), idx_dtype),
-                yidx=dev(yidx.ravel()), xidx=dev(xidx), live=dev(live, bool),
-                eye=torch.eye(K, dtype=torch.bool, device=device),
-                rows=dev(rows), cols=dev(g.row_col[rows])))
-    return QRDevicePlan(plan=plan, groups=out)
+                gidx=host(gather_index(plan, g), idx_dtype),
+                yidx=host(yidx.ravel()), xidx=host(xidx),
+                live=host(live, torch.bool),
+                eye=torch.eye(K, dtype=torch.bool),
+                rows=host(rows), cols=host(g.row_col[rows])))
+    return out
+
+
+def _work_bytes(g: QRGroupPlan, dtype: torch.dtype) -> int:
+    """One group's transient working set in bytes: the gathered fronts,
+    the library QR's or LU's workspace (two fronts: its copy of the front
+    and the pieces cut from it) and the panel it writes."""
+    return (3 * g.B * g.M * g.N + g.B * g.K * g.N) * dtype.itemsize
+
+
+def _entry(holder, attr: str, nrhs: int, device: torch.device,
+           build) -> QRDevicePlan:
+    """The plan at ``nrhs`` right-hand sides on ``device`` and its host
+    arrays (``build()``), built once and cached on ``holder.<attr>``,
+    keyed by both (a new nrhs or device rebuilds it). The dtype and the
+    matmul precision are not part of the key because nothing in the plan
+    depends on them: they are applied at each call."""
+    key = (int(nrhs), str(device))
+    cached = getattr(holder, attr, None)
+    if cached is None or cached[0] != key:
+        setattr(holder, attr, None)     # let the old plan go before the new
+        plan, host = build()
+        dp = QRDevicePlan(plan=plan, device=device, host=host,
+                          index_bytes=segmented.nbytes(host))
+        cached = (key, dp)
+        setattr(holder, attr, cached)
+    return cached[1]
+
+
+def _upload(dp: QRDevicePlan) -> QRDevicePlan:
+    """The one-piece upload: every group's arrays on the device."""
+    if dp.groups is None:
+        dp.groups = segmented.to_device(dp.host, dp.device)
+    return dp
+
+
+def _plan_entry(SQ: QRSymbolicMF, Aq: CSC, nrhs: int,
+                device: torch.device) -> QRDevicePlan:
+    def build():
+        plan = build_qr_plan(SQ, Aq, nrhs)
+        return plan, _host_arrays(plan)
+
+    return _entry(SQ, "_torch_qr", nrhs, device, build)
 
 
 def device_plan(SQ: QRSymbolicMF, Aq: CSC, nrhs: int,
                 device: torch.device) -> QRDevicePlan:
-    """The plan of ``SQ`` at ``nrhs`` right-hand sides on ``device``, built
-    and uploaded once and cached on ``SQ``, keyed by both (a new nrhs or
-    device rebuilds it). The dtype and the matmul precision are not part of
-    the key because nothing in the plan depends on them: they are applied
-    at each call."""
-    key = (int(nrhs), str(device))
-    cached = getattr(SQ, "_torch_qr", None)
-    if cached is None or cached[0] != key:
-        SQ._torch_qr = None          # let the old plan go before the new
-        dp = _upload(build_qr_plan(SQ, Aq, nrhs), device)
-        SQ._torch_qr = cached = (key, dp)
-    return cached[1]
+    """The plan of ``SQ`` at ``nrhs`` right-hand sides with every group's
+    index arrays on ``device`` (cached on ``SQ`` per nrhs and device)."""
+    return _upload(_plan_entry(SQ, Aq, nrhs, device))
+
+
+def _segments(dp: QRDevicePlan, dtype: torch.dtype, config: Config):
+    """(one-piece groups on the device or None, segments or None) of a
+    factor on ``dp`` in ``dtype`` (:func:`.segmented.segments`: the pool
+    stays whole, the groups' arrays are the budget's)."""
+    plan = dp.plan
+    costs = dp.costs.get(dtype)
+    if costs is None:
+        dp.costs[dtype] = costs = [
+            (segmented.nbytes(h), _work_bytes(g, dtype))
+            for h, g in zip(dp.host, (g for gl in plan.groups for g in gl))]
+    segs = segmented.segments(
+        dp, (id(plan), plan.nrhs, str(dtype), str(dp.device)), costs,
+        config, dp.device, plan.pool_size * dtype.itemsize)
+    return (_upload(dp).groups if segs is None else None), segs
+
+
+def _walk(dp: QRDevicePlan, groups, segs, part, reverse: bool = False):
+    """(position, arrays on the device) of every group: the one-piece
+    ``groups``, or the host's uploaded a segment at a time (``part`` of
+    each), in plan order or in reverse."""
+    if segs is None:
+        pos = range(len(groups))
+        return zip(reversed(pos), reversed(groups)) if reverse \
+            else zip(pos, groups)
+    return segmented.uploads(dp.host, segs, dp.device, part, reverse)
 
 
 @dataclasses.dataclass
@@ -316,6 +406,8 @@ class MFQRDeviceFactor:
     pool: torch.Tensor     # [A.data | b | 0 | R panels] on the device
     ok: bool               # every panel finite
     precision: str
+    groups: list | None            # the one-piece arrays the sweep reads,
+    segments: list | None = None   # or the segments the factor ran in
 
     @property
     def panels(self) -> torch.Tensor:
@@ -342,7 +434,8 @@ def factorize_qr_device(A: CSC, SQ: QRSymbolicMF, b: np.ndarray,
                         device="cuda") -> MFQRDeviceFactor:
     """R panels and Q'b of A(:, SQ.q) on ``device`` in
     ``config.compute_dtype``: per group one gather of its fronts, one
-    batched Householder QR, and R written into the pool."""
+    batched Householder QR, and R written into the pool; in segments past
+    ``config.segment_bytes`` (:mod:`.segmented`)."""
     global device_factors
     if np.iscomplexobj(A.data) or np.iscomplexobj(b):
         raise ValueError(
@@ -352,20 +445,22 @@ def factorize_qr_device(A: CSC, SQ: QRSymbolicMF, b: np.ndarray,
     Aq = A.permuted(None, SQ.q)
     bb = np.asarray(b, dtype=np.float64)
     bb = bb.reshape(-1, 1) if bb.ndim == 1 else bb
-    dp = device_plan(SQ, Aq, bb.shape[1], dev)
+    dp = _plan_entry(SQ, Aq, bb.shape[1], dev)
     plan = dp.plan
     dtype = torch.float64 if config.compute_dtype == "float64" \
         else torch.float32
+    groups, segs = _segments(dp, dtype, config)
     pool = torch.empty(plan.pool_size, dtype=dtype, device=dev)
     src = np.concatenate([Aq.data, bb.ravel(), [0.0]])
     pool[:plan.pool_data] = torch.from_numpy(src).to(dev, dtype)
     with fp32_precision(config.precision):
-        for g in dp.groups:
+        for _pos, g in _walk(dp, groups, segs, _factor_part):
             _factor_group(g, pool)
     ok = bool(torch.isfinite(pool[plan.pool_data:]).all())
     device_factors += 1
     return MFQRDeviceFactor(SQ=SQ, dplan=dp, pool=pool, ok=ok,
-                            precision=config.precision)
+                            precision=config.precision, groups=groups,
+                            segments=segs)
 
 
 def qr_solve_device(F: MFQRDeviceFactor) -> np.ndarray:
@@ -378,7 +473,8 @@ def qr_solve_device(F: MFQRDeviceFactor) -> np.ndarray:
     n, nrhs = dp.plan.n, dp.plan.nrhs
     x = torch.zeros((n + 1, nrhs), dtype=F.pool.dtype, device=F.pool.device)
     with fp32_precision(F.precision):
-        for g in reversed(dp.groups):
+        for _pos, g in _walk(dp, F.groups, F.segments, _sweep_part,
+                             reverse=True):
             flat = F.pool[g.panel_base:g.panel_base + g.B * g.K * g.N]
             R = flat.view(g.B, g.K, g.N)
             y = flat.index_select(0, g.yidx).view(g.B, g.K, nrhs)

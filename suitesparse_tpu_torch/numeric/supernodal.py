@@ -65,6 +65,7 @@ class TorchSupernodalFactor:
     Lx: torch.Tensor
     minor: int
     dplan: "supernodal_device.DevicePlan"
+    segments: int = 1   # the factor ran in this many segments
     _lx_px: np.ndarray | None = None
     # per-mode solve state, see supernodal_solve.solve_device
     _solve: dict = dataclasses.field(default_factory=dict)

@@ -1,7 +1,9 @@
 """Supernodal multifrontal Cholesky factor on torch tensors (CUDA or CPU).
 
-Port of :mod:`suitesparse_tpu.numeric.supernodal_device` (the one-shot
-``factorize_device`` -> ``_run_plan`` -> ``_group_compute`` path), with its
+Port of :mod:`suitesparse_tpu.numeric.supernodal_device` (the
+``factorize_device`` -> ``_run_plan`` -> ``_group_compute`` path, in one
+piece or segmented: ``_run_plan_segmented`` and ``_segment_schedule`` are
+:mod:`.segmented`'s runner here), with its
 numpy plan builder copied here: the supernodes of each elimination-tree
 level are bucketed by padded shape into groups, and each group's pair
 classes (child group -> parent slot extend-adds) and tile manifests are
@@ -17,6 +19,12 @@ of them, each reading its children where they lie; the fronts are
 factored by the fused potrf+trsm kernel where its gate passes (B >= 32,
 C <= 96, fp32) and by ``cholesky_ex`` + ``solve_triangular`` elsewhere;
 the update U = F22 - L21 L21^T goes up to the parent group.
+
+Each group's index arrays are built once a plan on the host. The one-piece
+factor uploads them all once and keeps them; past ``Config.segment_bytes``
+(or its auto budget on the card) a factor uploads them a segment at a time
+(:mod:`.segmented`), with the same kernels, the same carried updates and
+the same bits.
 """
 
 from __future__ import annotations
@@ -34,6 +42,7 @@ from ..kernels.extend_add_tiles import build_group_manifest, extend_add_tiles, \
 from ..kernels.potrf import MAX_C, potrf_trsm
 from ..sparse import CSC
 from ..symbolic.supernodes import SupernodalSymbolic
+from . import segmented
 
 __all__ = ["TILE_RMIN", "Plan", "build_plan", "device_plan",
            "factorize_device", "k7_classes"]
@@ -399,7 +408,7 @@ def build_plan(S: SupernodalSymbolic, C_low: CSC,
 
 @dataclasses.dataclass
 class GroupArrays:
-    """One group's index arrays on the device."""
+    """One group's index arrays (on the host, or uploaded to the device)."""
 
     asrc: torch.Tensor           # gather into Cdata
     adst: torch.Tensor           # flat destination in the (B*R*R) fronts
@@ -413,11 +422,21 @@ class GroupArrays:
 
 @dataclasses.dataclass
 class DevicePlan:
-    """A host :class:`Plan` and its index arrays uploaded to one device."""
+    """A host :class:`Plan`, its groups' index arrays on the host and, for
+    the one-piece factor, uploaded to one device."""
 
     plan: Plan
     device: torch.device
-    groups: list                 # groups[level] = [GroupArrays]
+    groups: list | None          # groups[level] = [GroupArrays] on the
+    #                              device, or None (not uploaded, or let go
+    #                              by a segmented factor)
+    host: list = dataclasses.field(default_factory=list)
+    #                              [GroupArrays] on the host, in plan order
+    index_bytes: int = 0         # bytes of the one-piece upload
+    costs: dict = dataclasses.field(default_factory=dict)
+    #                              dtype -> [(index, work) bytes a group]
+    schedule: tuple | None = None   # (key, segments) of the last segmented
+    #                                 factor (numeric/segmented.py)
     solve: object = None         # solve routing, built at the first solve
 
 
@@ -428,21 +447,21 @@ def k7_classes(g: GroupPlan, skip=()) -> list:
             in enumerate(zip(g.pairs, g._pair_arrays)) if ci not in skip]
 
 
-def _upload(plan: Plan, device: torch.device) -> DevicePlan:
+def _host_arrays(plan: Plan) -> list:
+    """Every group's index arrays on the host, in plan order (the K7 work
+    lists as :func:`build_work` gives them, uploaded by their ``to``)."""
     def t64(a):
-        return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
+        return torch.as_tensor(np.asarray(a, dtype=np.int64))
 
     def t32(a):
-        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32),
-                               device=device)
+        return torch.as_tensor(np.ascontiguousarray(a, dtype=np.int32))
 
     def k7(g, skip):
         classes = k7_classes(g, skip)
-        return build_work(g.B, g.R, classes).to(device) if classes else None
+        return build_work(g.B, g.R, classes) if classes else None
 
-    groups = []
+    out = []
     for glist in plan.groups:
-        row = []
         for g in glist:
             tm = g._tile
             tile, uslices = None, []
@@ -452,23 +471,39 @@ def _upload(plan: Plan, device: torch.device) -> DevicePlan:
                 uslices = [(k0, key, RU_c, t64(src))
                            for (_ci, k0, key, RU_c, src) in tm.uslices]
             k7_all = k7(g, ())
-            row.append(GroupArrays(
+            out.append(GroupArrays(
                 asrc=t64(g.asrc), adst=t64(g.adst),
                 nc=t64(g.nc).reshape(g.B, 1, 1),
                 k7=k7(g, set(tm.folded)) if tm is not None else k7_all,
                 k7_all=k7_all, tile=tile, uslices=uslices))
-        groups.append(row)
-    return DevicePlan(plan=plan, device=device, groups=groups)
+    return out
 
 
-def device_plan(A: CSC, S: SupernodalSymbolic, device: torch.device,
-                tile_rmin: int = TILE_RMIN,
-                tile_pair: bool = False) -> DevicePlan:
-    """The plan for ``S`` (the analysis of ``A``) on ``device``, built and
-    uploaded once.
+def _select(ix: GroupArrays, dtype: torch.dtype) -> GroupArrays:
+    """The arrays a factor in ``dtype`` reads of a group: an fp32 factor
+    assembles a group with a manifest through K2 and K7 on the unfolded
+    classes, every other group through K7 on all classes."""
+    if ix.tile is not None and dtype == torch.float32:
+        return dataclasses.replace(ix, k7_all=None)
+    return dataclasses.replace(ix, k7=None, tile=None, uslices=[])
 
-    Cached on ``S._torch_plan``, keyed by everything that changes it: the
-    tile threshold, the manifest form and the device."""
+
+def _work_bytes(g: GroupPlan, dtype: torch.dtype) -> int:
+    """One group's transient working set in bytes (:func:`_group_compute`):
+    the fronts, the update and its product, the finished panel, the pivot
+    blocks' copies and, for an fp32 manifest, the padded child blocks."""
+    RU = g.R - g.C
+    cells = g.B * (g.R * g.R + 2 * RU * RU + g.R * g.C + 3 * g.C * g.C)
+    if g._tile is not None and dtype == torch.float32:
+        cells += max(g._tile.nslots, 1) * g._tile.RUp ** 2
+    return cells * dtype.itemsize
+
+
+def _plan_entry(A: CSC, S: SupernodalSymbolic, device: torch.device,
+                tile_rmin: int, tile_pair: bool) -> DevicePlan:
+    """The plan for ``S`` (the analysis of ``A``) and its host arrays,
+    built once and cached on ``S._torch_plan``, keyed by everything that
+    changes it: the tile threshold, the manifest form and the device."""
     cache = getattr(S, "_torch_plan", None)
     if cache is None:
         cache = {}
@@ -476,9 +511,28 @@ def device_plan(A: CSC, S: SupernodalSymbolic, device: torch.device,
     key = (int(tile_rmin), bool(tile_pair), str(device))
     if key not in cache:
         C_low = A.symperm(S.perm).transpose()
-        cache[key] = _upload(build_plan(S, C_low, tile_rmin, tile_pair),
-                             device)
+        plan = build_plan(S, C_low, tile_rmin, tile_pair)
+        host = _host_arrays(plan)
+        cache[key] = DevicePlan(plan=plan, device=device, groups=None,
+                                host=host, index_bytes=segmented.nbytes(host))
     return cache[key]
+
+
+def _upload(dp: DevicePlan) -> DevicePlan:
+    """The one-piece upload: every group's arrays on the device."""
+    if dp.groups is None:
+        flat = segmented.to_device(dp.host, dp.device)
+        it = iter(flat)
+        dp.groups = [[next(it) for _g in glist] for glist in dp.plan.groups]
+    return dp
+
+
+def device_plan(A: CSC, S: SupernodalSymbolic, device: torch.device,
+                tile_rmin: int = TILE_RMIN,
+                tile_pair: bool = False) -> DevicePlan:
+    """The plan for ``S`` (the analysis of ``A``) with every group's index
+    arrays on ``device`` (:func:`_plan_entry`'s, uploaded once)."""
+    return _upload(_plan_entry(A, S, device, tile_rmin, tile_pair))
 
 
 def _use_potrf_kernel(dtype: torch.dtype, B: int, C: int) -> bool:
@@ -539,25 +593,29 @@ def _group_compute(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
     return torch.cat([L11, L21], dim=1), U
 
 
-def _run_plan(dp: DevicePlan, Cdata: torch.Tensor, dtype: torch.dtype):
-    """Every group in level order; returns the padded factor (dev_size,).
+def _run_plan(plan: Plan, arrays, Cdata: torch.Tensor, dtype: torch.dtype):
+    """Every group in plan order; returns the padded factor (dev_size,).
 
+    ``arrays`` yields (position, GroupArrays on the device) for each group
+    in plan order: the one-piece upload, or a segment's upload at a time.
     A child update is freed right after the last group that reads it."""
-    plan = dp.plan
-    order, last = _update_consumers(plan)
+    keys = [(d, gi) for d, glist in enumerate(plan.groups)
+            for gi in range(len(glist))]
+    _order, last = _update_consumers(plan)
     free_after: dict = {}
     for key, pos in last.items():
         free_after.setdefault(pos, []).append(key)
     Lx = torch.empty(plan.dev_size, dtype=dtype, device=Cdata.device)
     updates: dict = {}
-    for d, glist in enumerate(plan.groups):
-        for gi, (g, ix) in enumerate(zip(glist, dp.groups[d])):
-            panel, U = _group_compute(g, ix, Cdata, updates, dtype)
-            Lx[g.panel_base:g.panel_base + panel.numel()] = panel.reshape(-1)
-            if U is not None and (d, gi) in last:
-                updates[(d, gi)] = U
-            for key in free_after.get(order[(d, gi)], ()):
-                del updates[key]
+    for pos, ix in arrays:
+        d, gi = keys[pos]
+        g = plan.groups[d][gi]
+        panel, U = _group_compute(g, ix, Cdata, updates, dtype)
+        Lx[g.panel_base:g.panel_base + panel.numel()] = panel.reshape(-1)
+        if U is not None and (d, gi) in last:
+            updates[(d, gi)] = U
+        for key in free_after.get(pos, ()):
+            del updates[key]
     return Lx
 
 
@@ -571,18 +629,36 @@ def factorize_device(A: CSC, S: SupernodalSymbolic, config: Config = DEFAULT,
                      device="cuda", tile_rmin: int = TILE_RMIN):
     """A(p,p) = L L^T on ``device``; a TorchSupernodalFactor (device layout).
 
-    ``config.tile_pair`` picks the two-piece tile manifests. ``minor``
-    follows the cholmod contract: the first column of the first
-    supernode whose panel is not finite, or n on success."""
+    ``config.tile_pair`` picks the two-piece tile manifests;
+    ``config.segment_bytes`` the budget past which the groups run in
+    segments (:mod:`.segmented`; the same kernels, the same layout and the
+    same bits). ``minor`` follows the cholmod contract: the first column of
+    the first supernode whose panel is not finite, or n on success."""
     from .supernodal import TorchSupernodalFactor
 
     dev = resolve_device(device)
     dtype = compute_dtype(config)
-    dp = device_plan(A, S, dev, tile_rmin, config.tile_pair)
+    dp = _plan_entry(A, S, dev, tile_rmin, config.tile_pair)
+    plan = dp.plan
+    costs = dp.costs.get(dtype)
+    if costs is None:
+        dp.costs[dtype] = costs = [
+            (segmented.nbytes(_select(ix, dtype)), _work_bytes(g, dtype))
+            for ix, g in zip(dp.host, (g for gl in plan.groups for g in gl))]
+    segs = segmented.segments(
+        dp, (id(plan), str(dtype), str(dev)), costs, config, dev,
+        plan.dev_size * dtype.itemsize)
+    if segs is None:
+        groups = _upload(dp).groups
+        arrays = enumerate(ix for il in groups for ix in il)
+    else:
+        arrays = segmented.uploads(dp.host, segs, dev,
+                                   lambda ix: _select(ix, dtype))
     Cdata = torch.as_tensor(_clow_data(A, S), device=dev).to(dtype)
     with fp32_precision(config.precision):
-        Lx = _run_plan(dp, Cdata, dtype)
+        Lx = _run_plan(plan, arrays, Cdata, dtype)
     minor = S.n
     if not bool(torch.isfinite(Lx).all()):
-        minor = _find_minor(S, dp.plan, Lx.cpu().numpy())
-    return TorchSupernodalFactor(S=S, Lx=Lx, minor=minor, dplan=dp)
+        minor = _find_minor(S, plan, Lx.cpu().numpy())
+    return TorchSupernodalFactor(S=S, Lx=Lx, minor=minor, dplan=dp,
+                                 segments=1 if segs is None else len(segs))

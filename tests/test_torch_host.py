@@ -203,6 +203,21 @@ def test_amd_and_best_orderings_equal_the_reference():
         sst.analyze(Aj, sst.DEFAULT.replace(ordering=sst.Ordering.BEST)).perm)
 
 
+@pytest.mark.parametrize("make", [lambda fx: fx.laplacian_2d(12),
+                                  lambda fx: fx.fem_mesh_spd(600)],
+                         ids=["laplacian_2d_12", "fem_600"])
+def test_colamd_ordering_equals_the_reference(make):
+    """``analyze`` under ``Ordering.COLAMD`` orders by COLAMD of A's
+    pattern, as the reference's does: the same perm and nnz(L)."""
+    _reference_native()
+    A, Aj = make(sstt.fixtures), make(sst.io.fixtures)
+    S = sstt.analyze(A, sstt.DEFAULT.replace(ordering=sstt.Ordering.COLAMD))
+    Sj = sst.analyze(Aj, sst.DEFAULT.replace(ordering=sst.Ordering.COLAMD))
+    assert np.array_equal(S.perm, Sj.perm)
+    assert S.lnz == Sj.lnz
+    assert not np.array_equal(S.perm, sstt.analyze(A).perm)
+
+
 def test_reference_native_recovers_a_worker_that_lost_the_build_race(
         monkeypatch):
     """A worker whose load of the reference's library failed (the flag set,

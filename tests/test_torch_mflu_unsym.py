@@ -20,7 +20,7 @@
   rung, never the host LU) and the tiny-diagonal case (no rung past the
   LU); the router ``mflusol`` picks the reference's strategy; complex
   input solves (``tests/test_torch_complex.py`` holds it against the
-  reference) and the segmented switch raises ``NotImplementedError``.
+  reference) and a tiny ``segment_bytes`` runs the plan in segments.
 """
 
 import numpy as np
@@ -204,9 +204,10 @@ def test_overfull_plan_equals_the_reference_and_its_sweep_pads(monkeypatch):
                 R[b, np.arange(g.nc[b]), np.arange(g.nc[b])] += 2.0
     monkeypatch.setattr(md, "gather_index",
                         lambda plan, g: np.zeros(g.B * g.M * g.N, np.int64))
-    dp = md._upload(P, torch.device("cpu"))
+    dp = md._upload(md.QRDevicePlan(plan=P, device=torch.device("cpu"),
+                                    host=md._host_arrays(P)))
     F = md.MFQRDeviceFactor(SQ=SL.SQ, dplan=dp, pool=torch.from_numpy(pool),
-                            ok=True, precision="highest")
+                            ok=True, precision="highest", groups=dp.groups)
     x = md.qr_solve_device(F)
     xj = np.asarray(ref_md._qr_solve_sweep(
         Pj, SL.SQ.S, jnp.asarray(pool[P.pool_data:]), jnp.float64))
@@ -481,7 +482,10 @@ def test_complex_input_and_the_segmented_switch_raise(monkeypatch):
     """Complex input, once refused, now solves (through the 2x2 real
     embedding on the device routes, the host KLU's complex kernel in
     ``lusol``); the device factor itself refuses it and names
-    ``mflusol_unsym``. The segmented switch still raises."""
+    ``mflusol_unsym``. The segmented switch, which raised once, now runs
+    the plan in segments: a tiny ``segment_bytes`` answers through
+    ``lu_unsym_solve_device`` and ``mflusol_unsym``, equal to the
+    one-piece factor's."""
     D = rand_unsym(30, 0.15, 1)
     A = sstt.sparse.from_dense(D)
     Ac = sstt.CSC(A.nrow, A.ncol, A.indptr, A.indices, A.data * (1 + 1j), 0)
@@ -493,11 +497,18 @@ def test_complex_input_and_the_segmented_switch_raise(monkeypatch):
         assert np.abs(D * (1 + 1j) @ x - b).max() < 1e-10 * np.abs(b).max()
     with pytest.raises(ValueError, match="mflusol_unsym"):
         mu.lu_unsym_solve_device(A, np.ones(30) * 1j, device="cpu")
-    monkeypatch.setattr(mu, "SEGMENT_CELLS", 1000)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mu.lu_unsym_solve_device(A, np.ones(30), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        mu.mflusol_unsym(A, np.ones(30), device="cpu")
+    tiny = sstt.DEFAULT.replace(segment_bytes=1)
+    seg0 = mu.segmented_factors
+    x1 = mu.lu_unsym_solve_device(A, np.ones(30), device="cpu")
+    xs = mu.lu_unsym_solve_device(A, np.ones(30), tiny, device="cpu")
+    assert mu.segmented_factors == seg0 + 1
+    assert np.array_equal(xs, x1)
+    assert np.abs(D @ xs - 1.0).max() < 1e-3
+    x2 = mu.mflusol_unsym(A, np.ones(30), device="cpu")
+    xs2 = mu.mflusol_unsym(A, np.ones(30), tiny, device="cpu")
+    assert mu.segmented_factors > seg0 + 1
+    assert np.array_equal(xs2, x2)
+    assert sstt.residual_norm(A, xs2, np.ones(30)) < 1e-10
 
 
 def test_plan_cells_and_flops():
