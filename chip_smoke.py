@@ -186,6 +186,22 @@
    one-piece upload let go before each), the byte estimate and budget, the
    largest difference and the residual. Its JSON line (``segmented``)
    comes before the kernel line.
+12. Checkpoint/restart (``persist_phase``, run after step 7's timings):
+   the model problem written to Matrix Market in a temporary directory and
+   read back (the arrays equal), ``report.info_from_factor`` of the main
+   path's factor printed, the factor saved (seconds and bytes) and loaded
+   onto the card (``load_factor``: a px-layout factor whose panels equal
+   ``lx_host()`` bit for bit, F1), ``check_factor`` on it, then solved through ``solve`` (the px sweep) at
+   1 and 64 right-hand sides: K4 must launch once a gated group in each
+   direction and nothing else must, residuals below 1e-5, x within 1e-4 *
+   max|x| of the w2 solve's. K4 is held against its plain version at the
+   px plan's largest gated group at NR 1 and 64 (the loaded factor's own
+   L11, NaN above its diagonal), beside its bound and
+   ``solve_triangular``. It prints the px plan's seconds, the bytes the
+   restart path holds (the loaded ``Lx`` and the gathered panels on the
+   card, the plan's gather maps on the host), the first px solve, and the steady px, w2 and classic solves of the same factor (min
+   of 3, CUDA events, collector off) at 1 and 64 right-hand sides. Its
+   JSON line (``persist``) comes before the kernel line.
 
 Every kernel count is set to 0 just before each path and read just after.
 Any failure raises (exit code != 0). Without a CUDA device the script exits
@@ -195,8 +211,10 @@ with code 2 before doing anything. The last line is the device JSON.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -246,6 +264,7 @@ CPLX_QR_LSTSQ_TOL = 1e-4   # x vs dense lstsq at 6000 x 2000
 SEG_MIN = 4            # segments each cell of segmented_phase must run in
 SEG_SHARE = 8          # its budget: the one-piece estimate over this
 SEG_LX_TOL = 1e-6      # segmented Lx against the one-piece Lx (fp32)
+PX_X_TOL = 1e-4        # the reloaded factor's px solve against the w2 x
 K7_GROUP = (114, 224)   # (B, R) of the factor's slowest placement group
 K7_CLASSES = ((75, 128), (15, 168), (59, 64))   # its (npairs, RU) classes
 K7_F64_GROUP = 3912     # R of the fp64 factor's largest tile group
@@ -2019,6 +2038,186 @@ def segmented_phase(A=None, S=None) -> dict:
     return out
 
 
+def _quiet_best_s(fn, reps: int = 3) -> float:
+    """:func:`_best_s` with Python's garbage collector held off."""
+    gc.disable()
+    try:
+        return _best_s(fn, reps)
+    finally:
+        gc.enable()
+
+
+def persist_phase(A=None, Ssim=None) -> tuple[dict, dict]:
+    """The checkpoint/restart path on the model problem (module docstring,
+    item 12). ``A`` and ``Ssim``: the model problem and its analysis, when
+    the caller has them (the kernel phase's); the phase factors A once on
+    the card and solves it by the w2 sweep for the reference x. Returns
+    (the phase's numbers, K4's record at the px plan's shapes); every gate
+    raises."""
+    import tempfile
+
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch import check, report, serialize
+    from suitesparse_tpu_torch.kernels.trisolve import (
+        batched_trisolve, batched_trisolve_plain)
+    from suitesparse_tpu_torch.numeric import supernodal_solve as ss
+    from suitesparse_tpu_torch.numeric.supernodal import TorchPxFactor
+
+    dev = torch.device("cuda", 0)
+    card = _card()
+    out = {"card": card}
+    cfg = sstt.DEFAULT.replace(ordering=sstt.Ordering.METIS)
+    classic = cfg.replace(solve_mode="classic")
+    if A is None:
+        A = sstt.fixtures.laplacian_3d(SIZE)
+        Ssim = sstt.analyze(A, cfg)
+    F = sstt.factorize(A, Ssim, cfg, device="cuda")
+    assert F.ok, f"factorization failed at column {F.minor}"
+    n = A.ncol
+    b = 1.0 + np.arange(n) / n
+    B64 = np.tile(b.reshape(-1, 1), (1, NRHS)) * (1.0 + np.arange(NRHS) / NRHS)
+    x, x64 = sstt.solve(F, b, cfg), sstt.solve(F, B64, cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/A.mtx"
+        t0 = time.perf_counter()
+        sstt.io.write_matrix_market(path, A)
+        out["mm_write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        A2 = sstt.io.read_matrix_market(path)
+        out["mm_read_s"] = time.perf_counter() - t0
+        assert (A2.nrow, A2.ncol, A2.sym) == (A.nrow, A.ncol, A.sym) and \
+            all(np.array_equal(u, v) for u, v in (
+                (A2.indptr, A.indptr), (A2.indices, A.indices),
+                (A2.data, A.data))), "Matrix Market round trip differs"
+        info = report.info_from_factor(F, A2)
+        print(report.report_info(info), flush=True)
+        out["info"] = dataclasses.asdict(info)
+
+        fpath = f"{tmp}/F.npz"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        serialize.save_factor(fpath, F)
+        out["save_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        G = serialize.load_factor(fpath, device="cuda", config=cfg)
+        torch.cuda.synchronize()
+        out["load_s"] = time.perf_counter() - t0
+        out["file_bytes"] = os.path.getsize(fpath)
+    P = G.F
+    assert isinstance(P, TorchPxFactor) and P.Lx.device.type == "cuda" \
+        and P.Lx.dtype == torch.float32, (type(P), P.Lx)
+    assert torch.equal(P.Lx.cpu().double(), torch.from_numpy(
+        F.F.lx_host())), "F1: the loaded panels differ from lx_host()"
+    assert P.Lx.numel() == F.F.S.lnz != F.F.Lx.numel()
+    t0 = time.perf_counter()
+    check.check_factor(G)
+    out["check_factor_s"] = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    plan = ss.px_plan(P.S)
+    out["plan_s"] = time.perf_counter() - t0
+    groups = [g for gl in plan.groups for g in gl]
+    gated = {nr: [g for g in groups if ss.px_route(
+        torch.float32, g.B, g.C, nr) == "trisolve"] for nr in (1, NRHS)}
+    out.update(groups=len(groups), levels=len(plan.groups),
+               panel_cells=sum(g.B * g.R * g.C for g in groups),
+               k4_groups={nr: len(v) for nr, v in gated.items()})
+    assert gated[1] and gated[NRHS], out["k4_groups"]
+
+    xs, launches = {}, {}
+    for nr, rhs, ref in ((1, b, x), (NRHS, B64, x64)):
+        zero_counts()
+        t0 = time.perf_counter()
+        xp = sstt.solve(G, rhs, cfg)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches[nr] = c = counts()
+        # both directions: one launch a gated group each way
+        assert c["batched_trisolve"] == 2 * len(gated[nr]) and \
+            sum(c.values()) == c["batched_trisolve"], (nr, c)
+        assert xp.shape == rhs.shape and np.isfinite(xp).all()
+        cols = [(xp, rhs)] if nr == 1 else \
+            [(xp[:, k], rhs[:, k]) for k in (0, nr - 1)]
+        resid = max(sstt.residual_norm(A, xc, bc) for xc, bc in cols)
+        dx = np.abs(xp - ref).max() / np.abs(ref).max()
+        assert resid < RESID_TOL and dx <= PX_X_TOL, (nr, resid, dx)
+        out[f"nrhs{nr}"] = {"first_solve_s": first_s, "residual": resid,
+                            "vs_w2": dx, "launches": c}
+        xs[nr] = xp
+    # what the restart path holds: the loaded Lx and the gathered panels
+    # on the card, the plan's int64 gather maps on the host
+    panels = P._solve[("px", torch.float32)][1]
+    # (L21 is a view: count each storage once)
+    held = {t.untyped_storage().data_ptr(): t.untyped_storage().nbytes()
+            for row in panels for pair in row for t in pair}
+    out["device_bytes"] = {
+        "Lx": P.Lx.untyped_storage().nbytes(), "panels": sum(held.values())}
+    out["panel_src_host_bytes"] = sum(g.panel_src.nbytes for g in groups)
+    print(f"persist: px plan {out['plan_s']:.3f} s, {len(groups)} groups "
+          f"on {len(plan.groups)} levels, {out['panel_cells']} panel cells; "
+          f"K4 groups {out['k4_groups']}; launches {launches}", flush=True)
+
+    # K4 at the px plan's largest gated group, the loaded factor's own L11
+    # with NaN above its diagonal (K4 reads the lower triangle only)
+    rec: dict = {}
+    rng = np.random.default_rng(SEED + 17)
+    where = {id(g): (d, gi) for d, gl in enumerate(plan.groups)
+             for gi, g in enumerate(gl)}
+    for nr in (1, NRHS):
+        g = max(gated[nr], key=lambda g: g.B * g.C * g.C)
+        d, gi = where[id(g)]
+        L11 = panels[d][gi][0]
+        Ln = L11.clone()
+        iu = torch.triu_indices(g.C, g.C, 1, device=dev)
+        Ln[:, iu[0], iu[1]] = float("nan")
+        Y = torch.as_tensor(rng.standard_normal((g.B, g.C, nr),
+                                                dtype=np.float32), device=dev)
+        for transpose in (False, True):
+            X = batched_trisolve(Ln, Y, transpose)
+            PX = batched_trisolve_plain(L11, Y, transpose)
+            torch.cuda.synchronize()
+            dabs, err = _rel_err(X, PX)
+            A_ = L11.mT if transpose else L11
+            _record(
+                rec, "batched_trisolve_px",
+                f"(B,C,NR)=({g.B},{g.C},{nr}) transpose={transpose}", err,
+                dabs, _cuda_ms(lambda: batched_trisolve(Ln, Y, transpose),
+                               10),
+                _cuda_ms(lambda: batched_trisolve_plain(L11, Y, transpose),
+                         2),
+                4.0 * g.B * (g.C * (g.C + 1) / 2 + 2 * g.C * nr),
+                float(g.B * nr * g.C * g.C),
+                library_ms=_cuda_ms(lambda: torch.linalg.solve_triangular(
+                    A_, Y, upper=transpose), 10))
+
+    walls = {}
+    for nr, rhs in ((1, b), (NRHS, B64)):
+        walls[nr] = {
+            "px": _quiet_best_s(lambda: sstt.solve(G, rhs, cfg)),
+            "w2": _quiet_best_s(lambda: sstt.solve(F, rhs, cfg)),
+            "classic": _quiet_best_s(lambda: sstt.solve(F, rhs, classic))}
+    out["steady_s"] = walls
+    print(f"persist on {card}: Matrix Market write / read "
+          f"{out['mm_write_s']:.3f} / {out['mm_read_s']:.3f} s; save / load "
+          f"{out['save_s']:.3f} / {out['load_s']:.3f} s "
+          f"({out['file_bytes']} bytes); px plan {out['plan_s']:.3f} s; "
+          f"held: Lx {out['device_bytes']['Lx']} and panels "
+          f"{out['device_bytes']['panels']} bytes on the card, panel_src "
+          f"{out['panel_src_host_bytes']} bytes on the host; first px solve "
+          f"{out['nrhs1']['first_solve_s']:.3f} s; steady px / w2 / classic "
+          f"solve {walls[1]['px']:.4f} / {walls[1]['w2']:.4f} / "
+          f"{walls[1]['classic']:.4f} s at nrhs 1, {walls[NRHS]['px']:.4f} / "
+          f"{walls[NRHS]['w2']:.4f} / {walls[NRHS]['classic']:.4f} s at nrhs "
+          f"{NRHS}; residuals {out['nrhs1']['residual']:.3e} / "
+          f"{out['nrhs' + str(NRHS)]['residual']:.3e}, x vs w2 "
+          f"{out['nrhs1']['vs_w2']:.3e} / "
+          f"{out['nrhs' + str(NRHS)]['vs_w2']:.3e}", flush=True)
+    del G, P, panels, F
+    return out, rec
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2266,6 +2465,10 @@ def main() -> int:
         lambda: sstt.solve(Ff, Bf64, forest_cfg))
     peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
 
+    # ---- checkpoint/restart: Matrix Market, Info, save, load, px sweep ----
+    t0 = time.perf_counter()
+    persist, kpx = persist_phase(A, Ssim)
+    persist_phase_s = time.perf_counter() - t0
     # ---- multifrontal QR through qrsol ----
     t0 = time.perf_counter()
     qr = qr_phase()
@@ -2336,6 +2539,8 @@ def main() -> int:
           flush=True)
     print(json.dumps({"segmented": seg, "segmented_phase_s": seg_phase_s}),
           flush=True)
+    print(json.dumps({"persist": persist, "persist_phase_s": persist_phase_s},
+                     default=str), flush=True)
 
     def entry(name, replaces, src, k, launches):
         return {"name": name, "route": "cuda", "source": SRC + src,
@@ -2365,6 +2570,10 @@ def main() -> int:
               "trisolve.cu", ks["batched_trisolve"],
               forest_launches["batched_trisolve"]
               + forest64_launches["batched_trisolve"]),
+        entry("batched_trisolve_px", "suitesparse_tpu/kernels/trisolve.py:89",
+              "trisolve.cu", kpx["batched_trisolve_px"],
+              sum(persist[f"nrhs{nr}"]["launches"]["batched_trisolve"]
+                  for nr in (1, NRHS))),
         entry("pmatvec_t", "suitesparse_tpu/kernels/pmatvec.py:91",
               "pmatvec.cu", kw["pmatvec_t"],
               sum(c["pmatvec_t"] for c in w2k_launches.values())),

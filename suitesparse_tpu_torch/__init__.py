@@ -17,7 +17,12 @@ the right-hand side riding along, the backward sweep, a QR repair and the
 host LU as its last rungs). Complex input runs through each of these:
 the host complex kernels below a size (LL^H, KLU, Householder QR), the
 card's real pipelines on the 2x2 real embedding above it
-(:mod:`.numeric.complex_embed`).
+(:mod:`.numeric.complex_embed`). Matrices come in from Matrix Market and
+Rutherford-Boeing files (:mod:`.io`); factors and analyses go to disk and
+back (:mod:`.serialize`: a supernodal factor is saved in the CHOLMOD px
+layout and loads onto the card, where ``solve`` runs the px sweep);
+:mod:`.report` gives the ``Info`` accounting and the ``report_*`` texts,
+:mod:`.check` validates objects, :mod:`.diagnostics` estimates condition.
 
     >>> import suitesparse_tpu_torch as sstt
     >>> A = sstt.fixtures.laplacian_3d(20)
@@ -34,6 +39,11 @@ card's real pipelines on the 2x2 real embedding above it
     >>> x = mflusol(M, b)                           # general square M
     >>> x = sstt.lusol(M, b)                        # host KLU-class LU
     >>> x = sstt.cholsol(H, z)                      # complex Hermitian H
+    >>> A = sstt.io.read_matrix_market("A.mtx")     # or io.read_rb
+    >>> info = sstt.report.info_from_factor(F, A)    # UMFPACK-style Info
+    >>> sstt.serialize.save_factor("F.npz", F)
+    >>> F = sstt.serialize.load_factor("F.npz", device="cuda")
+    >>> x = sstt.solve(F, b)                        # the px sweep on the card
 
 The device is CUDA unless the caller passes ``device="cpu"``; asking for
 CUDA where there is none raises ``RuntimeError``.
@@ -43,20 +53,22 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import ordering
+from . import check, diagnostics, io, ordering, report, serialize
 from .config import DEFAULT, Config, FactorKind, Ordering
 from .device import resolve_device
 from .io import fixtures
 from .numeric import (complex_embed, lu, qr, simplicial, supernodal,
                       supernodal_solve)
 from .numeric.simplicial import SymbolicChol, chol_solve
-from .numeric.supernodal import SupernodalFactorAdapter, TorchSupernodalFactor
+from .numeric.supernodal import (SupernodalFactorAdapter, TorchPxFactor,
+                                 TorchSupernodalFactor)
 from .sparse import CSC, from_triplets, residual_norm
 from .stats import GLOBAL_STATS, timed
 
 __all__ = [
-    "CSC", "Config", "DEFAULT", "FactorKind", "Ordering", "fixtures",
-    "from_triplets", "residual_norm", "resolve_device", "analyze",
+    "CSC", "Config", "DEFAULT", "FactorKind", "Ordering", "check",
+    "diagnostics", "fixtures", "io", "report", "serialize", "from_triplets",
+    "residual_norm", "resolve_device", "analyze",
     "factorize", "solve", "solve_refined", "cholsol", "lusol", "qrsol",
 ]
 
@@ -137,11 +149,14 @@ def factorize(A: CSC, S: SymbolicChol, config: Config = DEFAULT,
 def solve(F, b: np.ndarray, config: Config = DEFAULT,
           sys: str = "A") -> np.ndarray:
     """x from a Cholesky factor (cholmod_solve). A device factor solves
-    A x = b on its device (the sweep ``config.solve_mode`` picks); other
-    factors and systems use the host solvers."""
+    A x = b on its device: the factor of ``factorize`` through the sweep
+    ``config.solve_mode`` picks, a px-layout factor (``load_factor``'s)
+    through the px sweep. Other factors and systems use the host
+    solvers."""
     dev_F = F.F if isinstance(F, SupernodalFactorAdapter) else F
     with timed("solve"):
-        if isinstance(dev_F, TorchSupernodalFactor) and sys == "A":
+        if isinstance(dev_F, (TorchSupernodalFactor, TorchPxFactor)) \
+                and sys == "A":
             return supernodal_solve.solve_device(dev_F, b, config)
         if sys == "A":
             return chol_solve(F, b)

@@ -4,8 +4,10 @@ Port of :mod:`suitesparse_tpu.numeric.supernodal`. Problems with enough
 flops (``S.fl >= 5e6``, the reference's rule) factor on the device through
 :mod:`.supernodal_device` into a :class:`TorchSupernodalFactor`; smaller
 ones take the numpy multifrontal :func:`factorize_host` into a
-:class:`SupernodalFactor` (CHOLMOD px layout). Either is wrapped in a
-:class:`SupernodalFactorAdapter`, so the host solvers and ``to_csc`` read it.
+:class:`SupernodalFactor` (CHOLMOD px layout). A factor loaded from a file
+past the same rule is a :class:`TorchPxFactor` (px layout on a device).
+Each is wrapped in a :class:`SupernodalFactorAdapter`, so the host solvers
+and ``to_csc`` read it.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from ..sparse import CSC
 from ..symbolic.supernodes import SupernodalSymbolic, analyze_supernodal
 from . import supernodal_device
 
-__all__ = ["SupernodalFactor", "TorchSupernodalFactor",
+__all__ = ["SupernodalFactor", "TorchSupernodalFactor", "TorchPxFactor",
            "SupernodalFactorAdapter", "factorize", "factorize_host",
            "factor_from_arrays", "supernodal_symbolic", "to_csc"]
 
@@ -86,6 +88,38 @@ class TorchSupernodalFactor:
             px = np.zeros(plan.lnz)
             px[plan.px_dst] = Lh[plan.px_src]
             self._lx_px = px
+        return self._lx_px
+
+    panel = _panel
+
+
+@dataclasses.dataclass
+class TorchPxFactor:
+    """A supernodal factor held as a torch tensor in the CHOLMOD px layout
+    (``S.lnz`` values, panel s column-major at ``S.Lpx[s]``), e.g. one that
+    :func:`suitesparse_tpu_torch.serialize.load_factor` put on a device.
+    It solves through the px sweep (:func:`.supernodal_solve.solve_px`),
+    the reference's solve of a factor with ``layout == "px"``."""
+
+    S: SupernodalSymbolic
+    Lx: torch.Tensor
+    minor: int
+    _lx_px: np.ndarray | None = None
+    # per-dtype panels of the px sweep, see supernodal_solve.solve_px
+    _solve: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def ok(self) -> bool:
+        return self.minor == self.S.n
+
+    @property
+    def perm(self) -> np.ndarray:
+        return self.S.perm
+
+    def lx_host(self) -> np.ndarray:
+        """Host fp64 copy of the panels (cached)."""
+        if self._lx_px is None:
+            self._lx_px = self.Lx.detach().cpu().numpy().astype(np.float64)
         return self._lx_px
 
     panel = _panel
@@ -170,7 +204,7 @@ def _should_use_device(S: SupernodalSymbolic, config: Config) -> bool:
 class SupernodalFactorAdapter:
     """A supernodal factor behind the simplicial Factor solve interface."""
 
-    F: SupernodalFactor | TorchSupernodalFactor
+    F: SupernodalFactor | TorchSupernodalFactor | TorchPxFactor
     _Lcsc: CSC | None = None
 
     @property

@@ -26,6 +26,17 @@ sweeps walk the factor plan's groups leaves -> root (forward) and back
 Contributions move child -> parent along the factor plan's pair classes:
 forward, each class's pass-up rows are added into the parent's vector with
 ``index_add_``; backward, each child gathers its rows of the parent's x.
+
+A factor in the CHOLMOD px layout (``TorchPxFactor``, one that
+``serialize.load_factor`` put on the device) takes the px sweep, the
+reference's ``_solve_fn``: its own plan (``build_px_plan``: the
+supernodes of each level bucketed by padded shape, each group gathering
+its panels out of ``Lx``), the panels gathered once per factor, and per
+group forward ``xc = L11^-1 y[cols]``, ``y[below] -= L21 xc``
+(``index_add_``: a level's supernodes update shared ancestor rows),
+backward ``xc = L11^-T (y[cols] - L21^T y[below])``; the triangles by K4
+under the reference's gate, else ``solve_triangular``.
+
 The reference's class-sorted routing and its other opt-in solve modes
 (inverse panels without W2, the coarse plans) are not ported (see
 ROADMAP).
@@ -45,11 +56,14 @@ from ..kernels.pmatvec import pmatvec_t
 from ..kernels.solve_step import solve_step_bwd, solve_step_fwd, step_fits
 from ..kernels.trisolve import batched_trisolve, trisolve_fits
 from ..symbolic.supernodes import SupernodalSymbolic
-from .supernodal_device import DevicePlan, _use_potrf_kernel, compute_dtype
+from .supernodal import TorchPxFactor
+from .supernodal_device import (_C_LADDER, _R_LADDER, DevicePlan, _pad_to,
+                                _ranges, _use_potrf_kernel, compute_dtype)
 
-__all__ = ["BMV_MIN_BATCH", "PMV_MIN_CELLS", "SolvePlan", "build_solve_plan",
-           "build_w2", "classic_route", "solve_device", "solve_mode",
-           "w2_route"]
+__all__ = ["BMV_MIN_BATCH", "PMV_MIN_CELLS", "PxPlan", "SolvePlan",
+           "build_px_plan", "build_solve_plan", "build_w2", "classic_route",
+           "px_panels", "px_plan", "px_route", "solve_device", "solve_mode",
+           "solve_px", "w2_route"]
 
 # the reference's defaults of SSTPU_PMV_MIN_CELLS and SSTPU_BMV_BMIN
 PMV_MIN_CELLS = 1 << 20   # K5 takes a group of at least this many cells
@@ -144,16 +158,23 @@ def _routing(S, dp: DevicePlan) -> SolveRouting:
     return dp.solve
 
 
+def _split_panels(P: torch.Tensor, nc: np.ndarray):
+    """(L11, L21) of a group's panels P (B, R, C) whose slot b holds nc[b]
+    columns: L11 an identity-padded copy, L21 a view into P (batch stride
+    R*C, contiguous rows)."""
+    B, _R, C = P.shape
+    ar = torch.arange(C, device=P.device)
+    ncb = torch.as_tensor(nc, device=P.device).view(B, 1, 1)
+    live = (ar[:, None] < ncb) & (ar[None, :] < ncb)
+    eye = torch.eye(C, dtype=P.dtype, device=P.device)
+    return torch.where(live, P[:, :C], eye), P[:, C:]
+
+
 def _group_panels(Lx: torch.Tensor, sg, dtype):
-    """(L11, L21) of one solve group: L11 an identity-padded copy, L21 a
-    view into ``Lx`` (batch stride R*C, contiguous rows)."""
+    """(L11, L21) of one solve group of the device layout."""
     B, R, C = sg.B, sg.R, sg.C
     P = Lx[sg.panel_base:sg.panel_base + B * R * C].view(B, R, C).to(dtype)
-    ar = torch.arange(C, device=Lx.device)
-    nc = torch.as_tensor(sg.nc, device=Lx.device).view(B, 1, 1)
-    live = (ar[:, None] < nc) & (ar[None, :] < nc)
-    eye = torch.eye(C, dtype=dtype, device=Lx.device)
-    return torch.where(live, P[:, :C], eye), P[:, C:]
+    return _split_panels(P, sg.nc)
 
 
 def build_w2(splan: SolvePlan, Lx: torch.Tensor, dtype) -> list:
@@ -420,10 +441,194 @@ def _solve_state(F, mode: str, dtype, splan: SolvePlan, config: Config):
     return W2, W2t
 
 
+@dataclasses.dataclass
+class PxGroup:
+    """One group of the px sweep: B supernodes of one level padded to
+    (R, C) panels."""
+
+    R: int
+    C: int
+    B: int
+    panel_src: np.ndarray   # [B*R*C] gather map into Lx (pad -> lx_size)
+    col_idx: np.ndarray     # [B*C] global column ids (pad -> n)
+    below_idx: np.ndarray   # [B*max(RU,1)] global below-row ids (pad -> n)
+    nc: np.ndarray          # per-slot actual column counts
+
+
+@dataclasses.dataclass
+class PxPlan:
+    groups: list            # groups[level] = [PxGroup, ...]
+    n: int
+    lx_size: int
+    # str(device) -> [[(col_idx, below_idx) on the device]], built at the
+    # first solve on that device
+    routing: dict = dataclasses.field(default_factory=dict)
+
+
+def build_px_plan(S: SupernodalSymbolic) -> PxPlan:
+    """The solve plan of a px-layout factor: the reference's
+    ``build_solve_plan(S, "px")``. The supernodes of each level are
+    bucketed by padded shape ((R, C) on the factor plan's ladders, not
+    tightened); each group gathers its panels out of the px ``Lx`` through
+    ``panel_src``, the column-major panel of supernode s landing row-major
+    at (slot, row, column) with its L21 rows after C."""
+    groups_all = []
+    for level_nodes in S.levels:
+        buckets: dict = {}
+        for s in level_nodes:
+            nr, nc = S.nrows(s), S.ncols(s)
+            key = (_pad_to(nr - nc, _R_LADDER) + _pad_to(nc, _C_LADDER),
+                   _pad_to(nc, _C_LADDER))
+            buckets.setdefault(key, []).append(int(s))
+        glist = []
+        for (R, C), ss in sorted(buckets.items()):
+            B = len(ss)
+            RU = R - C
+            cidx = np.full(B * C, S.n, dtype=np.int64)
+            bidx = np.full(B * max(RU, 1), S.n, dtype=np.int64)
+            nc_arr = np.zeros(B, dtype=np.int32)
+            psrc = np.full(B * R * C, S.lnz, dtype=np.int64)
+            for b, s in enumerate(ss):
+                nr, nc = S.nrows(s), S.ncols(s)
+                f = int(S.super_first[s])
+                nc_arr[b] = nc
+                cidx[b * C:b * C + nc] = np.arange(f, f + nc)
+                if nr > nc:
+                    bidx[b * max(RU, 1):b * max(RU, 1) + (nr - nc)] = \
+                        S.rows[s][nc:]
+                kk = np.repeat(np.arange(nc, dtype=np.int64),
+                               nr - np.arange(nc))
+                rp = _ranges(np.arange(nc, dtype=np.int64),
+                             np.full(nc, nr, np.int64))
+                rloc = np.where(rp < nc, rp, C + (rp - nc))
+                psrc[b * R * C + rloc * C + kk] = S.Lpx[s] + kk * nr + rp
+            glist.append(PxGroup(R=R, C=C, B=B, panel_src=psrc,
+                                 col_idx=cidx, below_idx=bidx, nc=nc_arr))
+        groups_all.append(glist)
+    return PxPlan(groups=groups_all, n=S.n, lx_size=S.lnz)
+
+
+def px_plan(S: SupernodalSymbolic) -> PxPlan:
+    """:func:`build_px_plan`, built once and cached on
+    ``S._solve_plans["px"]`` (as the reference caches it)."""
+    plans = getattr(S, "_solve_plans", None)
+    if plans is None:
+        plans = {}
+        S._solve_plans = plans
+    if "px" not in plans:
+        plans["px"] = build_px_plan(S)
+    return plans["px"]
+
+
+def px_route(dtype: torch.dtype, B: int, C: int, nrhs: int) -> str:
+    """Which code solves a px group's triangles: ``"trisolve"`` (K4) under
+    the reference's gate (its ``_use_potrf_kernel`` and ``trisolve_fits``),
+    else ``"library"`` (``torch.linalg.solve_triangular``)."""
+    if _use_potrf_kernel(dtype, B, C) and trisolve_fits(C, nrhs):
+        return "trisolve"
+    return "library"
+
+
+def _px_routing(plan: PxPlan, device: torch.device) -> list:
+    """Each group's (col_idx, below_idx) on ``device``, built once."""
+    key = str(device)
+    if key not in plan.routing:
+        plan.routing[key] = [
+            [(torch.as_tensor(g.col_idx, device=device),
+              torch.as_tensor(g.below_idx, device=device)) for g in glist]
+            for glist in plan.groups]
+    return plan.routing[key]
+
+
+def px_panels(plan: PxPlan, Lx: torch.Tensor, dtype) -> list:
+    """panels[d][gi] = (L11, L21) of every group: each group's panels
+    gathered once out of the px ``Lx`` (an appended zero behind the pad
+    entries of ``panel_src``, so L21's pad rows and columns are zero), L11
+    with identity on padding. The gather maps stay on the host and cross
+    one group at a time."""
+    Lxp = torch.cat([Lx.to(dtype), Lx.new_zeros(1, dtype=dtype)])
+    out = []
+    for glist in plan.groups:
+        row = []
+        for g in glist:
+            src = torch.as_tensor(g.panel_src, device=Lx.device)
+            L11, L21 = _split_panels(Lxp[src].view(g.B, g.R, g.C), g.nc)
+            row.append((L11.contiguous(), L21))
+        out.append(row)
+    return out
+
+
+def _px_sweep(plan: PxPlan, routing: list, panels: list,
+              y: torch.Tensor) -> torch.Tensor:
+    """y = L^-T L^-1 y in place, for y (n+1, nrhs) whose last row is the
+    dump row that the pad entries of col_idx and below_idx read and write:
+    it is zeroed after each group's scatter, so no sum (and no 0 * inf)
+    carries from one group to the next. Several supernodes of a level
+    update the same ancestor row, so the forward scatter accumulates
+    (``index_add_``)."""
+    n, nrhs, dtype = plan.n, y.shape[1], y.dtype
+    steps = [(d, gi) for d, glist in enumerate(plan.groups)
+             for gi in range(len(glist))]
+    for d, gi in steps:                                   # leaves -> root
+        g = plan.groups[d][gi]
+        cidx, bidx = routing[d][gi]
+        L11, L21 = panels[d][gi]
+        xc = _trisolve(px_route(dtype, g.B, g.C, nrhs), L11,
+                       y[cidx].view(g.B, g.C, nrhs), False)
+        y[cidx] = xc.reshape(-1, nrhs)
+        if g.R > g.C:
+            y.index_add_(0, bidx, torch.bmm(L21, xc).view(-1, nrhs),
+                         alpha=-1)
+        y[n] = 0
+    for d, gi in reversed(steps):                         # root -> leaves
+        g = plan.groups[d][gi]
+        cidx, bidx = routing[d][gi]
+        L11, L21 = panels[d][gi]
+        yc = y[cidx].view(g.B, g.C, nrhs)
+        if g.R > g.C:
+            yc = torch.baddbmm(yc, L21.mT,
+                               y[bidx].view(g.B, g.R - g.C, nrhs), alpha=-1)
+        xc = _trisolve(px_route(dtype, g.B, g.C, nrhs), L11, yc, True)
+        y[cidx] = xc.reshape(-1, nrhs)
+        y[n] = 0
+    return y[:n]
+
+
+def solve_px(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
+    """x = A \\ b through the px-layout factor ``F`` (a
+    :class:`~.supernodal.TorchPxFactor`) on its device: the reference's
+    ``_solve_fn``. The plan is cached on ``F.S``, the panels on ``F`` per
+    dtype; the sweep's products run under ``config.precision``."""
+    S = F.S
+    if not F.ok:
+        raise ValueError(f"solve_px: the factor failed at column {F.minor}")
+    if np.iscomplexobj(b):
+        raise ValueError("solve_px takes a real b")
+    dtype = compute_dtype(config)
+    plan = px_plan(S)
+    dev = F.Lx.device
+    routing = _px_routing(plan, dev)
+    panels = _cached(F, ("px", dtype), lambda: px_panels(plan, F.Lx, dtype))
+    b = np.asarray(b, dtype=np.float64)
+    one_d = b.ndim == 1
+    bb = b.reshape(-1, 1) if one_d else b
+    pbp = np.concatenate([bb[S.perm], np.zeros((1, bb.shape[1]))], axis=0)
+    with fp32_precision(config.precision):
+        y = torch.as_tensor(pbp, device=dev).to(dtype)
+        yz = _px_sweep(plan, routing, panels, y).cpu().numpy() \
+            .astype(np.float64)
+    x = np.empty_like(yz)
+    x[S.perm] = yz
+    return x[:, 0] if one_d else x
+
+
 def solve_device(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
     """x = A \\ b through the device factor ``F`` (handles the permutation;
     ``b`` is (n,) or (n, nrhs) and real; complex systems run through
-    ``cholsol``'s 2x2 real embedding)."""
+    ``cholsol``'s 2x2 real embedding). A px-layout factor (one loaded from
+    a file) takes :func:`solve_px`."""
+    if isinstance(F, TorchPxFactor):
+        return solve_px(F, b, config)
     S = F.S
     if not F.ok:
         raise ValueError(f"solve_device: the factor failed at column "

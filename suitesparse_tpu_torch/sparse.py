@@ -67,6 +67,29 @@ class CSC:
     def vals_of(self, j: int) -> np.ndarray:
         return self.data[self.indptr[j]:self.indptr[j + 1]]
 
+    def check(self) -> None:
+        """Structural invariants (cholmod_check_sparse analog): raises
+        ``AssertionError`` naming the first one that fails."""
+        def require(ok, what):
+            if not ok:
+                raise AssertionError(what)
+
+        require(self.indptr.ndim == 1 and self.indptr.size == self.ncol + 1,
+                "indptr must have ncol + 1 entries")
+        require(self.indptr[0] == 0, "indptr must start at 0")
+        require(np.all(np.diff(self.indptr) >= 0), "indptr not monotone")
+        nnz = self.nnz
+        require(self.indices.size == nnz and self.data.size == nnz,
+                "indices and data must hold nnz entries")
+        if nnz:
+            require(self.indices.min() >= 0
+                    and self.indices.max() < self.nrow, "row out of range")
+        cols = _col_ids(self.indptr)
+        bad = np.flatnonzero((cols[1:] == cols[:-1])
+                             & (np.diff(self.indices) <= 0))
+        require(bad.size == 0, f"col {cols[bad[0] + 1] if bad.size else -1} "
+                "unsorted or duplicated")
+
     def to_dense(self) -> np.ndarray:
         A = np.zeros((self.nrow, self.ncol), dtype=self.data.dtype)
         A[self.indices, _col_ids(self.indptr)] = self.data
