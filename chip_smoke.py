@@ -121,6 +121,12 @@
    memory; ``qr_s`` (the grid, fp32) and the gates join the metrics line.
    The QR path runs no hand-written kernel (the reference's reaches no
    Pallas kernel): ``torch.linalg.qr``, ``solve_triangular``, gathers.
+   Then F11 (``qr_rank_check``): ``local_coupling_ls(6000, 2000)`` with
+   column 7 a copy of column 5, fp32 and fp64: the device factor's rank
+   estimate must equal the host ``qr_host``'s (n - 1), ``qrsol`` must give
+   exactly zero x at one of the two columns, a residual within 1e-5
+   (fp32) / 1e-10 (fp64) of the least-squares minimum (dense ``lstsq``),
+   and an x no larger than 10 times the host QR's.
 9. Unsymmetric multifrontal LU (``lu_phase``): ``lu_fem``, the fixture of
    ``demos/bench_unsym.py`` (``fem_unsym(30)``: n = 27,000, b = ones)
    through ``mflu_unsym.mflusol_unsym`` in fp32 and fp64, residual below
@@ -202,6 +208,29 @@
    card, the plan's gather maps on the host), the first px solve, and the steady px, w2 and classic solves of the same factor (min
    of 3, CUDA events, collector off) at 1 and 64 right-hand sides. Its
    JSON line (``persist``) comes before the kernel line.
+13. Inverse panels without W2 (``inv_phase``, after step 12, on the main
+   path's factor): ``solve_mode="inv"`` at 1 and 8 right-hand sides, with
+   ``solve_bmv`` on (K6 must launch once a panel of each gated group, W
+   and L21, in each direction, and nothing else) and off (no kernel);
+   residuals below 1e-5 (and the bench gates), x within 1e-4 * max|x| of
+   the w2 and the classic x; ``solve_dispatch``'s sweep must give the
+   solve's x within 1e-6 * max|x| (the card's ``index_add_`` sums in no
+   fixed order; its own wall printed). K6 is held against its
+   plain version at the largest gated W (C, C) and L21 (RU, C) panels (the
+   factor's own), each way, at 1 and 8 right-hand sides, beside its bound
+   and ``torch.bmm`` (L2 flushed). It prints the bytes of the inv state (W
+   and the K6 groups' L21 copies) against W2's and the steady inv, inv
+   with K6, w2 and classic solves (min of 3, collector off).
+14. Symmetric-strategy device LU (``mflu_sym_phase``): ``fem_unsym(30)``
+   analysed by ``analyze_mflu``, ``factorize_lu_device`` and
+   ``solve_mflu_device`` in fp32 and fp64, residual below 1e-4 / 1e-8, x
+   within 1e-4 / 1e-10 of the host KLU ``lusol``'s, and the fp64 x of
+   ``fem_unsym(16)`` within 1e-10 of the host ``mflusol``'s; first and
+   steady factor and solve seconds and the peak memory. No hand-written
+   kernel runs there (``lu_factor_ex``, ``solve_triangular``, ``baddbmm``,
+   ``index_add_``). Both phases print one JSON line (``inv``,
+   ``mflu_sym``) before the kernel line, which gains ``bmatvec_inv`` and
+   ``bmatvec_t_inv`` (K6 on the inv path).
 
 Every kernel count is set to 0 just before each path and read just after.
 Any failure raises (exit code != 0). Without a CUDA device the script exits
@@ -265,6 +294,14 @@ SEG_MIN = 4            # segments each cell of segmented_phase must run in
 SEG_SHARE = 8          # its budget: the one-piece estimate over this
 SEG_LX_TOL = 1e-6      # segmented Lx against the one-piece Lx (fp32)
 PX_X_TOL = 1e-4        # the reloaded factor's px solve against the w2 x
+INV_X_TOL = 1e-4       # the inv sweep's x against the w2 and classic x
+BENCH_GATES = (1e-2, 1e-4)   # bench.py:122,144: residual, residual64
+QR_RANK = (6000, 2000, (5, 7))  # local_coupling_ls(6000, 2000), column 7
+#                                 made a copy of column 5 (F11)
+QR_RANK_TOL = {"float32": 1e-5, "float64": 1e-10}   # vs the lstsq minimum
+LU_SYM_TOL = {"float32": 1e-4, "float64": 1e-8}     # tests/test_mflu.py:37
+LU_SYM_X_TOL = {"float32": 1e-4, "float64": 1e-10}  # x vs the host LU's
+LU_SYM_HOST_NX = 16    # fem_unsym(16): x against the host mflusol's
 K7_GROUP = (114, 224)   # (B, R) of the factor's slowest placement group
 K7_CLASSES = ((75, 128), (15, 168), (59, 64))   # its (npairs, RU) classes
 K7_F64_GROUP = 3912     # R of the fp64 factor's largest tile group
@@ -1275,6 +1312,64 @@ def qr_phase() -> dict:
     out["grid"]["fp32_vs_fp64"] = grid_err
     print(f"qr grid: fp32 x vs fp64 x {grid_err:.3e}; device factors "
           f"{md.device_factors}", flush=True)
+    out["rank"] = qr_rank_check()
+    return out
+
+
+def qr_rank_check() -> dict:
+    """F11: the device QR of ``local_coupling_ls(6000, 2000)`` with column
+    7 a copy of column 5. The factor must report the host ``qr_host``'s
+    rank estimate; ``qrsol`` must take the device route, give exactly
+    zero x at one of the two columns and the least-squares minimum of the
+    residual (dense ``lstsq``) within ``QR_RANK_TOL``, and an x no larger
+    than 10 times the host QR's; the host's residual is printed beside it
+    (its basic x drops the dead pivot's row of R)."""
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.numeric import mfqr_device as md
+    from suitesparse_tpu_torch.numeric import qr as hqr
+
+    m, n, (j0, j1) = QR_RANK
+    A0 = sstt.fixtures.local_coupling_ls(m, n)
+    D = A0.to_dense()
+    D[:, j1] = D[:, j0]
+    r, c = np.nonzero(D)
+    A = sstt.from_triplets(m, n, r, c, D[r, c])
+    b = np.random.default_rng(QR_SEED).standard_normal(m)
+    Fh = hqr.qr_host(A, hqr.symbolic_qr(A, sstt.DEFAULT))
+    xh = hqr.qr_solve(Fh, b)
+    x_min = np.linalg.lstsq(D, b, rcond=None)[0]
+    rmin = np.linalg.norm(D @ x_min - b)
+    rh = np.linalg.norm(D @ xh - b)
+    out = {"host_rank": Fh.rank_est, "host_resid_rel": rh / rmin - 1}
+    for dtype in ("float32", "float64"):
+        cfg = sstt.DEFAULT.replace(compute_dtype=dtype)
+        SQ = md.analyze_mfqr(A, cfg)
+        F = md.factorize_qr_device(A, SQ, b, cfg, "cuda")
+        assert F.ok and F.rank_est == Fh.rank_est == n - 1, \
+            (dtype, F.rank_est, Fh.rank_est)
+        dead = md.dead_columns(F)
+        calls = md.device_factors
+        x = sstt.qrsol(A, b, cfg)
+        torch.cuda.synchronize()
+        assert md.device_factors == calls + 2, md.device_factors
+        assert np.isfinite(x).all() and (x[j0] == 0.0) != (x[j1] == 0.0) \
+            and x[dead[0]] == 0.0, (dtype, x[j0], x[j1], dead)
+        rx = np.linalg.norm(D @ x - b)
+        rel = abs(rx / rmin - 1)
+        assert rel <= QR_RANK_TOL[dtype], (dtype, rel)
+        assert np.abs(x).max() <= 10 * np.abs(xh).max()
+        out[dtype] = {"rank_est": F.rank_est, "tol": F.tol,
+                      "dead": dead.tolist(), "resid_rel": rel,
+                      "xmax_over_host": np.abs(x).max() / np.abs(xh).max()}
+    print(f"qr rank (F11): {m} x {n} with column {j1} a copy of column "
+          f"{j0}: rank {out['float64']['rank_est']} (host "
+          f"{out['host_rank']}), dead columns {out['float64']['dead']}; "
+          f"||Ax-b|| over the least-squares minimum - 1: device "
+          f"{out['float32']['resid_rel']:.3e} (fp32) / "
+          f"{out['float64']['resid_rel']:.3e} (fp64), host QR "
+          f"{out['host_resid_rel']:.3e}", flush=True)
     return out
 
 
@@ -2218,6 +2313,247 @@ def persist_phase(A=None, Ssim=None) -> tuple[dict, dict]:
     return out, rec
 
 
+def inv_phase(A, F, refs: dict) -> tuple[dict, dict]:
+    """The inverse-panel sweep without W2 (``solve_mode="inv"``) on the
+    main path's factor ``F`` of the model problem (module docstring, item
+    13). ``refs``: {nrhs: (b, w2 x, classic x)} of the main path. Returns
+    (the phase's numbers, K6's record at the inv shapes); every gate
+    raises."""
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.kernels.bmatvec import bmatvec, bmatvec_plain
+    from suitesparse_tpu_torch.numeric import supernodal_solve as ss
+
+    dev = torch.device("cuda", 0)
+    cfg = sstt.DEFAULT.replace(ordering=sstt.Ordering.METIS)
+    inv = cfg.replace(solve_mode="inv")
+    inv_k = inv.replace(solve_bmv=True)
+    classic = cfg.replace(solve_mode="classic")
+    P = F.F
+    groups = [g for gl in P.dplan.plan.groups for g in gl]
+    k6 = {nr: [g for g in groups if ss.inv_route(g.B, g.C, g.R - g.C, nr,
+                                                   inv_k) == "bmv"]
+          for nr in refs}
+    out = {"card": _card(), "k6_groups": {nr: len(v) for nr, v in k6.items()}}
+    launches, xs = {}, {}
+    for nr, (rhs, xw2, xcl) in refs.items():
+        for bmv, c in (("on", inv_k), ("off", inv)):
+            zero_counts()
+            t0 = time.perf_counter()
+            x = sstt.solve(F, rhs, c)
+            torch.cuda.synchronize()
+            first_s = time.perf_counter() - t0
+            got = counts()
+            panels = sum(1 + (g.R > g.C) for g in k6[nr])
+            want = panels if bmv == "on" else 0
+            # K6 takes both panels of each gated group, both ways; nothing
+            # else launches
+            assert got["bmatvec"] == got["bmatvec_t"] == want > 0 or \
+                bmv == "off" and got["bmatvec"] == got["bmatvec_t"] == 0, \
+                (nr, bmv, got, want)
+            assert sum(got.values()) == got["bmatvec"] + got["bmatvec_t"], \
+                got
+            assert x.shape == rhs.shape and np.isfinite(x).all()
+            cols = [(x, rhs)] if nr == 1 else \
+                [(x[:, k], rhs[:, k]) for k in (0, nr - 1)]
+            resid = max(sstt.residual_norm(A, xc, bc) for xc, bc in cols)
+            dw2 = np.abs(x - xw2).max() / np.abs(xw2).max()
+            dcl = np.abs(x - xcl).max() / np.abs(xcl).max()
+            assert resid < RESID_TOL and resid < min(BENCH_GATES), resid
+            assert dw2 <= INV_X_TOL and dcl <= INV_X_TOL, (nr, bmv, dw2, dcl)
+            out[f"nrhs{nr}_bmv_{bmv}"] = {
+                "first_solve_s": first_s, "residual": resid, "vs_w2": dw2,
+                "vs_classic": dcl, "launches": got}
+            launches[(nr, bmv)] = got
+            xs[(nr, bmv)] = x
+    assert ss.solve_mode(P, inv) == "inv"
+    # solve_dispatch: the sweep and its device arguments, every cache full
+    b1 = refs[1][0]
+    fn, args = ss.solve_dispatch(P, b1, inv_k)
+    y = fn(*args)
+    xd = np.empty(y.shape, dtype=np.float64)
+    xd[P.S.perm] = y.cpu().numpy()
+    # the same sweep; the card's index_add_ sums in no fixed order
+    x1 = xs[(1, "on")]
+    out["dispatch_vs_solve"] = dd = \
+        np.abs(xd[:, 0] - x1).max() / np.abs(x1).max()
+    assert dd <= 1e-6, f"solve_dispatch differs from solve: {dd}"
+    out["dispatch_sweep_s"] = _quiet_best_s(lambda: fn(*args))
+
+    # the state: W and the L21 copies of the K6 groups, against W2
+    def nbytes(obj):
+        seen = {}
+        stack = [obj]
+        while stack:
+            o = stack.pop()
+            if isinstance(o, torch.Tensor):
+                seen[o.untyped_storage().data_ptr()] = \
+                    o.untyped_storage().nbytes()
+            elif isinstance(o, (list, tuple)):
+                stack.extend(o)
+        return sum(seen.values())
+
+    winv = P._solve[ss._inv_key(torch.float32, inv_k)][1]
+    out["state_bytes"] = {
+        "inv_bmv": nbytes(winv),
+        "inv": nbytes(P._solve[ss._inv_key(torch.float32, inv)][1]),
+        "w2": nbytes(P._solve[("w2", torch.float32)][1])}
+
+    # K6 at the largest gated (C, C) and (RU, C) panels, the factor's own
+    # W and L21 copies, each way, at 1 and 8 right-hand sides
+    rec: dict = {}
+    rng = np.random.default_rng(SEED + 19)
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
+
+    def cold():
+        flush.zero_()
+        return ()
+
+    where = {id(g): (d, gi) for d, gl in enumerate(P.dplan.plan.groups)
+             for gi, g in enumerate(gl)}
+    gW = max(k6[1], key=lambda g: g.B * g.C * g.C)
+    gL = max((g for g in k6[1] if g.R > g.C),
+             key=lambda g: g.B * (g.R - g.C) * g.C)
+    shapes = []
+    for g, which in ((gW, 0), (gL, 1)):
+        d, gi = where[id(g)]
+        shapes.append((winv[d][gi][which], "W" if which == 0 else "L21"))
+    for M, what in shapes:
+        B, I, J = M.shape
+        for transpose in (False, True):
+            K, N = (I, J) if transpose else (J, I)
+            Mk = M.mT if transpose else M
+            for nr in (1, NRHS_K):
+                X = torch.as_tensor(rng.standard_normal((B, K, nr),
+                                                        dtype=np.float32),
+                                    device=dev)
+                Z = bmatvec(M, X, transpose)
+                PZ = bmatvec_plain(M, X, transpose)
+                torch.cuda.synchronize()
+                d_, e = _rel_err(Z, PZ)
+                _record(
+                    rec, "bmatvec_t_inv" if transpose else "bmatvec_inv",
+                    f"{what} (B,I,J,NR)=({B},{I},{J},{nr}) "
+                    f"transpose={transpose}", e, d_,
+                    _cuda_ms(lambda: bmatvec(M, X, transpose), 10, cold),
+                    _cuda_ms(lambda: bmatvec_plain(M, X, transpose), 2,
+                             cold),
+                    4.0 * B * (I * J + K * nr + N * nr),
+                    2.0 * B * I * J * nr,
+                    library_ms=_cuda_ms(lambda: torch.bmm(Mk, X), 10, cold),
+                    tol=K567_TOL)
+
+    walls = {}
+    for nr, (rhs, _xw2, _xcl) in refs.items():
+        walls[nr] = {
+            "inv": _quiet_best_s(lambda: sstt.solve(F, rhs, inv)),
+            "inv_bmv": _quiet_best_s(lambda: sstt.solve(F, rhs, inv_k)),
+            "w2": _quiet_best_s(lambda: sstt.solve(F, rhs, cfg)),
+            "classic": _quiet_best_s(lambda: sstt.solve(F, rhs, classic))}
+    out["steady_s"] = walls
+    out["launches"] = {f"{nr}_{bmv}": c for (nr, bmv), c in launches.items()}
+    w = ", ".join(f"nrhs {nr}: inv {v['inv']:.4f} / inv+K6 "
+                  f"{v['inv_bmv']:.4f} / w2 {v['w2']:.4f} / classic "
+                  f"{v['classic']:.4f} s" for nr, v in walls.items())
+    print(f"inv on {out['card']}: K6 groups {out['k6_groups']}, launches "
+          f"{out['launches']}; residuals "
+          + ", ".join(f"{k} {v['residual']:.3e} (vs w2 {v['vs_w2']:.3e})"
+                      for k, v in out.items() if k.startswith("nrhs"))
+          + f"; state bytes {out['state_bytes']}; dispatched sweep "
+          f"{out['dispatch_sweep_s']:.4f} s; steady {w}", flush=True)
+    for key in list(P._solve):
+        if key[0] == "inv":
+            del P._solve[key]
+    return out, rec
+
+
+def mflu_sym_phase() -> dict:
+    """The symmetric-strategy device LU (``numeric/mflu_device.py``) on
+    the LU phase's ``fem_unsym(30)`` (module docstring, item 14): the
+    analysis, then ``factorize_lu_device`` and ``solve_mflu_device`` in
+    fp32 and fp64, each factor's residual under ``LU_SYM_TOL`` and its x
+    against the host KLU ``lusol``'s within ``LU_SYM_X_TOL``; the fp64 x
+    of ``fem_unsym(LU_SYM_HOST_NX)`` against the host ``mflusol``'s (the
+    symmetric strategy on the host, a Python loop over the supernodes: too
+    slow for the phase at n = 27,000).
+    Prints the analysis, the first and steady factor and solve seconds and
+    the peak memory."""
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.numeric import mflu_device, multifrontal_lu
+
+    dev = torch.device("cuda", 0)
+    out = {"card": _card()}
+    A = sstt.fixtures.fem_unsym(LU_NX)
+    n = A.ncol
+    b = np.ones(n)
+    t0 = time.perf_counter()
+    S = multifrontal_lu.analyze_mflu(A)
+    out["analyze_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    xk = sstt.lusol(A, b)
+    out["host_lusol_s"] = time.perf_counter() - t0
+    for dtype in ("float32", "float64"):
+        cfg = sstt.DEFAULT.replace(compute_dtype=dtype)
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        F = mflu_device.factorize_lu_device(A, S, cfg, dev)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        assert F.ok and F.Lpanels.device.type == dev.type, F.minor
+        t0 = time.perf_counter()
+        x = mflu_device.solve_mflu_device(F, b)
+        torch.cuda.synchronize()
+        first_solve_s = time.perf_counter() - t0
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        resid = sstt.residual_norm(A, x, b)
+        dx = np.abs(x - xk).max() / np.abs(xk).max()
+        assert np.isfinite(x).all() and resid < LU_SYM_TOL[dtype] and \
+            dx < LU_SYM_X_TOL[dtype], (dtype, resid, dx)
+        factor_s = _quiet_best_s(
+            lambda: mflu_device.factorize_lu_device(A, S, cfg, dev))
+        solve_s = _quiet_best_s(lambda: mflu_device.solve_mflu_device(F, b))
+        groups = F.groups
+        out[dtype] = {"first_factor_s": first_s, "first_solve_s": first_solve_s,
+                      "factor_s": factor_s, "solve_s": solve_s,
+                      "residual": resid, "vs_lusol": dx, "peak_mem_gb": peak}
+        del F
+    out.update(n=n, nsuper=S.nsuper, levels=len(S.levels),
+               groups=len(groups),
+               panel_cells=S._mflu_dev_plan.dev_size,
+               largest_front=max(g.R for g in groups))
+    Ah = sstt.fixtures.fem_unsym(LU_SYM_HOST_NX)
+    bh = np.ones(Ah.ncol)
+    t0 = time.perf_counter()
+    xh = multifrontal_lu.mflusol(Ah, bh)
+    out["host_mflusol_s"] = time.perf_counter() - t0
+    Fh = mflu_device.factorize_lu_device(
+        Ah, multifrontal_lu.analyze_mflu(Ah),
+        sstt.DEFAULT.replace(compute_dtype="float64"), dev)
+    xd = mflu_device.solve_mflu_device(Fh, bh)
+    out["small_vs_host_mflusol"] = dh = \
+        np.abs(xd - xh).max() / np.abs(xh).max()
+    assert dh < LU_SYM_X_TOL["float64"], dh
+    print(f"mflu_sym on {out['card']}: fem_unsym({LU_NX}) n={n}, "
+          f"{out['nsuper']} supernodes, {out['groups']} groups, "
+          f"{out['panel_cells']} panel cells, largest front "
+          f"{out['largest_front']}; analyze {out['analyze_s']:.3f} s, host "
+          f"lusol {out['host_lusol_s']:.3f} s; "
+          + "; ".join(f"{k}: first factor {v['first_factor_s']:.3f} s, "
+                      f"factor {v['factor_s']:.4f} s, solve "
+                      f"{v['solve_s']:.4f} s, residual {v['residual']:.3e}, "
+                      f"x vs lusol {v['vs_lusol']:.3e}, peak "
+                      f"{v['peak_mem_gb']:.3f} GB"
+                      for k, v in out.items() if k.startswith("float"))
+          + f"; fem_unsym({LU_SYM_HOST_NX}) x vs host mflusol {dh:.3e} "
+          f"(host {out['host_mflusol_s']:.3f} s)", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2469,6 +2805,11 @@ def main() -> int:
     t0 = time.perf_counter()
     persist, kpx = persist_phase(A, Ssim)
     persist_phase_s = time.perf_counter() - t0
+    # ---- the inverse-panel sweep without W2, on the same factor ----
+    t0 = time.perf_counter()
+    inv, k6inv = inv_phase(A, F, {1: (b, x, xc), NRHS_K: (
+        B8, x8, sstt.solve(F, B8, classic))})
+    inv_phase_s = time.perf_counter() - t0
     # ---- multifrontal QR through qrsol ----
     t0 = time.perf_counter()
     qr = qr_phase()
@@ -2481,6 +2822,10 @@ def main() -> int:
     t0 = time.perf_counter()
     cplx = complex_phase()
     cplx_phase_s = time.perf_counter() - t0
+    # ---- the symmetric-strategy device LU ----
+    t0 = time.perf_counter()
+    mflu_sym = mflu_sym_phase()
+    mflu_sym_phase_s = time.perf_counter() - t0
     # ---- segmented execution of the three device factors ----
     t0 = time.perf_counter()
     seg = segmented_phase(A, S)
@@ -2541,6 +2886,10 @@ def main() -> int:
           flush=True)
     print(json.dumps({"persist": persist, "persist_phase_s": persist_phase_s},
                      default=str), flush=True)
+    print(json.dumps({"inv": inv, "inv_phase_s": inv_phase_s,
+                      "mflu_sym": mflu_sym,
+                      "mflu_sym_phase_s": mflu_sym_phase_s}, default=str),
+          flush=True)
 
     def entry(name, replaces, src, k, launches):
         return {"name": name, "route": "cuda", "source": SRC + src,
@@ -2583,6 +2932,12 @@ def main() -> int:
         entry("bmatvec_t", "suitesparse_tpu/kernels/bmatvec.py:138",
               "bmatvec.cu", kw["bmatvec_t"],
               sum(c["bmatvec_t"] for c in w2k_launches.values())),
+        entry("bmatvec_inv", "suitesparse_tpu/kernels/bmatvec.py:138",
+              "bmatvec.cu", k6inv["bmatvec_inv"],
+              sum(c["bmatvec"] for c in inv["launches"].values())),
+        entry("bmatvec_t_inv", "suitesparse_tpu/kernels/bmatvec.py:138",
+              "bmatvec.cu", k6inv["bmatvec_t_inv"],
+              sum(c["bmatvec_t"] for c in inv["launches"].values())),
         entry("extend_add", "suitesparse_tpu/kernels/extend_add.py:110",
               "extend_add.cu", k7["extend_add"],
               factor_launches["extend_add"]),

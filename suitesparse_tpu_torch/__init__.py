@@ -53,22 +53,24 @@ from __future__ import annotations
 
 import numpy as np
 
-from . import check, diagnostics, io, ordering, report, serialize
+from . import (check, diagnostics, io, native, ordering, report, serialize,
+               symbolic)
 from .config import DEFAULT, Config, FactorKind, Ordering
 from .device import resolve_device
 from .io import fixtures
 from .numeric import (complex_embed, lu, qr, simplicial, supernodal,
                       supernodal_solve)
-from .numeric.simplicial import SymbolicChol, chol_solve
+from .numeric.simplicial import Factor, SymbolicChol, chol_solve
 from .numeric.supernodal import (SupernodalFactorAdapter, TorchPxFactor,
                                  TorchSupernodalFactor)
-from .sparse import CSC, from_triplets, residual_norm
+from .sparse import CSC, eye, from_dense, from_triplets, residual_norm
 from .stats import GLOBAL_STATS, timed
 
 __all__ = [
-    "CSC", "Config", "DEFAULT", "FactorKind", "Ordering", "check",
-    "diagnostics", "fixtures", "io", "report", "serialize", "from_triplets",
-    "residual_norm", "resolve_device", "analyze",
+    "CSC", "Config", "DEFAULT", "Factor", "FactorKind", "Ordering",
+    "SymbolicChol", "check", "diagnostics", "fixtures", "io", "native",
+    "ordering", "report", "serialize", "symbolic", "eye", "from_dense",
+    "from_triplets", "residual_norm", "resolve_device", "analyze",
     "factorize", "solve", "solve_refined", "cholsol", "lusol", "qrsol",
 ]
 

@@ -34,7 +34,7 @@ class FactorKind(enum.Enum):
     AUTO = "auto"  # supernodal iff flops/nnz(L) >= supernodal_switch
 
 
-SOLVE_MODES = ("auto", "classic")
+SOLVE_MODES = ("auto", "classic", "inv")
 
 
 @dataclasses.dataclass
@@ -79,7 +79,11 @@ class Config:
     #             extra factor-sized copy built at the first solve) where W2
     #             fits in the device memory, else the classic sweep;
     #   "classic" triangular solves on the factor's own panels (K3 solve_step
-    #             and K4 trisolve kernels), no extra copy.
+    #             and K4 trisolve kernels), no extra copy;
+    #   "inv"     inverse panels without W2: W = L11^-1 a group (a C x C
+    #             copy, built at the first solve), each step two batched
+    #             matvecs (W, then the factor's L21), with K6 under
+    #             solve_bmv. "auto" does not take it (ROADMAP item 4).
     solve_mode: str = "auto"
     # opt-in kernel routes, the counterparts of the reference's
     # SSTPU_TILE_PAIR, SSTPU_SOLVE_PMV and SSTPU_SOLVE_BMV (all default off):
@@ -87,7 +91,8 @@ class Config:
     #   solve_pmv  w2 groups with B <= 32 and big panels apply W2 through
     #              the streaming panel matvec (K5; keeps W2^T as well);
     #   solve_bmv  w2 groups with B >= 32 apply W2 through the batched
-    #              matvec (K6).
+    #              matvec (K6), and the inv sweep's groups with B >= 32
+    #              apply W and L21 through it.
     tile_pair: bool = False
     solve_pmv: bool = False
     solve_bmv: bool = False

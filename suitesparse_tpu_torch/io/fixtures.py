@@ -13,7 +13,7 @@ import numpy as np
 from ..sparse import CSC, from_triplets
 
 __all__ = ["laplacian_2d", "laplacian_3d", "anisotropic_laplacian_3d",
-           "fem_mesh_spd", "random_sparse", "local_coupling_ls",
+           "fem_mesh_spd", "random_sparse", "random_spd", "local_coupling_ls",
            "grid_gradient_3d", "fem_unsym", "upwind_unsym"]
 
 
@@ -198,6 +198,25 @@ def random_sparse(nrow: int, ncol: int, density: float = 0.05, seed: int = 0,
         r = np.concatenate([r, d]); c = np.concatenate([c, d])
         x = np.concatenate([x, np.full(nrow, 4.0 + density * nrow)])
     return from_triplets(nrow, ncol, r, c, x, sym=0)
+
+
+def random_spd(n: int, density: float = 0.01, seed: int = 0) -> CSC:
+    """Random SPD: random sparse pattern + diagonal dominance, upper-stored."""
+    rng = np.random.default_rng(seed)
+    m = max(1, int(density * n * n / 2))
+    r = rng.integers(0, n, size=m)
+    c = rng.integers(0, n, size=m)
+    lo = np.minimum(r, c); hi = np.maximum(r, c)
+    off = lo != hi
+    vals = rng.standard_normal(off.sum())
+    rows = np.concatenate([lo[off], np.arange(n)])
+    cols = np.concatenate([hi[off], np.arange(n)])
+    # diagonal dominance: diag = 1 + sum |offdiag| bound
+    diag = np.full(n, 1.0)
+    np.add.at(diag, lo[off], np.abs(vals))
+    np.add.at(diag, hi[off], np.abs(vals))
+    data = np.concatenate([vals, diag + 1.0])
+    return from_triplets(n, n, rows, cols, data, sym=1)
 
 
 def local_coupling_ls(m: int, n: int, k: int = 6, seed: int = 3) -> CSC:

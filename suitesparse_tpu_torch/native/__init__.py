@@ -1,6 +1,7 @@
 """Host C++ kernels of the port: orderings, symbolic analysis, host sweeps.
 
-``src/*.cc`` (nested dissection, AMD, COLAMD, etree/postorder/column counts
+``src/*.cc`` (nested dissection with its constraint sets, edge-cut
+partitioning, AMD, constrained AMD, COLAMD and CCOLAMD, etree/postorder/column counts
 (of A or of A'A), the supernodal symbolic analysis, A+A', symmetric
 permutation, transpose, the four host triangular sweeps, and the LU path's
 weighted matching, maximum transversal, strong components, Gilbert-Peierls
@@ -8,8 +9,10 @@ factor and refactor, permutation maps and off-diagonal update) is compiled by
 ``g++`` at first use into ``lib/libsst_host.so`` and bound with ctypes. A
 content hash of the sources in ``lib/build.stamp`` rebuilds the library when
 a source changes. The library is built with ``-march=native``: delete
-``lib/`` when the checkout comes from another host. There is no Python
-fallback: without ``g++`` the first call raises.
+``lib/`` when the checkout comes from another host. Without ``g++`` the
+first call raises; the orderings that keep the reference's Python fallback
+(``camd_order``, ``nesdis_order``, ``ccolamd_order``, ``edge_cut``) take it
+only where :func:`has` finds no entry point.
 """
 
 from __future__ import annotations
@@ -41,6 +44,10 @@ _vp = ctypes.c_void_p
 _SIGNATURES = {
     "sstpu_amd": (_c, [_c, _i64p, _i64p, _i64p, _d, _c]),
     "sstpu_nested_dissection": (_c, [_c, _i64p, _i64p, _i64p, _c, _c]),
+    "sstpu_nested_dissection_sets": (_c, [_c, _i64p, _i64p, _i64p, _c, _c,
+                                          _i64p]),
+    "sstpu_camd": (_c, [_c, _i64p, _i64p, _i64p, _i64p, _c]),
+    "sstpu_edgecut": (_c, [_c, _i64p, _i64p, _i64p, _d, _d, _c, _i64p]),
     "sstpu_etree": (None, [_c, _i64p, _i64p, _i64p, _c]),
     "sstpu_postorder": (None, [_c, _i64p, _i64p]),
     "sstpu_col_counts": (None, [_c, _c, _i64p, _i64p, _i64p, _i64p, _i64p,
@@ -130,6 +137,20 @@ def _load() -> ctypes.CDLL:
         return _dll
 
 
+def available() -> bool:
+    """Whether the library builds and loads."""
+    try:
+        _load()
+    except RuntimeError:
+        return False
+    return True
+
+
+def has(name: str) -> bool:
+    """Whether the library builds, loads and exposes entry point ``name``."""
+    return available() and hasattr(_load(), name)
+
+
 def _i64(a) -> np.ndarray:
     return np.ascontiguousarray(a, dtype=np.int64)
 
@@ -165,16 +186,68 @@ def nested_dissection(indptr, indices, n: int, nd_small: int = 200,
     return perm
 
 
+def camd(indptr, indices, n: int, cset, aggressive: bool = True
+         ) -> np.ndarray:
+    """Constrained AMD: like :func:`amd` but the output keeps constraint
+    sets contiguous in ascending set order (CAMD analog)."""
+    indptr, indices, cset = _i64(indptr), _i64(indices), _i64(cset)
+    perm = np.empty(n, dtype=np.int64)
+    rc = _load().sstpu_camd(n, _p(indptr), _p(indices), _p(perm), _p(cset),
+                            1 if aggressive else 0)
+    if rc != 0:
+        raise RuntimeError(f"native camd failed rc={rc}")
+    return perm
+
+
+def nested_dissection_sets(indptr, indices, n: int, nd_small: int = 200,
+                           seed: int = 1) -> tuple:
+    """ND returning (perm, cmember): per-vertex constraint-set ids of the
+    leaf-block/separator decomposition (NESDIS Cmember analog)."""
+    indptr, indices = _i64(indptr), _i64(indices)
+    perm = np.empty(n, dtype=np.int64)
+    cmember = np.empty(n, dtype=np.int64)
+    rc = _load().sstpu_nested_dissection_sets(
+        n, _p(indptr), _p(indices), _p(perm), nd_small, seed, _p(cmember))
+    if rc == -3:
+        raise ValueError("pattern exceeds int32 ND internals "
+                         "(n or nnz >= 2^31)")
+    if rc != 0:
+        raise RuntimeError(f"native nested dissection failed rc={rc}")
+    return perm, cmember
+
+
+def edgecut(indptr, indices, n: int, target_split: float = 0.5,
+            tolerance: float = 0.05, seed: int = 1) -> tuple:
+    """Multilevel two-way edge-cut partition (Mongoose EdgeCut analog).
+    Returns (part in {0,1}^n, cut weight)."""
+    indptr, indices = _i64(indptr), _i64(indices)
+    part = np.empty(n, dtype=np.int64)
+    out = np.zeros(2, dtype=np.int64)
+    rc = _load().sstpu_edgecut(n, _p(indptr), _p(indices), _p(part),
+                               ctypes.c_double(target_split),
+                               ctypes.c_double(tolerance), seed, _p(out))
+    if rc == -3:
+        raise ValueError("pattern exceeds int32 ND internals "
+                         "(n or nnz >= 2^31)")
+    if rc != 0:
+        raise RuntimeError(f"native edgecut failed rc={rc}")
+    return part, int(out[0])
+
+
 def colamd(nrow: int, ncol: int, indptr, indices, dense_row: float = 10.0,
-           dense_col: float = 10.0, aggressive: bool = True) -> np.ndarray:
-    """Row-list column approximate minimum degree (COLAMD) of the general
-    CSC pattern. Returns q with q[k] = kth column."""
+           dense_col: float = 10.0, aggressive: bool = True,
+           cmember=None) -> np.ndarray:
+    """Row-list column approximate minimum degree (COLAMD; CCOLAMD when
+    ``cmember`` is given) of the general CSC pattern. Returns q with q[k] =
+    kth column."""
     indptr, indices = _i64(indptr), _i64(indices)
     perm = np.empty(ncol, dtype=np.int64)
+    cm = None if cmember is None else _i64(cmember)
     rc = _load().sstpu_colamd(nrow, ncol, _p(indptr), _p(indices),
                               ctypes.c_double(dense_row),
                               ctypes.c_double(dense_col),
-                              1 if aggressive else 0, None, _p(perm))
+                              1 if aggressive else 0,
+                              None if cm is None else _p(cm), _p(perm))
     if rc != 0:
         raise RuntimeError(f"native colamd failed rc={rc}")
     return perm

@@ -396,3 +396,12 @@ SSTPU_API i64 sstpu_amd(i64 n, const i64* Ap, const i64* Ai, i64* perm,
                         double dense, i64 aggressive) {
   return amd_core(n, Ap, Ai, perm, dense, aggressive, nullptr);
 }
+
+// Constrained AMD (reference CAMD package: camd.h camd_order / camd_2.c —
+// each output supernode stays within one constraint set, sets appear in
+// ascending order). Dense postponement is disabled (it would break set
+// contiguity).
+SSTPU_API i64 sstpu_camd(i64 n, const i64* Ap, const i64* Ai, i64* perm,
+                         const i64* cset, i64 aggressive) {
+  return amd_core(n, Ap, Ai, perm, 0.0, aggressive, cset);
+}

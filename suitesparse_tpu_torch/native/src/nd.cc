@@ -515,6 +515,8 @@ struct NDContext {
   i64 nd_small;
   std::mt19937_64 rng;
   i64* perm;
+  i64* cpos = nullptr;  // optional: block id per elimination POSITION
+  i64 nblocks = 0;      // raw block counter (renumbered by caller)
   // search knobs (measured at n=125k: stop=200/restarts=2 beat deeper
   // coarsening AND more restarts on both time and lnz)
   i64 coarsen_stop = 200;
@@ -543,6 +545,10 @@ void nd_recurse(NDContext& ctx, Graph g, std::vector<i32> vmap,
     if (amd_on(g, p) != 0)
       for (i64 i = 0; i < n; i++) p[i] = i;
     for (i64 k = 0; k < n; k++) ctx.perm[lo + k] = vmap[p[k]];
+    if (ctx.cpos) {
+      i64 id = ctx.nblocks++;
+      for (i64 k = 0; k < n; k++) ctx.cpos[lo + k] = id;
+    }
     return;
   }
   // multilevel bisection
@@ -615,6 +621,10 @@ void nd_recurse(NDContext& ctx, Graph g, std::vector<i32> vmap,
     if (amd_on(fg, p) != 0)
       for (i64 i = 0; i < fg.n; i++) p[i] = i;
     for (i64 k = 0; k < fg.n; k++) ctx.perm[lo + k] = vmap[p[k]];
+    if (ctx.cpos) {
+      i64 id = ctx.nblocks++;
+      for (i64 k = 0; k < fg.n; k++) ctx.cpos[lo + k] = id;
+    }
     return;
   }
   auto build_sub = [&](const std::vector<i64>& nodes, Graph& sg,
@@ -643,6 +653,10 @@ void nd_recurse(NDContext& ctx, Graph g, std::vector<i32> vmap,
       ns = (i64)s_nodes.size();
   // separator ordered last within [lo, hi)
   for (i64 k = 0; k < ns; k++) ctx.perm[hi - ns + k] = vmap[s_nodes[k]];
+  if (ctx.cpos && ns > 0) {
+    i64 id = ctx.nblocks++;
+    for (i64 k = 0; k < ns; k++) ctx.cpos[hi - ns + k] = id;
+  }
   Graph ga, gb;
   std::vector<i32> va, vb;
   {
@@ -658,9 +672,13 @@ void nd_recurse(NDContext& ctx, Graph g, std::vector<i32> vmap,
 
 // Multilevel nested dissection of the off-diagonal pattern of A+A' (CSC):
 // perm[k] = k-th pivot. Returns 0, or -3 when n or nnz exceeds the int32
-// internals.
-SSTPU_API i64 sstpu_nested_dissection(i64 n, const i64* Ap, const i64* Ai,
-                                      i64* perm, i64 nd_small, i64 seed) {
+// internals. cmember: optional per-VERTEX constraint-set ids (NESDIS
+// Cmember, cholmod_nesdis.c): leaf blocks and separators, numbered by
+// elimination position — the input to constrained AMD. Pass nullptr to
+// skip.
+SSTPU_API i64 sstpu_nested_dissection_sets(i64 n, const i64* Ap, const i64* Ai,
+                                           i64* perm, i64 nd_small, i64 seed,
+                                           i64* cmember) {
   if (n <= 0) return 0;
   if (n > INT32_MAX || Ap[n] > INT32_MAX) return -3;  // int32 internals
   // the pooled Workspace (g_ws) is shared state: serialize whole-call
@@ -677,8 +695,187 @@ SSTPU_API i64 sstpu_nested_dissection(i64 n, const i64* Ap, const i64* Ai,
   ctx.nd_small = std::max<i64>(nd_small, 16);
   ctx.rng.seed((uint64_t)seed);
   ctx.perm = perm;
+  std::vector<i64> cpos;
+  if (cmember) {
+    cpos.assign(n, 0);
+    ctx.cpos = cpos.data();
+  }
   std::vector<i32> vmap(n);
   for (i64 i = 0; i < n; i++) vmap[i] = (i32)i;
   nd_recurse(ctx, std::move(g), std::move(vmap), 0, n);
+  if (cmember) {
+    // renumber blocks ascending by elimination position
+    std::vector<i64> newid(ctx.nblocks, -1);
+    i64 next = 0;
+    for (i64 k = 0; k < n; k++) {
+      i64 b = cpos[k];
+      if (newid[b] == -1) newid[b] = next++;
+      cmember[perm[k]] = newid[b];
+    }
+  }
+  return 0;
+}
+
+SSTPU_API i64 sstpu_nested_dissection(i64 n, const i64* Ap, const i64* Ai,
+                                      i64* perm, i64 nd_small, i64 seed) {
+  return sstpu_nested_dissection_sets(n, Ap, Ai, perm, nd_small, seed,
+                                      nullptr);
+}
+
+// QP gradient-projection refinement (Mongoose_QPGradProj.cpp /
+// Mongoose_QPNapsack.cpp analog): minimize the continuous cut relaxation
+// f(x) = x'Lx over the box [0,1]^n intersected with the balance budget
+// lo <= w'x <= hi. Projection onto box-and-budget is the napsack problem
+// x = clip(y - lambda*w, 0, 1) with lambda found by bisection (w'x is
+// monotone in lambda). Rounding picks the balance-feasible prefix of the
+// sorted relaxed solution. Fresh implementation from the published method
+// (Hager et al.); accepts the result only when the rounded cut improves.
+void qp_gradproj(const Graph& g, std::vector<char>& side,
+                 double flo, double fhi, int iters = 40) {
+  i64 n = g.n;
+  if (n == 0) return;
+  double W = (double)g.total_vwgt;
+  double lo = flo * W, hi = fhi * W;
+  std::vector<double> x(n), grad(n), y(n), degw(n, 0.0);
+  for (i64 v = 0; v < n; v++)
+    for (i64 p = g.xadj[v]; p < g.xadj[v + 1]; p++)
+      degw[v] += g.ewgt.empty() ? 1.0 : (double)g.ewgt[p];
+  double maxdeg = 1.0;
+  for (i64 v = 0; v < n; v++) maxdeg = std::max(maxdeg, degw[v]);
+  double step = 1.0 / (2.0 * maxdeg);
+  for (i64 v = 0; v < n; v++) x[v] = side[v] == 0 ? 1.0 : 0.0;
+
+  auto wdot = [&](const std::vector<double>& z) {
+    double s = 0;
+    for (i64 v = 0; v < n; v++) s += (double)g.vwgt[v] * z[v];
+    return s;
+  };
+  auto project = [&]() {
+    // x = clip(y - lambda*w, 0, 1) with w'x in [lo, hi]
+    auto eval = [&](double lam) {
+      double s = 0;
+      for (i64 v = 0; v < n; v++) {
+        double w = (double)g.vwgt[v];
+        double xv = y[v] - lam * w;
+        xv = xv < 0 ? 0 : (xv > 1 ? 1 : xv);
+        s += w * xv;
+      }
+      return s;
+    };
+    double lam = 0.0;
+    double s0 = eval(0.0);
+    if (s0 > hi || s0 < lo) {
+      double target = s0 > hi ? hi : lo;
+      double a = -2.0, b = 2.0;  // y in [-step*grad bounds]; widen if needed
+      while (eval(a) < target) a *= 2;
+      while (eval(b) > target) b *= 2;
+      for (int it = 0; it < 50; it++) {
+        lam = 0.5 * (a + b);
+        if (eval(lam) > target) a = lam; else b = lam;
+      }
+    }
+    for (i64 v = 0; v < n; v++) {
+      double w = (double)g.vwgt[v];
+      double xv = y[v] - lam * w;
+      x[v] = xv < 0 ? 0 : (xv > 1 ? 1 : xv);
+    }
+  };
+
+  for (int it = 0; it < iters; it++) {
+    for (i64 v = 0; v < n; v++) {
+      double s = 0;
+      for (i64 p = g.xadj[v]; p < g.xadj[v + 1]; p++) {
+        double w = g.ewgt.empty() ? 1.0 : (double)g.ewgt[p];
+        s += w * x[g.adj[p]];
+      }
+      grad[v] = 2.0 * (degw[v] * x[v] - s);
+    }
+    for (i64 v = 0; v < n; v++) y[v] = x[v] - step * grad[v];
+    project();
+  }
+  (void)wdot;
+  // round: balance-feasible prefix of x sorted descending
+  std::vector<i64> order(n);
+  for (i64 v = 0; v < n; v++) order[v] = v;
+  std::sort(order.begin(), order.end(),
+            [&](i64 a, i64 b) { return x[a] > x[b]; });
+  std::vector<char> cand(n, 1);
+  double acc = 0;
+  for (i64 v : order) {
+    if (acc + g.vwgt[v] > hi) break;
+    cand[v] = 0;
+    acc += g.vwgt[v];
+    if (acc >= lo && x[v] < 0.5) break;  // past the natural threshold
+  }
+  if (acc < lo) return;                   // could not balance; keep input
+  if (cut_weight(g, cand) < cut_weight(g, side)) side.swap(cand);
+}
+
+// Mongoose-class edge-cut bipartition (Mongoose.hpp:87-144 EdgeCut): the same
+// multilevel machinery as ND but returning the two-way PART VECTOR and cut
+// weight instead of a separator ordering. target_split/tolerance mirror
+// EdgeCut_Options (default 0.5 / 0.05); returns 0 and fills part[0..n),
+// cut_out[0] = cut weight, cut_out[1] = side-0 vertex weight.
+SSTPU_API i64 sstpu_edgecut(i64 n, const i64* Ap, const i64* Ai, i64* part,
+                            double target_split, double tolerance, i64 seed,
+                            i64* cut_out) {
+  if (n <= 0) { cut_out[0] = 0; cut_out[1] = 0; return 0; }
+  if (n > INT32_MAX || Ap[n] > INT32_MAX) return -3;  // int32 internals
+  std::lock_guard<std::mutex> lock(g_ws_mu);  // g_ws serialization
+  Graph g;
+  g.n = n;
+  g.xadj.assign(Ap, Ap + n + 1);
+  g.adj.assign(Ai, Ai + Ap[n]);
+  g.vwgt.assign(n, 1);
+  g.total_vwgt = n;
+  std::mt19937_64 rng((uint64_t)seed);
+  double flo = std::max(0.0, target_split - tolerance);
+  double fhi = std::min(1.0, target_split + tolerance);
+
+  std::vector<Graph> levels;
+  std::vector<std::vector<i32>> cmaps;
+  levels.push_back(std::move(g));
+  while (levels.back().n > 200) {
+    std::vector<i32> cmap;
+    i64 cn = match(levels.back(), cmap, rng);
+    if (cn > levels.back().n * 9 / 10) break;
+    Graph cg = contract(levels.back(), cmap, cn);
+    cmaps.push_back(std::move(cmap));
+    levels.push_back(std::move(cg));
+  }
+  std::vector<char> side, cand;
+  i64 best_cut = -1;
+  for (int r = 0; r < 4; r++) {
+    initial_bisect(levels.back(), cand, rng, target_split);
+    refine(levels.back(), cand, flo, fhi);
+    i64 cut = cut_weight(levels.back(), cand);
+    if (best_cut < 0 || cut < best_cut) { best_cut = cut; side = cand; }
+    if (levels.back().n <= 2) break;
+  }
+  for (i64 l = (i64)levels.size() - 2; l >= 0; l--) {
+    const Graph& cg = levels[l + 1];
+    std::vector<char> cbnd(cg.n, 0);
+    for (i64 v = 0; v < cg.n; v++)
+      for (i64 p = cg.xadj[v]; p < cg.xadj[v + 1]; p++)
+        if (side[cg.adj[p]] != side[v]) { cbnd[v] = 1; break; }
+    std::vector<char> fine(levels[l].n);
+    std::vector<i64> cand;
+    for (i64 v = 0; v < levels[l].n; v++) {
+      fine[v] = side[cmaps[l][v]];
+      if (cbnd[cmaps[l][v]]) cand.push_back(v);
+    }
+    side.swap(fine);
+    refine(levels[l], side, flo, fhi, &cand);
+  }
+  // "waterdance" alternation (Mongoose_Waterdance.cpp): FM has run; follow
+  // with QP gradient projection, then one more FM pass to clean the
+  // rounded boundary. Each stage only replaces the partition on
+  // improvement.
+  qp_gradproj(levels[0], side, flo, fhi);
+  refine(levels[0], side, flo, fhi);
+  i64 w0 = 0;
+  for (i64 v = 0; v < n; v++) { part[v] = side[v]; if (!side[v]) w0++; }
+  cut_out[0] = cut_weight(levels[0], side);
+  cut_out[1] = w0;
   return 0;
 }

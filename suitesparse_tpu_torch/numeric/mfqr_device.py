@@ -39,13 +39,14 @@ import torch
 
 from ..config import DEFAULT, Config
 from ..device import fp32_precision, resolve_device
-from ..sparse import CSC
+from ..sparse import CSC, _concat_ranges
 from . import segmented
 from .multifrontal_qr import QRSymbolicMF, analyze_mfqr
 
 __all__ = ["QRGroupPlan", "QRPlan", "build_qr_plan", "MFQRDeviceFactor",
            "factorize_qr_device", "qr_solve_device", "mfqrsol_device",
-           "householder_flops", "NonFiniteFactor"]
+           "householder_flops", "NonFiniteFactor", "dead_columns",
+           "rank_tol"]
 
 # device factorizations run: a caller can tell the device route from the
 # host's
@@ -54,8 +55,7 @@ device_factors = 0
 
 class NonFiniteFactor(ArithmeticError):
     """The device QR panels or its x hold a non-finite value: non-finite
-    input, overflow, or an exactly zero pivot (a structurally or
-    numerically rank-deficient A)."""
+    input or overflow (a rank-deficient A gets the basic solution)."""
 
 
 def _pad8(x: int, lo: int = 8) -> int:
@@ -288,6 +288,9 @@ class QRDevicePlan:
     #                        dtype -> [(index, work) bytes a group]
     schedule: tuple | None = None   # (key, segments) of the last segmented
     #                                 factor (numeric/segmented.py)
+    # the QR's pivots R[k, k]: their pool positions on the device and the
+    # column (of A(:, q)) each one solves
+    diag: tuple | None = None
 
 
 def _host_arrays(plan: QRPlan) -> list:
@@ -408,6 +411,11 @@ class MFQRDeviceFactor:
     precision: str
     groups: list | None            # the one-piece arrays the sweep reads,
     segments: list | None = None   # or the segments the factor ran in
+    # the QR's rank estimate (pivots with |R[k,k]| > tol) and its
+    # tolerance (rank_tol); None for the LU's panels, whose sweep divides
+    # by every pivot
+    rank_est: int | None = None
+    tol: float | None = None
 
     @property
     def panels(self) -> torch.Tensor:
@@ -457,10 +465,64 @@ def factorize_qr_device(A: CSC, SQ: QRSymbolicMF, b: np.ndarray,
         for _pos, g in _walk(dp, groups, segs, _factor_part):
             _factor_group(g, pool)
     ok = bool(torch.isfinite(pool[plan.pool_data:]).all())
+    tol = rank_tol(A, dtype)
+    rank_est = int((pool[_diag_index(dp)[0]].abs() > tol).sum())
     device_factors += 1
     return MFQRDeviceFactor(SQ=SQ, dplan=dp, pool=pool, ok=ok,
                             precision=config.precision, groups=groups,
-                            segments=segs)
+                            segments=segs, rank_est=rank_est, tol=tol)
+
+
+def rank_tol(A: CSC, dtype: torch.dtype) -> float:
+    """The rank-detection tolerance of a factor in ``dtype``: 20 max_j
+    ||A(:, j)||_2 times the larger of (m + n) eps_64, SPQR's default
+    (``spqr_tol.cpp:23``, the host QR's ``qr.py``: the tolerance of every
+    fp64 factor), and sqrt(m + n) eps of ``dtype``. In fp32, (m + n) eps
+    outgrows the true pivots of large problems (it marked pivots of the
+    full-rank grid_gradient_3d(32), m + n = 128,327, dead), while the
+    roundoff that a dependent column's pivot keeps grows like sqrt(m + n)
+    eps."""
+    m, n = A.shape
+    sq = np.zeros(n)
+    np.add.at(sq, np.repeat(np.arange(n), np.diff(A.indptr)),
+              np.abs(A.data) ** 2)
+    maxnorm = float(np.sqrt(sq.max(initial=0.0)))
+    return 20.0 * maxnorm * max((m + n) * np.finfo(np.float64).eps,
+                                np.sqrt(m + n) * torch.finfo(dtype).eps)
+
+
+def _diag_index(dp: QRDevicePlan) -> tuple:
+    """(pool positions on the device, columns of A(:, q)) of every pivot
+    R[k, k] of the QR plan (slot b's stored row r < nc_b sits at column r
+    of its panel), built once on the device plan."""
+    if dp.diag is None:
+        pos, cols = [], []
+        for g in (g for gl in dp.plan.groups for g in gl):
+            nc = g.nc.astype(np.int64)
+            r = np.arange(nc.sum()) - np.repeat(np.cumsum(nc) - nc, nc)
+            b = np.repeat(np.arange(g.B), nc)
+            pos.append(g.panel_base + (b * g.K + r) * g.N + r)
+            cols.append(g.row_col[b * g.K + r])
+        dp.diag = (torch.as_tensor(np.concatenate(pos), device=dp.device),
+                   np.concatenate(cols))
+    return dp.diag
+
+
+def dead_columns(F: MFQRDeviceFactor) -> np.ndarray:
+    """The columns of A (sorted) whose pivot |R[k,k]| is at or under
+    ``F.tol``: the x that the basic solution fixes at zero."""
+    pos, cols = _diag_index(F.dplan)
+    dead = (F.pool[pos].abs() <= F.tol).cpu().numpy()
+    return np.sort(F.SQ.q[cols[dead]])
+
+
+def _columns(A: CSC, keep: np.ndarray) -> CSC:
+    """A(:, keep) for sorted column indices ``keep``."""
+    lo = A.indptr[keep]
+    lens = A.indptr[keep + 1] - lo
+    take = _concat_ranges(lo, lens)
+    return CSC(A.nrow, keep.size, np.concatenate([[0], np.cumsum(lens)]),
+               A.indices[take], A.data[take], 0)
 
 
 def qr_solve_device(F: MFQRDeviceFactor) -> np.ndarray:
@@ -468,7 +530,14 @@ def qr_solve_device(F: MFQRDeviceFactor) -> np.ndarray:
     leaves (``x`` keeps a zero row n that padded columns read). Every
     position comes from the plan, so the LU's stored U panels
     (:mod:`.mflu_unsym`: pivots, then the beyond-pivot columns from Cg,
-    then the right-hand sides) take the same sweep."""
+    then the right-hand sides) take the same sweep.
+
+    On a QR factor the x of each pivot with |R[k,k]| <= ``F.tol`` is fixed
+    at zero, the host ``qr_solve``'s rule (its row of R11 becomes the
+    identity's and its right-hand side zero, so the rows above read
+    x_k = 0): x stays finite, but the dropped rows' part of Q'b is lost,
+    which :func:`mfqrsol_device` repairs. The LU's factor (``tol`` None)
+    divides by every pivot."""
     dp = F.dplan
     n, nrhs = dp.plan.n, dp.plan.nrhs
     x = torch.zeros((n + 1, nrhs), dtype=F.pool.dtype, device=F.pool.device)
@@ -484,6 +553,11 @@ def qr_solve_device(F: MFQRDeviceFactor) -> np.ndarray:
             if g.K > g.N:     # more stored rows than columns: zero-pad R11
                 Rsq = torch.nn.functional.pad(Rsq, (0, g.K - g.N))
             R11 = torch.where(g.live, Rsq, g.eye)
+            if F.tol is not None:
+                dead = g.live.diagonal(dim1=1, dim2=2) & \
+                    (R11.diagonal(dim1=1, dim2=2).abs() <= F.tol)
+                R11 = torch.where(dead[:, :, None], g.eye, R11)
+                rhs = rhs.masked_fill(dead[:, :, None], 0.0)
             xs = torch.linalg.solve_triangular(R11, rhs, upper=True)
             x.index_copy_(0, g.cols,
                           xs.reshape(g.B * g.K, nrhs).index_select(0, g.rows))
@@ -523,10 +597,12 @@ def mfqrsol_device(A: CSC, b: np.ndarray, config: Config = DEFAULT,
     Pass a cached ``SQ`` for the analyze-once/solve-many regime; without
     one the analysis (and through it the device plan) is cached per
     analysis key, at most 8 of them. Raises :class:`NonFiniteFactor` when
-    the panels or x come out non-finite. A rank-deficient A whose pivots
-    stay nonzero gives a finite but unbounded x, as in the reference (the
-    host QR's basic solution is not ported to the device: ROADMAP queue
-    3, F11)."""
+    the panels or x come out non-finite. A rank-deficient A (a pivot at
+    or under :func:`rank_tol`, ``F.rank_est < n``) gets the basic
+    solution: x = 0 on the dead pivots' columns and least squares on the
+    rest (:func:`_basic_solution`, a second factor without those columns).
+    The reference's device sweep divides by every pivot and gives such an
+    A a finite but unbounded x."""
     if SQ is None:
         key = _analysis_key(A, config)
         SQ = _SQ_CACHE.get(key)
@@ -538,8 +614,28 @@ def mfqrsol_device(A: CSC, b: np.ndarray, config: Config = DEFAULT,
     F = factorize_qr_device(A, SQ, b, config, device)
     if not F.ok:
         raise NonFiniteFactor("QR factorization produced non-finite panels")
-    x = qr_solve_device(F)
+    if F.rank_est < A.ncol:
+        x = _basic_solution(A, b, config, dead_columns(F), device)
+    else:
+        x = qr_solve_device(F)
     if not np.isfinite(x).all():
-        raise NonFiniteFactor("QR solve produced a non-finite x (a zero "
-                              "pivot: A is rank deficient)")
+        raise NonFiniteFactor("QR solve produced a non-finite x")
     return x[:, 0] if np.asarray(b).ndim == 1 else x
+
+
+def _basic_solution(A: CSC, b: np.ndarray, config: Config,
+                    dead: np.ndarray, device) -> np.ndarray:
+    """The basic least-squares solution (n, nrhs): x = 0 on the ``dead``
+    columns, the least-squares x of A without them on the rest. The sweep
+    alone (:func:`qr_solve_device`) drops the dead pivots' rows of R, and
+    with them the part of the right-hand side they carry, so it is no
+    least-squares solution; the QR of the columns that stay loses nothing.
+    That factor finds its own dead pivots, if any, in the same way."""
+    bb = np.asarray(b, dtype=np.float64)
+    bb = bb.reshape(-1, 1) if bb.ndim == 1 else bb
+    keep = np.setdiff1d(np.arange(A.ncol), dead)
+    x = np.zeros((A.ncol, bb.shape[1]))
+    if keep.size:
+        x[keep] = mfqrsol_device(_columns(A, keep), bb, config,
+                                 device=device)
+    return x

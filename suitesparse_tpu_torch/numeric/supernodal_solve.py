@@ -15,6 +15,13 @@ sweeps walk the factor plan's groups leaves -> root (forward) and back
   the streaming panel matvec K5 (``kernels/pmatvec``, big panels of small
   batch; W2^T is kept beside W2 for its forward step) or the batched matvec
   K6 (``kernels/bmatvec``, large batch; reads W2 in both directions).
+* ``inv`` (the reference's inverse-panel sweep without W2, which its
+  accelerator takes where W2 does not fit but W does): once per factor,
+  every group gets W = L11^-1 (identity on padding), and each step is two
+  batched matvecs: forward ``xc = W yc``, ``v = L21 xc + wb``; backward
+  ``xc = W^T (yc - L21^T xb)``. ``inv_route`` picks per call and group
+  ``torch.matmul`` or, with ``Config.solve_bmv`` at nrhs <= 8, K6 on both
+  panels (W, and a contiguous copy of L21 kept beside it).
 * ``classic`` (the reference's solve everywhere else, and its fallback
   where W2 does not fit): triangular solves on the factor's own panels.
   A group with below rows, B >= 8, C <= 96 and fp32 runs the fused K3
@@ -37,9 +44,11 @@ group forward ``xc = L11^-1 y[cols]``, ``y[below] -= L21 xc``
 backward ``xc = L11^-T (y[cols] - L21^T y[below])``; the triangles by K4
 under the reference's gate, else ``solve_triangular``.
 
-The reference's class-sorted routing and its other opt-in solve modes
-(inverse panels without W2, the coarse plans) are not ported (see
-ROADMAP).
+``solve_dispatch`` returns the sweep as a callable and its device
+arguments, every cache filled, as the reference's does.
+
+The reference's class-sorted routing and its coarse plans are not ported
+(see ROADMAP).
 """
 
 from __future__ import annotations
@@ -61,9 +70,10 @@ from .supernodal_device import (_C_LADDER, _R_LADDER, DevicePlan, _pad_to,
                                 _ranges, _use_potrf_kernel, compute_dtype)
 
 __all__ = ["BMV_MIN_BATCH", "PMV_MIN_CELLS", "PxPlan", "SolvePlan",
-           "build_px_plan", "build_solve_plan", "build_w2", "classic_route",
-           "px_panels", "px_plan", "px_route", "solve_device", "solve_mode",
-           "solve_px", "w2_route"]
+           "build_px_plan", "build_solve_plan", "build_w2", "build_winv",
+           "classic_route", "inv_route", "px_panels", "px_plan", "px_route",
+           "solve_device", "solve_dispatch", "solve_mode", "solve_px",
+           "w2_route"]
 
 # the reference's defaults of SSTPU_PMV_MIN_CELLS and SSTPU_BMV_BMIN
 PMV_MIN_CELLS = 1 << 20   # K5 takes a group of at least this many cells
@@ -199,6 +209,47 @@ def build_w2(splan: SolvePlan, Lx: torch.Tensor, dtype) -> list:
     return out
 
 
+def inv_route(B: int, C: int, RU: int, nrhs: int,
+              config: Config = DEFAULT) -> str:
+    """Which code applies a group's W (B, C, C) and L21 (B, RU, C) in the
+    inv sweep: ``"bmv"`` (K6 on both panels, both directions) or
+    ``"matmul"`` (``torch.matmul``). The reference's ``_use_bmv`` without
+    its W2 row count: ``config.solve_bmv``, fp32, B >= ``BMV_MIN_BATCH``,
+    nrhs <= 8 and :func:`bmv_fits` for (C, C) and, with below rows, for
+    (RU, C)."""
+    if not config.solve_bmv or compute_dtype(config) != torch.float32 \
+            or nrhs > 8 or B < BMV_MIN_BATCH:
+        return "matmul"
+    if bmv_fits(C, C, nrhs) and (RU == 0 or bmv_fits(RU, C, nrhs)):
+        return "bmv"
+    return "matmul"
+
+
+def build_winv(splan: SolvePlan, Lx: torch.Tensor, dtype,
+               config: Config = DEFAULT) -> list:
+    """winv[d][gi] = (W, L21c) for every group: W = L11^{-1} (B, C, C),
+    identity on padding and contiguous, as the reference's ``build_winv``
+    with ``w2=False`` builds it; L21c a contiguous copy of the group's L21
+    (B, RU, C) where :func:`inv_route` sends the group to K6 at nrhs = 1
+    (the route of every nrhs <= 8 it admits), else None (the sweep reads
+    the factor's own L21). Built once per factor in true fp32, as W2 is."""
+    out = []
+    with fp32_precision("highest"):
+        for sglist in splan.groups:
+            row = []
+            for sg in sglist:
+                L11, L21 = _group_panels(Lx, sg, dtype)
+                eye = torch.eye(sg.C, dtype=dtype, device=Lx.device)
+                W = torch.linalg.solve_triangular(
+                    L11, eye.expand(sg.B, sg.C, sg.C), upper=False)
+                RU = sg.R - sg.C
+                bmv = inv_route(sg.B, sg.C, RU, 1, config) == "bmv"
+                row.append((W.contiguous(),
+                            L21.contiguous() if bmv and RU > 0 else None))
+            out.append(row)
+    return out
+
+
 def w2_route(B: int, R: int, C: int, nrhs: int,
              config: Config = DEFAULT) -> str:
     """Which code applies a group's W2 (B, R, C) in the w2 sweep:
@@ -277,6 +328,44 @@ def _w2_steps(splan: SolvePlan, W2: list, W2t: list, nrhs: int,
         if route == "bmv":
             return bmatvec(W2[d][gi], yin, transpose=True)
         return torch.bmm(W2[d][gi].mT, yin)
+
+    return fwd, bwd
+
+
+def _inv_steps(splan: SolvePlan, Lx: torch.Tensor, winv: list, nrhs: int,
+               config: Config):
+    """(forward, backward) group steps of the inv sweep at ``nrhs``."""
+    routes = [[inv_route(sg.B, sg.C, sg.R - sg.C, nrhs, config)
+               for sg in sglist] for sglist in splan.groups]
+
+    def L21_of(d, gi):
+        sg = splan.groups[d][gi]
+        L21c = winv[d][gi][1]
+        if L21c is not None:
+            return L21c
+        return Lx[sg.panel_base:sg.panel_base + sg.B * sg.R * sg.C].view(
+            sg.B, sg.R, sg.C)[:, sg.C:]
+
+    def fwd(d, gi, yc, wb):
+        W = winv[d][gi][0]
+        if routes[d][gi] == "bmv":
+            xc = bmatvec(W, yc.contiguous())
+            v = None if wb is None else bmatvec(L21_of(d, gi), xc) + wb
+            return xc, v
+        xc = torch.matmul(W, yc)
+        return xc, (None if wb is None
+                    else torch.baddbmm(wb, L21_of(d, gi), xc))
+
+    def bwd(d, gi, yc, xb):
+        W = winv[d][gi][0]
+        if routes[d][gi] == "bmv":
+            if xb is not None:
+                yc = yc - bmatvec(L21_of(d, gi), xb.contiguous(),
+                                  transpose=True)
+            return bmatvec(W, yc.contiguous(), transpose=True)
+        if xb is not None:
+            yc = torch.baddbmm(yc, L21_of(d, gi).mT, xb, alpha=-1)
+        return torch.matmul(W.mT, yc)
 
     return fwd, bwd
 
@@ -389,14 +478,20 @@ def _w2_fits(F, dtype, config: Config) -> bool:
 
 
 def solve_mode(F, config: Config = DEFAULT) -> str:
-    """The sweep a solve of the device factor ``F`` takes: ``"w2"`` or
-    ``"classic"`` (``config.solve_mode``; "auto" is w2 where W2 is already
-    built for this factor or fits, else classic)."""
+    """The sweep a solve of the device factor ``F`` takes: ``"w2"``,
+    ``"inv"`` or ``"classic"`` (``config.solve_mode``; "auto" is w2 where
+    W2 is already built for this factor or fits, else classic).
+
+    The reference's order on its accelerator is w2, then inv (where W2 is
+    over ``SSTPU_W2_MAX_CELLS`` but W fits), then classic. "auto" does not
+    take inv: that waits for a benchmark cell that shows it faster than
+    classic where W2 does not fit (ROADMAP item 4); ``solve_mode="inv"``
+    asks for it."""
     mode = config.solve_mode
     if mode not in SOLVE_MODES:
         raise ValueError(f"solve_mode must be one of {SOLVE_MODES}, got "
                          f"{mode!r}")
-    if mode == "classic":
+    if mode in ("classic", "inv"):
         return mode
     dtype = compute_dtype(config)
     if all(k in F._solve and F._solve[k][0] is F.Lx
@@ -415,6 +510,13 @@ def _w2_keys(dtype, config: Config) -> list:
     return keys
 
 
+def _inv_key(dtype, config: Config) -> tuple:
+    """``F._solve`` key of the inv state: the dtype and what picks the
+    groups whose L21 is copied for K6 (``solve_bmv`` and its batch
+    threshold; F3)."""
+    return ("inv", dtype, bool(config.solve_bmv), BMV_MIN_BATCH)
+
+
 def _cached(F, key, build):
     """``build()``, cached on ``F._solve[key]`` and tied to the factor
     tensor."""
@@ -426,9 +528,12 @@ def _cached(F, key, build):
 
 def _solve_state(F, mode: str, dtype, splan: SolvePlan, config: Config):
     """Per-factor state of a sweep, cached on ``F._solve``: for ``w2`` the
-    pair (W2, W2^T copies or None), for ``classic`` the identity-padded L11
-    copies. Every nrhs reads the same state; the routes are picked per
-    call."""
+    pair (W2, W2^T copies or None), for ``inv`` the (W, L21 copy or None)
+    of every group, for ``classic`` the identity-padded L11 copies. Every
+    nrhs reads the same state; the routes are picked per call."""
+    if mode == "inv":
+        return _cached(F, _inv_key(dtype, config),
+                       lambda: build_winv(splan, F.Lx, dtype, config))
     if mode == "classic":
         return _cached(F, ("classic", dtype), lambda: [
             [_group_panels(F.Lx, sg, dtype)[0].contiguous() for sg in sglist]
@@ -594,32 +699,90 @@ def _px_sweep(plan: PxPlan, routing: list, panels: list,
     return y[:n]
 
 
-def solve_px(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
-    """x = A \\ b through the px-layout factor ``F`` (a
-    :class:`~.supernodal.TorchPxFactor`) on its device: the reference's
-    ``_solve_fn``. The plan is cached on ``F.S``, the panels on ``F`` per
-    dtype; the sweep's products run under ``config.precision``."""
-    S = F.S
-    if not F.ok:
-        raise ValueError(f"solve_px: the factor failed at column {F.minor}")
+def _rhs(b: np.ndarray):
+    """(b as (n, nrhs) fp64, whether b was 1-D), refusing complex b."""
     if np.iscomplexobj(b):
-        raise ValueError("solve_px takes a real b")
+        raise ValueError("the device solve takes a real b; complex systems "
+                         "run through cholsol's 2x2 real embedding")
+    b = np.asarray(b, dtype=np.float64)
+    return (b.reshape(-1, 1) if b.ndim == 1 else b), b.ndim == 1
+
+
+def _px_dispatch(F, bb: np.ndarray, config: Config):
+    S = F.S
     dtype = compute_dtype(config)
     plan = px_plan(S)
     dev = F.Lx.device
     routing = _px_routing(plan, dev)
     panels = _cached(F, ("px", dtype), lambda: px_panels(plan, F.Lx, dtype))
-    b = np.asarray(b, dtype=np.float64)
-    one_d = b.ndim == 1
-    bb = b.reshape(-1, 1) if one_d else b
     pbp = np.concatenate([bb[S.perm], np.zeros((1, bb.shape[1]))], axis=0)
-    with fp32_precision(config.precision):
-        y = torch.as_tensor(pbp, device=dev).to(dtype)
-        yz = _px_sweep(plan, routing, panels, y).cpu().numpy() \
-            .astype(np.float64)
+    y = torch.as_tensor(pbp, device=dev).to(dtype)
+
+    def fn(y):
+        with fp32_precision(config.precision):
+            return _px_sweep(plan, routing, panels, y.clone())
+
+    return fn, (y,)
+
+
+def _mf_dispatch(F, bb: np.ndarray, config: Config):
+    S, dp = F.S, F.dplan
+    dtype = compute_dtype(config)
+    rt = _routing(S, dp)
+    mode = solve_mode(F, config)
+    state = _solve_state(F, mode, dtype, rt.splan, config)
+    nrhs = bb.shape[1]
+    if mode == "w2":
+        steps = _w2_steps(rt.splan, *state, nrhs, config)
+    elif mode == "inv":
+        steps = _inv_steps(rt.splan, F.Lx.to(dtype), state, nrhs, config)
+    else:
+        steps = _classic_steps(rt.splan, F.Lx.to(dtype), state, dtype)
+    pbp = np.concatenate([bb[S.perm], np.zeros((1, nrhs))], axis=0)
+    pb = torch.as_tensor(pbp, device=dp.device).to(dtype)
+
+    def fn(pb):
+        with fp32_precision(config.precision):
+            return _mf_solve_fn(dp, rt, pb, *steps)[rt.xmap]
+
+    return fn, (pb,)
+
+
+def solve_dispatch(F, b: np.ndarray, config: Config = DEFAULT):
+    """(fn, args) exactly as :func:`solve_device` runs them: ``fn(*args)``
+    is the device part of the solve, and gives the permuted solution (n,
+    nrhs) on the factor's device (x[S.perm] = that). Every cache the solve
+    reads (routing, the sweep's per-factor state, the px plan and panels)
+    is filled before it returns, so that a caller who times ``fn`` times
+    the sweep alone (the reference's ``solve_dispatch``). ``fn`` leaves
+    its arguments as they were, so it can be called again."""
+    if not F.ok:
+        raise ValueError(f"solve_device: the factor failed at column "
+                         f"{F.minor}")
+    bb, _one_d = _rhs(b)
+    if isinstance(F, TorchPxFactor):
+        return _px_dispatch(F, bb, config)
+    return _mf_dispatch(F, bb, config)
+
+
+def _finish(F, yz: torch.Tensor, one_d: bool) -> np.ndarray:
+    """x on the host from the permuted device solution ``yz``."""
+    yz = yz.cpu().numpy().astype(np.float64)
     x = np.empty_like(yz)
-    x[S.perm] = yz
+    x[F.S.perm] = yz
     return x[:, 0] if one_d else x
+
+
+def solve_px(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
+    """x = A \\ b through the px-layout factor ``F`` (a
+    :class:`~.supernodal.TorchPxFactor`) on its device: the reference's
+    ``_solve_fn``. The plan is cached on ``F.S``, the panels on ``F`` per
+    dtype; the sweep's products run under ``config.precision``."""
+    if not F.ok:
+        raise ValueError(f"solve_px: the factor failed at column {F.minor}")
+    bb, one_d = _rhs(b)
+    fn, args = _px_dispatch(F, bb, config)
+    return _finish(F, fn(*args), one_d)
 
 
 def solve_device(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
@@ -629,29 +792,5 @@ def solve_device(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
     a file) takes :func:`solve_px`."""
     if isinstance(F, TorchPxFactor):
         return solve_px(F, b, config)
-    S = F.S
-    if not F.ok:
-        raise ValueError(f"solve_device: the factor failed at column "
-                         f"{F.minor}")
-    if np.iscomplexobj(b):
-        raise ValueError("solve_device takes a real b; complex systems run "
-                         "through cholsol's 2x2 real embedding")
-    dp = F.dplan
-    dtype = compute_dtype(config)
-    rt = _routing(S, dp)
-    mode = solve_mode(F, config)
-    state = _solve_state(F, mode, dtype, rt.splan, config)
-    b = np.asarray(b, dtype=np.float64)
-    one_d = b.ndim == 1
-    bb = b.reshape(-1, 1) if one_d else b
-    steps = _w2_steps(rt.splan, *state, bb.shape[1], config) \
-        if mode == "w2" else \
-        _classic_steps(rt.splan, F.Lx.to(dtype), state, dtype)
-    pbp = np.concatenate([bb[S.perm], np.zeros((1, bb.shape[1]))], axis=0)
-    with fp32_precision(config.precision):
-        pb = torch.as_tensor(pbp, device=dp.device).to(dtype)
-        xcat = _mf_solve_fn(dp, rt, pb, *steps)
-        yz = xcat[rt.xmap].cpu().numpy().astype(np.float64)
-    x = np.empty_like(yz)
-    x[S.perm] = yz
-    return x[:, 0] if one_d else x
+    fn, args = solve_dispatch(F, b, config)
+    return _finish(F, fn(*args), np.asarray(b).ndim == 1)

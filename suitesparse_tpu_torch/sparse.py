@@ -18,8 +18,8 @@ import numpy as np
 
 from . import native
 
-__all__ = ["CSC", "from_dense", "from_triplets", "invert_permutation",
-           "residual_norm"]
+__all__ = ["CSC", "eye", "from_dense", "from_triplets", "horzcat",
+           "invert_permutation", "residual_norm", "vertcat"]
 
 
 def _as_index(a) -> np.ndarray:
@@ -63,6 +63,9 @@ class CSC:
             memo = (self.indices, (self.nnz, self.sym, crc))
             self._pat_key = memo
         return memo[1]
+
+    def rows_of(self, j: int) -> np.ndarray:
+        return self.indices[self.indptr[j]:self.indptr[j + 1]]
 
     def vals_of(self, j: int) -> np.ndarray:
         return self.data[self.indptr[j]:self.indptr[j + 1]]
@@ -264,6 +267,39 @@ def from_dense(A: np.ndarray, sym: int = 0, tol: float = 0.0) -> CSC:
         mask &= np.arange(A.shape[0])[:, None] >= np.arange(A.shape[1])
     r, c = np.nonzero(mask)
     return from_triplets(A.shape[0], A.shape[1], r, c, A[r, c], sym=sym)
+
+
+def eye(n: int, dtype=np.float64) -> CSC:
+    """The n x n identity."""
+    idx = np.arange(n, dtype=np.int64)
+    return CSC(n, n, np.arange(n + 1, dtype=np.int64), idx,
+               np.ones(n, dtype=dtype), 0)
+
+
+def horzcat(A: CSC, B: CSC) -> CSC:
+    """[A B] (cholmod_horzcat analog), in general storage."""
+    A = A.to_full_storage() if A.sym != 0 else A
+    B = B.to_full_storage() if B.sym != 0 else B
+    if A.nrow != B.nrow:
+        raise ValueError(f"horzcat: {A.nrow} and {B.nrow} rows")
+    indptr = np.concatenate([A.indptr, A.nnz + B.indptr[1:]])
+    return CSC(A.nrow, A.ncol + B.ncol, indptr,
+               np.concatenate([A.indices, B.indices]),
+               np.concatenate([A.data, B.data]), 0)
+
+
+def vertcat(A: CSC, B: CSC) -> CSC:
+    """[A ; B] (cholmod_vertcat analog), in general storage."""
+    A = A.to_full_storage() if A.sym != 0 else A
+    B = B.to_full_storage() if B.sym != 0 else B
+    if A.ncol != B.ncol:
+        raise ValueError(f"vertcat: {A.ncol} and {B.ncol} columns")
+    ca = np.repeat(np.arange(A.ncol, dtype=np.int64), np.diff(A.indptr))
+    cb = np.repeat(np.arange(B.ncol, dtype=np.int64), np.diff(B.indptr))
+    return from_triplets(A.nrow + B.nrow, A.ncol,
+                         np.concatenate([A.indices, A.nrow + B.indices]),
+                         np.concatenate([ca, cb]),
+                         np.concatenate([A.data, B.data]))
 
 
 def _concat_ranges(starts: np.ndarray, lens: np.ndarray) -> np.ndarray:

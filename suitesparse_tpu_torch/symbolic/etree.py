@@ -13,7 +13,8 @@ import numpy as np
 from .. import native
 from ..sparse import CSC
 
-__all__ = ["etree", "postorder", "col_counts", "ereach"]
+__all__ = ["etree", "postorder", "col_counts", "ereach",
+           "first_descendants", "tree_levels", "tree_depth"]
 
 
 def etree(A: CSC, ata: bool = False) -> np.ndarray:
@@ -65,3 +66,43 @@ def ereach(A: CSC, k: int, parent: np.ndarray, mark: np.ndarray,
             top -= 1
             out[top] = out[s]
     return top
+
+
+def first_descendants(parent: np.ndarray, post: np.ndarray) -> np.ndarray:
+    """first[j] = smallest postorder index among descendants of j."""
+    n = parent.size
+    first = np.full(n, -1, dtype=np.int64)
+    for k in range(n):
+        j = post[k]
+        while j != -1 and first[j] == -1:
+            first[j] = k
+            j = parent[j]
+    return first
+
+
+def tree_levels(parent: np.ndarray) -> tuple[np.ndarray, list[np.ndarray]]:
+    """Level schedule: level[j] = 1 + max level of children (leaves = 0).
+
+    Returns (level, levels) where levels[d] is the sorted array of nodes at
+    depth d — every node in levels[d] depends only on nodes in levels[<d], so
+    each level can execute as one batched device step (the device factors'
+    analog of the reference's sequential supernode loop / OpenMP
+    sections)."""
+    n = parent.size
+    level = np.zeros(n, dtype=np.int64)
+    # children finish before parents in any topological order of the tree; node
+    # ids are NOT topological in general, so process in postorder
+    post = postorder(parent)
+    for k in range(n):
+        j = post[k]
+        p = parent[j]
+        if p != -1:
+            level[p] = max(level[p], level[j] + 1)
+    nlev = int(level.max()) + 1 if n else 0
+    levels = [np.sort(np.nonzero(level == d)[0]) for d in range(nlev)]
+    return level, levels
+
+
+def tree_depth(parent: np.ndarray) -> int:
+    level, _ = tree_levels(parent)
+    return int(level.max()) + 1 if parent.size else 0

@@ -183,8 +183,11 @@ def test_device_route_past_the_threshold(monkeypatch):
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 def test_a_zero_pivot_on_the_device_route_raises(dtype):
-    """A column of explicit zeros gives R a zero pivot: the device route
-    raises on the non-finite x and returns nothing."""
+    """A column of explicit zeros gives R a zero pivot. The device route
+    no longer divides by it: it returns the basic solution (that column's
+    x exactly zero, least squares on the other columns: dense ``lstsq``
+    without that column), and it still raises on a non-finite factor
+    (``test_device_route_and_its_failure``)."""
     A, _, D = random_rect(400, 200, 0.02, 15)
     D[:, 5] = 0.0
     r, c = np.nonzero(D)
@@ -192,10 +195,15 @@ def test_a_zero_pivot_on_the_device_route_raises(dtype):
                            np.append(D[r, c], 0.0))
     b = np.random.default_rng(15).standard_normal(400)
     calls = mfqr_device.device_factors
-    with pytest.raises(mfqr_device.NonFiniteFactor, match="non-finite x"):
-        sstt.qrsol(A, b, sstt.DEFAULT.replace(compute_dtype=dtype),
-                   device="cpu")
-    assert mfqr_device.device_factors == calls + 1
+    cfg = sstt.DEFAULT.replace(compute_dtype=dtype)
+    x = sstt.qrsol(A, b, cfg, device="cpu")
+    # the factor, then the factor of the columns that stay
+    assert mfqr_device.device_factors == calls + 2
+    assert np.isfinite(x).all() and x[5] == 0.0
+    keep = np.arange(200) != 5
+    x_ref = np.linalg.lstsq(D[:, keep], b, rcond=None)[0]
+    tol = 1e-10 if dtype == "float64" else 1e-4
+    assert np.abs(x[keep] - x_ref).max() <= tol * np.abs(x_ref).max()
 
 
 def test_complex_input_raises():
