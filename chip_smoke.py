@@ -231,6 +231,26 @@
    ``index_add_``). Both phases print one JSON line (``inv``,
    ``mflu_sym``) before the kernel line, which gains ``bmatvec_inv`` and
    ``bmatvec_t_inv`` (K6 on the inv path).
+15. Distributed factor and solve (``dist_phase``, last): the parent
+   builds the kernels, then spawns the ranks of four runs: (a) world 1
+   over NCCL, flat, the model problem; (b) 4 ranks sharing the card over
+   gloo, (host, chip) = (2, 2), the model problem; (c) 4 flat ranks in
+   fp64 on ``laplacian_3d(30)``; (d) 2 ranks on ``laplacian_3d(12)`` with
+   one negative diagonal entry in a leaf subtree of rank 1. Every rank's
+   ``Lx`` and x must be bit-equal to rank 0's, ``lx_host()`` within 1e-5
+   (fp64 1e-12) of the single-card factor on the same analysis, the
+   distributed solve's residual at nrhs 1 and 8 and the single-card
+   solve of the distributed factor below 1e-5 (fp64 1e-12), (d)'s minor
+   on every rank the single-card factor's, the census one halo sum (or
+   one host and one world sum) before the crown, one assembly sum and
+   two sums a solve, and K1 and K7 launched on every fp32 rank as often
+   as its rank plan predicts. On (b)'s rank 0, K1 at its largest gated
+   leaf group and K7 on its cut placement with the most cells are held
+   against their plain versions and timed (``potrf_trsm_dist``,
+   ``extend_add_dist`` on the kernel line). A rank that fails, or
+   outlasts DIST_JOIN_S, fails the run. It prints each run's phase
+   seconds (rank 0), sums, launches and peaks, and a JSON line
+   (``dist``) before the kernel line.
 
 Every kernel count is set to 0 just before each path and read just after.
 Any failure raises (exit code != 0). Without a CUDA device the script exits
@@ -302,6 +322,11 @@ QR_RANK_TOL = {"float32": 1e-5, "float64": 1e-10}   # vs the lstsq minimum
 LU_SYM_TOL = {"float32": 1e-4, "float64": 1e-8}     # tests/test_mflu.py:37
 LU_SYM_X_TOL = {"float32": 1e-4, "float64": 1e-10}  # x vs the host LU's
 LU_SYM_HOST_NX = 16    # fem_unsym(16): x against the host mflusol's
+DIST_LX_TOL = {"float32": 1e-5, "float64": 1e-12}     # vs the single card
+DIST_RESID_TOL = {"float32": 1e-5, "float64": 1e-12}
+DIST_NEG = -50.0       # the negative diagonal entry of dist run (d)
+DIST_TIMEOUT_S = 300.0  # a rank's collectives fail after this
+DIST_JOIN_S = 300.0     # a run whose ranks outlast this fails
 K7_GROUP = (114, 224)   # (B, R) of the factor's slowest placement group
 K7_CLASSES = ((75, 128), (15, 168), (59, 64))   # its (npairs, RU) classes
 K7_F64_GROUP = 3912     # R of the fp64 factor's largest tile group
@@ -2554,6 +2579,361 @@ def mflu_sym_phase() -> dict:
     return out
 
 
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _sha(a) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def _with_negative_diagonal(A, col: int, value: float):
+    """A copy of upper-stored A whose diagonal entry at ``col`` is
+    ``value``."""
+    import suitesparse_tpu_torch as sstt
+
+    lo, hi = A.indptr[col], A.indptr[col + 1]
+    data = A.data.copy()
+    data[lo + int(np.flatnonzero(A.indices[lo:hi] == col)[0])] = value
+    return sstt.sparse.CSC(A.nrow, A.ncol, A.indptr, A.indices, data, A.sym)
+
+
+def _dist_kernels(rp, dev) -> dict:
+    """K1 at the rank's largest gated leaf group and K7 on its cut work
+    list with the most cells, each against its plain version (the kernel
+    phase's tolerances), timed beside it, the library call and the bound."""
+    import dataclasses as dc
+
+    import torch
+
+    from suitesparse_tpu_torch.kernels.extend_add import (
+        class_maps, extend_add_group, extend_add_group_plain,
+        extend_add_library, group_work)
+    from suitesparse_tpu_torch.kernels.potrf import potrf_trsm, \
+        potrf_trsm_plain
+    from suitesparse_tpu_torch.kernels.potrf_sweep import (
+        bound_ms as k1_bound_ms, library_route, tiles as k1_tiles)
+    from suitesparse_tpu_torch.numeric.supernodal_device import \
+        _use_potrf_kernel
+
+    rng = np.random.default_rng(SEED)
+    rec: dict = {}
+    st = max((s for s in rp.leaf
+              if _use_potrf_kernel(torch.float32, s.shape.B, s.shape.C)),
+             key=lambda s: s.shape.B * s.shape.R * s.shape.C)
+    B, C, RU = st.shape.B, st.shape.C, st.shape.R - st.shape.C
+    f11, f21 = k1_tiles(rng, B, C, RU, dev)
+    L11, L21 = potrf_trsm(f11, f21)
+    P11, P21 = potrf_trsm_plain(f11, f21)
+    d, err = _rel_err(L11, P11)
+    if RU:
+        d21, e21 = _rel_err(L21, P21)
+        d, err = max(d, d21), max(err, e21)
+    assert np.isfinite(err) and err <= K1_TOL, err
+    ms = _cuda_ms(lambda: potrf_trsm(f11, f21), 10)
+    plain_ms = _cuda_ms(lambda: potrf_trsm_plain(f11, f21), 2)
+    library_ms = _cuda_ms(lambda: library_route(f11, f21), 10)
+    bound, by = k1_bound_ms(B, C, RU)
+    print(f"potrf_trsm_dist (B,C,RU)=({B},{C},{RU}) rel_err={err:.3e} "
+          f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} "
+          f"({by}) library_ms={library_ms:.4f}", flush=True)
+    rec["potrf_trsm_dist"] = {"err": err, "abs": d, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound,
+                              "bound_by": by, "library_ms": library_ms,
+                              "shape": [B, C, RU]}
+
+    shape_of = {s.key: s.shape for s in rp.leaf + rp.mid}
+    base, B, R, work = max(rp.f1_cut + rp.f0_cut, key=lambda c: c[3].cells)
+    Us = [torch.as_tensor(rng.standard_normal(
+        (shape_of[k].B, shape_of[k].R - shape_of[k].C,
+         shape_of[k].R - shape_of[k].C), dtype=np.float32), device=dev)
+        for k in work.keys]
+    F0 = torch.as_tensor(rng.standard_normal((B, R, R), dtype=np.float32),
+                         device=dev)
+    Fk = extend_add_group(F0.clone(), Us, work)
+    Fp = extend_add_group_plain(F0.clone(), Us, work)
+    assert torch.equal(Fk, extend_add_group(F0.clone(), Us, work))
+    d, err = _rel_err(Fk, Fp)
+    host = dc.replace(work, idx=work.idx.cpu().numpy(),
+                      dst=work.dst.cpu().numpy(), src=work.src.cpu().numpy(),
+                      parts=[(c0, c1, b.cpu().numpy())
+                             for c0, c1, b in work.parts])
+    maps = [class_maps(work, c) for c in range(len(Us))]
+
+    def library(Fl):
+        for U, (idx, dst, src) in zip(Us, maps):
+            extend_add_library(Fl, U, idx, dst, R, src)
+
+    Fl0 = torch.cat([F0.reshape(-1), F0.new_zeros(1)])
+    Fl = Fl0.clone()
+    library(Fl)
+    assert _rel_err(Fl[:-1].view(B, R, R), Fp)[1] <= K567_TOL
+    _record(rec, "extend_add_dist",
+            f"cut placement (B,R)=({B},{R}) classes={len(Us)} "
+            f"band={work.geom.rows} cells={work.cells}, two calls bit-equal",
+            err, d,
+            _cuda_ms(lambda F: extend_add_group(F, Us, work), 10,
+                     setup=lambda: (F0.clone(),)),
+            _cuda_ms(lambda F: extend_add_group_plain(F, Us, work), 3,
+                     setup=lambda: (F0.clone(),)),
+            *group_work(host, 4),
+            library_ms=_cuda_ms(library, 3, setup=lambda: (Fl0.clone(),)),
+            tol=K567_TOL)
+    rec["extend_add_dist"]["shape"] = [B, R, len(Us), work.cells]
+    return rec
+
+
+def _dist_rank(spec: dict, rank: int, out_dir: str) -> None:
+    """One rank of a ``dist_phase`` run (spawned): the distributed factor
+    and solves, every gate this rank can check, its record as JSON."""
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.kernels import _build
+    from suitesparse_tpu_torch.numeric import (supernodal_device,
+                                               supernodal_solve)
+    from suitesparse_tpu_torch.parallel import diag, dist2
+    from suitesparse_tpu_torch.parallel import multihost as mh
+    from suitesparse_tpu_torch.symbolic.supernodes import analyze_supernodal
+
+    mh.initialize(f"tcp://localhost:{spec['port']}", spec["world"], rank,
+                  spec["backend"], timeout=DIST_TIMEOUT_S)
+    _build.load()       # built by the parent before it spawned the ranks
+    topo = mh.host_chip_mesh(*spec["layout"])
+    dev = topo.device
+    A = sstt.fixtures.laplacian_3d(spec["nx"])
+    if spec.get("neg") is not None:
+        A = _with_negative_diagonal(A, spec["neg"], DIST_NEG)
+    cfg = sstt.DEFAULT.replace(ordering=sstt.Ordering.METIS,
+                               compute_dtype=spec["dtype"])
+    S = analyze_supernodal(A, spec["perm"], cfg)
+    dtype = torch.float64 if spec["dtype"] == "float64" else torch.float32
+    rec = {"rank": rank, "device": str(dev), "host": topo.host,
+           "chip": topo.chip}
+    t0 = time.perf_counter()
+    rp = dist2.rank_plan(A, S, topo)
+    rec["plan_s"] = time.perf_counter() - t0
+    zero_counts()
+    F = dist2.dist_factorize_v2(A, S, topo, cfg)
+    torch.cuda.synchronize(dev)
+    c = counts()
+    rec["launches"] = {"potrf_trsm": c["potrf_trsm"],
+                       "extend_add": c["extend_add"] + c["extend_add_f64"]}
+    pred = dist2.predicted_launches(rp, dtype)
+    rec["predicted"] = {"potrf_trsm": pred["potrf_trsm"],
+                        "extend_add": pred.get("extend_add",
+                                               pred.get("extend_add_f64"))}
+    rec["minor"] = int(F.minor)
+    rec["first_factor_s"] = F.dist.seconds
+    rec["lx_sha"] = _sha(F.Lx.cpu().numpy())
+    n = A.ncol
+    b = 1.0 + np.arange(n) / n
+    if F.ok:
+        F = dist2.dist_factorize_v2(A, S, topo, cfg)     # steady phases
+        rec["factor_s"] = F.dist.seconds
+        rec["census"] = diag.collective_census(F)["factor"]
+        B8 = np.tile(b.reshape(-1, 1), (1, NRHS_K)) * \
+            (1.0 + np.arange(NRHS_K) / NRHS_K)
+        x1 = dist2.dist_solve_v2(F, b, cfg)     # builds routing, panels
+        rec["first_solve_s"] = F.dist.solve_seconds
+        x1 = dist2.dist_solve_v2(F, b, cfg)
+        rec["solve1_s"] = F.dist.solve_seconds
+        x8 = dist2.dist_solve_v2(F, B8, cfg)
+        rec["solve8_s"] = F.dist.solve_seconds
+        rec["solve_census"] = diag.collective_census(F)["solve"]
+        rec["x_sha"] = [_sha(x1), _sha(x8)]
+        if rank == 0:
+            rec["residual"] = max(
+                [sstt.residual_norm(A, x1, b)]
+                + [sstt.residual_norm(A, x8[:, k], B8[:, k])
+                   for k in (0, NRHS_K - 1)])
+            xd = supernodal_solve.solve_device(F, b, cfg)
+            rec["solve_device_residual"] = sstt.residual_norm(A, xd, b)
+            Fs = supernodal_device.factorize_device(A, S, cfg, dev)
+            ref = Fs.lx_host()
+            rec["lx_err"] = float(np.abs(F.lx_host() - ref).max()
+                                  / np.abs(ref).max())
+            del Fs
+    elif rank == 0:
+        rec["single_minor"] = int(
+            supernodal_device.factorize_device(A, S, cfg, dev).minor)
+    if rank == 0 and spec.get("kernels"):
+        rec["kernels"] = _dist_kernels(rp, dev)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f, default=float)
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+
+
+def _spawn_ranks(spec: dict, world: int, out_dir: str) -> list:
+    """Run ``world`` ranks of :func:`_dist_rank` (spawn: CUDA cannot
+    fork); a rank that fails or outlasts DIST_JOIN_S fails the run, and
+    every rank is stopped. Returns the ranks' records."""
+    import multiprocessing
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_dist_rank, args=(spec, r, out_dir))
+             for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DIST_JOIN_S
+    try:
+        while any(p.is_alive() for p in procs):
+            bad = [r for r, p in enumerate(procs)
+                   if p.exitcode not in (None, 0)]
+            assert not bad, f"dist run {spec['name']}: rank(s) {bad} failed"
+            assert time.monotonic() < deadline, \
+                f"dist run {spec['name']}: ranks hung past {DIST_JOIN_S} s"
+            time.sleep(0.2)
+        codes = [p.exitcode for p in procs]
+        assert codes == [0] * world, \
+            f"dist run {spec['name']}: exit codes {codes}"
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    recs = []
+    for r in range(world):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            recs.append(json.load(f))
+    return recs
+
+
+def dist_phase(perm50) -> tuple[dict, dict, dict]:
+    """The distributed factor and solve on the card (``parallel/``).
+
+    The parent builds the kernels; ranks start by ``spawn``. Runs:
+    (a) world 1 over NCCL, flat, the model problem; (b) 4 ranks over gloo
+    on cuda:0, (host, chip) = (2, 2), the model problem; (c) 4 ranks
+    flat, fp64, ``laplacian_3d(30)``; (d) 2 ranks on ``laplacian_3d(12)``
+    with one negative diagonal entry in a leaf subtree of rank 1. Gates:
+    lx_host() within DIST_LX_TOL of the single-card factor on the same
+    analysis, every rank's Lx and x bit-equal to rank 0's, the distributed
+    solve's residual at nrhs 1 and 8 and the single-card solve of the
+    distributed factor below DIST_RESID_TOL, (d)'s minor on every rank
+    equal to the single-card factor's, the census (one halo sum, or one
+    host and one world sum, before the crown; one assembly sum; two sums
+    a solve), and K1 and K7 launched on every rank as often as its plan
+    predicts. K1 and K7 are held against their plain versions on (b)'s
+    rank 0. Returns (summary, kernel records, launches)."""
+    import tempfile
+
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.parallel import multihost as mh
+    from suitesparse_tpu_torch.parallel.schedule import partition_tree
+    from suitesparse_tpu_torch.symbolic.supernodes import analyze_supernodal
+
+    from suitesparse_tpu_torch.kernels import _build
+
+    _build.load()       # before any rank starts: the ranks only load it
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"dist: compute mode {mode}", flush=True)
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    try:
+        mh.initialize("tcp://localhost:1", 4, 0, "nccl")
+        raise AssertionError("NCCL with four ranks on one card was accepted")
+    except ValueError as e:
+        print(f"dist: NCCL with ranks sharing the card raises: {e}",
+              flush=True)
+    cfg = sstt.DEFAULT.replace(ordering=sstt.Ordering.METIS)
+    perm30 = sstt.analyze(sstt.fixtures.laplacian_3d(30), cfg).perm
+    A12 = sstt.fixtures.laplacian_3d(12)
+    perm12 = sstt.analyze(A12, cfg).perm
+    S12 = analyze_supernodal(A12, perm12, cfg)
+    s = int(np.flatnonzero(partition_tree(S12, 2).own == 1)[0])
+    neg = int(S12.perm[S12.super_first[s]])
+    runs = [
+        dict(name="a", world=1, backend="nccl", layout=(None, None),
+             nx=SIZE, perm=perm50, dtype="float32"),
+        dict(name="b", world=4, backend="gloo", layout=(2, 2), nx=SIZE,
+             perm=perm50, dtype="float32", kernels=True),
+        dict(name="c", world=4, backend="gloo", layout=(1, 4),
+             nx=30, perm=perm30, dtype="float64"),
+        dict(name="d", world=2, backend="gloo", layout=(1, 2), nx=12,
+             perm=perm12, dtype="float32", neg=neg),
+    ]
+    torch.cuda.empty_cache()
+    summary, krec = {}, {}
+    launches = {"potrf_trsm": 0, "extend_add": 0}
+    for spec in runs:
+        spec["port"] = _free_port()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as out_dir:
+            recs = _spawn_ranks(spec, spec["world"], out_dir)
+        wall = time.perf_counter() - t0
+        r0 = recs[0]
+        for r in recs:
+            assert r["launches"] == r["predicted"], (spec["name"], r)
+            assert r["lx_sha"] == r0["lx_sha"], (spec["name"], r["rank"])
+        if spec["name"] == "d":
+            minors = [r["minor"] for r in recs]
+            assert minors == [r0["single_minor"]] * 2 and minors[0] < \
+                spec["nx"] ** 3, minors
+            summary["d"] = {"minor": minors, "wall_s": wall}
+            print(f"dist (d) indefinite, 2 ranks: minor {minors} on every "
+                  f"rank = the single-card factor's, wall {wall:.2f} s",
+                  flush=True)
+            continue
+        fp64 = spec["dtype"] == "float64"
+        for r in recs:
+            assert r["x_sha"] == r0["x_sha"], (spec["name"], r["rank"])
+            if spec["dtype"] == "float32":
+                assert r["launches"]["potrf_trsm"] > 0 and \
+                    r["launches"]["extend_add"] > 0, (spec["name"], r)
+                for k in launches:
+                    launches[k] += r["launches"][k]
+            want = {"halo": ("world", 1), "assembly": ("world", 1)}
+            if spec["layout"] == (2, 2):
+                want = {"mid_halo": ("host", 1), "crown_halo": ("world", 1),
+                        "assembly": ("world", 1)}
+            assert {k: (v["group"], v["count"])
+                    for k, v in r["census"].items()} == want, r["census"]
+            assert {k: (v["group"], v["count"])
+                    for k, v in r["solve_census"].items()} == \
+                {"solve_up": ("world", 1), "solve_x": ("world", 1)}
+        lx_tol = DIST_LX_TOL[spec["dtype"]]
+        rtol = DIST_RESID_TOL[spec["dtype"]]
+        assert r0["lx_err"] <= lx_tol and r0["residual"] < rtol and \
+            r0["solve_device_residual"] < (rtol if fp64 else RESID_TOL), r0
+        summary[spec["name"]] = {
+            k: r0[k] for k in ("plan_s", "first_factor_s", "factor_s",
+                               "first_solve_s", "solve1_s", "solve8_s",
+                               "census",
+                               "solve_census", "lx_err", "residual",
+                               "solve_device_residual")}
+        summary[spec["name"]].update(
+            wall_s=wall, peaks_gb=[r["peak_gb"] for r in recs],
+            launches=[r["launches"] for r in recs])
+        print(f"dist ({spec['name']}) world {spec['world']} "
+              f"{spec['backend']} layout {spec['layout']} nx {spec['nx']} "
+              f"{spec['dtype']}: lx_err {r0['lx_err']:.3e} residual "
+              f"{r0['residual']:.3e} (solve_device "
+              f"{r0['solve_device_residual']:.3e}); rank 0 seconds plan "
+              f"{r0['plan_s']:.3f}, factor {r0['factor_s']} (first "
+              f"{r0['first_factor_s']}), solve nrhs 1 {r0['solve1_s']:.4f} "
+              f"(first {r0['first_solve_s']:.4f}) / {NRHS_K} "
+              f"{r0['solve8_s']:.4f}; sums {r0['census']} / "
+              f"{r0['solve_census']}; launches {[r['launches'] for r in recs]}"
+              f"; peaks GB {[round(r['peak_gb'], 3) for r in recs]}; wall "
+              f"{wall:.2f} s", flush=True)
+        if "kernels" in r0:
+            krec = r0["kernels"]
+    return summary, krec, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2830,6 +3210,13 @@ def main() -> int:
     t0 = time.perf_counter()
     seg = segmented_phase(A, S)
     seg_phase_s = time.perf_counter() - t0
+    # ---- the distributed factor and solve, ranks on the card ----
+    del F, Fk, Ff
+    gc.collect()
+    t0 = time.perf_counter()
+    dist, kdist, dist_launches = dist_phase(Ssim.perm)
+    dist_phase_s = time.perf_counter() - t0
+    print(f"dist_phase {dist_phase_s:.2f} s", flush=True)
     print(json.dumps({
         "card": card, "n": n, "flops": S.fl,
         "factor_s": factor_s, "gflops": S.fl / factor_s / 1e9,
@@ -2885,6 +3272,8 @@ def main() -> int:
     print(json.dumps({"segmented": seg, "segmented_phase_s": seg_phase_s}),
           flush=True)
     print(json.dumps({"persist": persist, "persist_phase_s": persist_phase_s},
+                     default=str), flush=True)
+    print(json.dumps({"dist": dist, "dist_phase_s": dist_phase_s},
                      default=str), flush=True)
     print(json.dumps({"inv": inv, "inv_phase_s": inv_phase_s,
                       "mflu_sym": mflu_sym,
@@ -2944,6 +3333,12 @@ def main() -> int:
         entry("extend_add_f64", "suitesparse_tpu/kernels/extend_add.py:110",
               "extend_add.cu", k7["extend_add_f64"],
               f64_launches["extend_add_f64"]),
+        entry("potrf_trsm_dist", "suitesparse_tpu/kernels/potrf.py:108",
+              "potrf_trsm.cu", kdist["potrf_trsm_dist"],
+              dist_launches["potrf_trsm"]),
+        entry("extend_add_dist", "suitesparse_tpu/kernels/extend_add.py:110",
+              "extend_add.cu", kdist["extend_add_dist"],
+              dist_launches["extend_add"]),
     ]}))
     leaked = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "jaxlib", "suitesparse_tpu")]

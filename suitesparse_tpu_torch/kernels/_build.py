@@ -5,8 +5,13 @@ Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` for Hopper
 shared library with a plain C interface, ``build/libsst_kernels.so``, at
 first use, bound with ctypes. A content hash of the sources is kept in
 ``build/build.stamp`` beside the library; a change to any source rebuilds it
-(the same scheme as :mod:`suitesparse_tpu_torch.native`). There is no
-fallback: without ``nvcc`` the build raises.
+(the same scheme as :mod:`suitesparse_tpu_torch.native`). Processes that
+start together (the ranks of a distributed run) build once: the build
+holds an ``fcntl`` lock on ``build/build.lock`` (released when its holder
+exits, however it exits) and checks the stamp again under it, and the
+library and its stamp are written under per-process names and renamed
+into place, so no process loads a partial file. There is no fallback:
+without ``nvcc`` the build raises.
 
 C interface: every pointer and the CUDA stream are ``void*``, every size an
 ``int`` and every batch stride a 64-bit ``long long``; each entry point
@@ -17,6 +22,7 @@ launches on the given stream, does not synchronize, and returns
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -29,6 +35,7 @@ BUILD_DIR = os.path.join(_HERE, "build")
 LIB_PATH = os.path.join(BUILD_DIR, "libsst_kernels.so")
 STAMP_PATH = os.path.join(BUILD_DIR, "build.stamp")
 LOG_PATH = os.path.join(BUILD_DIR, "build.log")
+LOCK_PATH = os.path.join(BUILD_DIR, "build.lock")
 CUDA_NVCC = "/usr/local/cuda/bin/nvcc"     # where PATH does not name nvcc
 
 _vp = ctypes.c_void_p
@@ -110,16 +117,17 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-Xcompiler", "-fPIC"]
 
 
-def nvcc_commands(nvcc: str = "nvcc") -> tuple[list[list[str]], list[str]]:
+def nvcc_commands(nvcc: str = "nvcc", out: str = LIB_PATH
+                  ) -> tuple[list[list[str]], list[str]]:
     """One compile command per kernel source (run together), then the
-    link command that makes the shared library."""
+    link command that makes the shared library ``out``."""
     compiles, objects = [], []
     for src in sources():
         obj = os.path.join(BUILD_DIR,
                            os.path.basename(src)[:-len(".cu")] + ".o")
         compiles.append([nvcc, *FLAGS, "-Xptxas=-v", "-c", src, "-o", obj])
         objects.append(obj)
-    return compiles, [nvcc, *FLAGS, "-shared", "-o", LIB_PATH, *objects]
+    return compiles, [nvcc, *FLAGS, "-shared", "-o", out, *objects]
 
 
 def _run_all(cmds: list[list[str]], log) -> None:
@@ -136,20 +144,34 @@ def _run_all(cmds: list[list[str]], log) -> None:
         raise RuntimeError("nvcc failed: " + "\n".join(failed))
 
 
-def build() -> None:
-    """Compile the library unless the stamp matches the current sources."""
-    want = source_hash()
+def _current(want: str) -> bool:
     if os.path.exists(LIB_PATH) and os.path.exists(STAMP_PATH):
         with open(STAMP_PATH) as f:
-            if f.read().strip() == want:
-                return
+            return f.read().strip() == want
+    return False
+
+
+def build() -> None:
+    """Compile the library unless the stamp matches the current sources;
+    one process at a time (see the module's docstring)."""
+    want = source_hash()
+    if _current(want):
+        return
     os.makedirs(BUILD_DIR, exist_ok=True)
-    compiles, link = nvcc_commands(find_nvcc())
-    with open(LOG_PATH, "w") as log:
-        _run_all(compiles, log)
-        _run_all([link], log)
-    with open(STAMP_PATH, "w") as f:
-        f.write(want)
+    with open(LOCK_PATH, "a") as lock:
+        fcntl.flock(lock.fileno(), fcntl.LOCK_EX)
+        if _current(want):          # another process built it meanwhile
+            return
+        tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+        compiles, link = nvcc_commands(find_nvcc(), tmp)
+        with open(LOG_PATH, "w") as log:
+            _run_all(compiles, log)
+            _run_all([link], log)
+        os.replace(tmp, LIB_PATH)
+        stamp = f"{STAMP_PATH}.{os.getpid()}.tmp"
+        with open(stamp, "w") as f:
+            f.write(want)
+        os.replace(stamp, STAMP_PATH)
 
 
 def load() -> ctypes.CDLL:

@@ -364,13 +364,18 @@ def _find_minor(S, plan, Lxdev) -> int:
 
 
 def build_plan(S: SupernodalSymbolic, C_low: CSC,
-               tile_rmin: int = TILE_RMIN, tile_pair: bool = False) -> Plan:
+               tile_rmin: int = TILE_RMIN, tile_pair: bool = False,
+               split_mask: np.ndarray | None = None) -> Plan:
     """The device plan, with tile manifests attached explicitly.
 
     Groups with ``R >= tile_rmin`` get the manifest that folds every pair
     class (the reference's defaults for its tile placement), one piece per
     step, or two with ``tile_pair``; ``g._tile_runs`` holds the manifest's
-    :func:`run_ptr` offsets."""
+    :func:`run_ptr` offsets. ``split_mask`` (a bool or int a supernode)
+    puts supernodes of different values into different groups, as the
+    reference's: the distributed planner keeps the separator crown (and,
+    on a (host, chip) topology, the host-local MID supernodes) out of the
+    subtree groups (:mod:`..parallel.schedule`)."""
     level_layouts = []
     place = {}
     panel_off = 0
@@ -379,7 +384,8 @@ def build_plan(S: SupernodalSymbolic, C_low: CSC,
         for s in level_nodes:
             nr, nc = S.nrows(s), S.ncols(s)
             key = (_pad_to(nr - nc, _R_LADDER) + _pad_to(nc, _C_LADDER),
-                   _pad_to(nc, _C_LADDER))
+                   _pad_to(nc, _C_LADDER),
+                   int(split_mask[s]) if split_mask is not None else 0)
             buckets.setdefault(key, []).append(int(s))
         placed = []
         for gi, (_key, ss) in enumerate(sorted(buckets.items())):
@@ -542,15 +548,24 @@ def _use_potrf_kernel(dtype: torch.dtype, B: int, C: int) -> bool:
 
 
 def _group_compute(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
-                   dtype: torch.dtype):
-    """Assemble and factor one group; returns (panel (B, R, C), U or None)."""
+                   dtype: torch.dtype, f0: torch.Tensor | None = None):
+    """Assemble and factor one group; returns (panel (B, R, C), U or None).
+
+    ``f0`` (the distributed factor's, B * R * R contiguous cells): the
+    summed contributions from across the cut; the fronts start from it, in
+    place, and A's entries are added into it."""
     B, R, C = g.B, g.R, g.C
     RU = R - C
     dev = Cdata.device
-    Fbuf = torch.zeros(B * R * R + 1, dtype=dtype, device=dev)
-    if ix.asrc.numel():
-        Fbuf[ix.adst] = Cdata[ix.asrc]
-    F = Fbuf[:-1].view(B, R, R)
+    if f0 is None:
+        Fbuf = torch.zeros(B * R * R + 1, dtype=dtype, device=dev)
+        if ix.asrc.numel():
+            Fbuf[ix.adst] = Cdata[ix.asrc]
+        F = Fbuf[:-1].view(B, R, R)
+    else:
+        F = f0.view(B, R, R)
+        if ix.asrc.numel():
+            F.view(-1)[ix.adst] += Cdata[ix.asrc]
 
     skip, work = (), ix.k7_all
     if ix.tile is not None and dtype == torch.float32:
