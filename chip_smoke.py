@@ -231,7 +231,7 @@
    ``index_add_``). Both phases print one JSON line (``inv``,
    ``mflu_sym``) before the kernel line, which gains ``bmatvec_inv`` and
    ``bmatvec_t_inv`` (K6 on the inv path).
-15. Distributed factor and solve (``dist_phase``, last): the parent
+15. Distributed factor and solve (``dist_phase``): the parent
    builds the kernels, then spawns the ranks of four runs: (a) world 1
    over NCCL, flat, the model problem; (b) 4 ranks sharing the card over
    gloo, (host, chip) = (2, 2), the model problem; (c) 4 flat ranks in
@@ -251,6 +251,27 @@
    outlasts DIST_JOIN_S, fails the run. It prints each run's phase
    seconds (rank 0), sums, launches and peaks, and a JSON line
    (``dist``) before the kernel line.
+16. The sharded (tree, panel) factor (``mesh_phase``, last): the ranks
+   of four runs, as ``dist_phase`` spawns them: (a) world 1 over NCCL,
+   mesh (1, 1), the model problem; (b) 4 ranks over gloo on the card,
+   mesh (2, 2), the model problem; (c) 4 ranks, mesh (1, 4), fp64,
+   ``laplacian_3d(30)`` (the panel axis alone); (d) mesh (2, 1) on
+   ``dist_phase``'s indefinite ``laplacian_3d(12)``. Every rank's ``Lx``
+   must be bit-equal to rank 0's, ``lx_host()`` within 1e-5 (fp64
+   1e-12) of the single-card factor on the same analysis, the single-card
+   solve of every rank's factor below 1e-5 (fp64 1e-12), (d)'s minor on
+   every rank the single-card factor's, the census one assembly sum, the
+   tree gathers over the tree group's ranks and an L21 and a U gather a
+   panel-sharded group, and K1 and K7 launched on every rank as often as
+   its share of the plan predicts. On (b)'s rank 0, K1 at its largest
+   tree share and K7 on its group with the most cells are held against
+   their plain versions and timed (``potrf_trsm_mesh``,
+   ``extend_add_mesh`` on the kernel line). It prints each run's steady
+   factor (min of 3) beside the single card's, the first call, the sums
+   by kind (bytes, seconds), launches and peaks, and a JSON line
+   (``mesh``) before the kernel line. The main path also prints the
+   TOTAL lines of ``roofline_report`` and ``solve_report`` beside the
+   measured ``factor_s`` and ``solve_s``.
 
 Every kernel count is set to 0 just before each path and read just after.
 Any failure raises (exit code != 0). Without a CUDA device the script exits
@@ -2606,8 +2627,31 @@ def _with_negative_diagonal(A, col: int, value: float):
 
 def _dist_kernels(rp, dev) -> dict:
     """K1 at the rank's largest gated leaf group and K7 on its cut work
-    list with the most cells, each against its plain version (the kernel
-    phase's tolerances), timed beside it, the library call and the bound."""
+    list with the most cells (:func:`_k1_k7_rows`)."""
+    import torch
+
+    from suitesparse_tpu_torch.numeric.supernodal_device import \
+        _use_potrf_kernel
+
+    st = max((s for s in rp.leaf
+              if _use_potrf_kernel(torch.float32, s.shape.B, s.shape.C)),
+             key=lambda s: s.shape.B * s.shape.R * s.shape.C)
+    shape_of = {s.key: s.shape for s in rp.leaf + rp.mid}
+    _base, _B, _R, work = max(rp.f1_cut + rp.f0_cut,
+                              key=lambda c: c[3].cells)
+    return _k1_k7_rows("dist", (st.shape.B, st.shape.C,
+                                st.shape.R - st.shape.C), work,
+                       {k: (shape_of[k].B, shape_of[k].R - shape_of[k].C)
+                        for k in work.keys}, "cut placement", dev)
+
+
+def _k1_k7_rows(tag: str, k1_shape, work, u_shape: dict, where: str,
+                dev) -> dict:
+    """K1 at ``k1_shape`` (B, C, RU) and K7 on ``work`` (its classes'
+    update blocks of ``u_shape[key]`` = (B, RU), random) against their
+    plain versions (the kernel phase's tolerances), timed beside them, the
+    library call and the bound: the records ``potrf_trsm_<tag>`` and
+    ``extend_add_<tag>``."""
     import dataclasses as dc
 
     import torch
@@ -2619,15 +2663,10 @@ def _dist_kernels(rp, dev) -> dict:
         potrf_trsm_plain
     from suitesparse_tpu_torch.kernels.potrf_sweep import (
         bound_ms as k1_bound_ms, library_route, tiles as k1_tiles)
-    from suitesparse_tpu_torch.numeric.supernodal_device import \
-        _use_potrf_kernel
 
     rng = np.random.default_rng(SEED)
     rec: dict = {}
-    st = max((s for s in rp.leaf
-              if _use_potrf_kernel(torch.float32, s.shape.B, s.shape.C)),
-             key=lambda s: s.shape.B * s.shape.R * s.shape.C)
-    B, C, RU = st.shape.B, st.shape.C, st.shape.R - st.shape.C
+    B, C, RU = k1_shape
     f11, f21 = k1_tiles(rng, B, C, RU, dev)
     L11, L21 = potrf_trsm(f11, f21)
     P11, P21 = potrf_trsm_plain(f11, f21)
@@ -2640,20 +2679,18 @@ def _dist_kernels(rp, dev) -> dict:
     plain_ms = _cuda_ms(lambda: potrf_trsm_plain(f11, f21), 2)
     library_ms = _cuda_ms(lambda: library_route(f11, f21), 10)
     bound, by = k1_bound_ms(B, C, RU)
-    print(f"potrf_trsm_dist (B,C,RU)=({B},{C},{RU}) rel_err={err:.3e} "
+    name = f"potrf_trsm_{tag}"
+    print(f"{name} (B,C,RU)=({B},{C},{RU}) rel_err={err:.3e} "
           f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bound:.4f} "
           f"({by}) library_ms={library_ms:.4f}", flush=True)
-    rec["potrf_trsm_dist"] = {"err": err, "abs": d, "ms": ms,
-                              "plain_ms": plain_ms, "bound_ms": bound,
-                              "bound_by": by, "library_ms": library_ms,
-                              "shape": [B, C, RU]}
+    rec[name] = {"err": err, "abs": d, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+                 "shape": [B, C, RU]}
 
-    shape_of = {s.key: s.shape for s in rp.leaf + rp.mid}
-    base, B, R, work = max(rp.f1_cut + rp.f0_cut, key=lambda c: c[3].cells)
+    B, R = work.B, work.R
     Us = [torch.as_tensor(rng.standard_normal(
-        (shape_of[k].B, shape_of[k].R - shape_of[k].C,
-         shape_of[k].R - shape_of[k].C), dtype=np.float32), device=dev)
-        for k in work.keys]
+        (u_shape[k][0], u_shape[k][1], u_shape[k][1]), dtype=np.float32),
+        device=dev) for k in work.keys]
     F0 = torch.as_tensor(rng.standard_normal((B, R, R), dtype=np.float32),
                          device=dev)
     Fk = extend_add_group(F0.clone(), Us, work)
@@ -2674,8 +2711,9 @@ def _dist_kernels(rp, dev) -> dict:
     Fl = Fl0.clone()
     library(Fl)
     assert _rel_err(Fl[:-1].view(B, R, R), Fp)[1] <= K567_TOL
-    _record(rec, "extend_add_dist",
-            f"cut placement (B,R)=({B},{R}) classes={len(Us)} "
+    name = f"extend_add_{tag}"
+    _record(rec, name,
+            f"{where} (B,R)=({B},{R}) classes={len(Us)} "
             f"band={work.geom.rows} cells={work.cells}, two calls bit-equal",
             err, d,
             _cuda_ms(lambda F: extend_add_group(F, Us, work), 10,
@@ -2685,7 +2723,7 @@ def _dist_kernels(rp, dev) -> dict:
             *group_work(host, 4),
             library_ms=_cuda_ms(library, 3, setup=lambda: (Fl0.clone(),)),
             tol=K567_TOL)
-    rec["extend_add_dist"]["shape"] = [B, R, len(Us), work.cells]
+    rec[name]["shape"] = [B, R, len(Us), work.cells]
     return rec
 
 
@@ -2773,14 +2811,17 @@ def _dist_rank(spec: dict, rank: int, out_dir: str) -> None:
         torch.distributed.destroy_process_group()
 
 
-def _spawn_ranks(spec: dict, world: int, out_dir: str) -> list:
-    """Run ``world`` ranks of :func:`_dist_rank` (spawn: CUDA cannot
-    fork); a rank that fails or outlasts DIST_JOIN_S fails the run, and
-    every rank is stopped. Returns the ranks' records."""
+def _spawn_ranks(spec: dict, world: int, out_dir: str,
+                 target=None) -> list:
+    """Run ``world`` ranks of ``target`` (default :func:`_dist_rank`;
+    spawn: CUDA cannot fork); a rank that fails or outlasts DIST_JOIN_S
+    fails the run, and every rank is stopped. Returns the ranks'
+    records."""
     import multiprocessing
 
     ctx = multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_dist_rank, args=(spec, r, out_dir))
+    procs = [ctx.Process(target=target or _dist_rank,
+                         args=(spec, r, out_dir))
              for r in range(world)]
     for p in procs:
         p.start()
@@ -2934,6 +2975,219 @@ def dist_phase(perm50) -> tuple[dict, dict, dict]:
     return summary, krec, launches
 
 
+def _mesh_rank(spec: dict, rank: int, out_dir: str) -> None:
+    """One rank of a ``mesh_phase`` run (spawned): the (tree, panel) mesh
+    factor, first call and steady (min of 3), its sums, launches and
+    peak, the single-card solve of its factor, and on rank 0 the
+    single-card factor on the same analysis; its record as JSON."""
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.kernels import _build
+    from suitesparse_tpu_torch.numeric import (supernodal_device,
+                                               supernodal_solve)
+    from suitesparse_tpu_torch.parallel import diag, dist
+    from suitesparse_tpu_torch.parallel import multihost as mh
+    from suitesparse_tpu_torch.symbolic.supernodes import analyze_supernodal
+
+    mh.initialize(f"tcp://localhost:{spec['port']}", spec["world"], rank,
+                  spec["backend"], timeout=DIST_TIMEOUT_S)
+    _build.load()       # built by the parent before it spawned the ranks
+    mesh = dist.make_solver_mesh(*spec["mesh"])
+    dev = mesh.device
+    A = sstt.fixtures.laplacian_3d(spec["nx"])
+    if spec.get("neg") is not None:
+        A = _with_negative_diagonal(A, spec["neg"], DIST_NEG)
+    cfg = sstt.DEFAULT.replace(ordering=sstt.Ordering.METIS,
+                               compute_dtype=spec["dtype"])
+    S = analyze_supernodal(A, spec["perm"], cfg)
+    dtype = torch.float64 if spec["dtype"] == "float64" else torch.float32
+    rec = {"rank": rank, "device": str(dev), "tp": [mesh.t, mesh.p]}
+    t0 = time.perf_counter()
+    mp = dist.mesh_plan(A, S, mesh)
+    rec["plan_s"] = time.perf_counter() - t0
+    rec["axes"] = {ax or "replicated": sum(st.axis == ax for st in mp.steps)
+                   for ax in ("tree", "panel", None)}
+    zero_counts()
+    t0 = time.perf_counter()
+    F = dist.dist_factorize_device(A, S, mesh, cfg)
+    torch.cuda.synchronize(dev)
+    rec["first_s"] = time.perf_counter() - t0
+    c = counts()
+    rec["launches"] = {"potrf_trsm": c["potrf_trsm"],
+                       "extend_add": c["extend_add"] + c["extend_add_f64"]}
+    pred = dist.predicted_launches(mp, dtype)
+    rec["predicted"] = {"potrf_trsm": pred["potrf_trsm"],
+                        "extend_add": pred.get("extend_add",
+                                               pred.get("extend_add_f64"))}
+    rec["minor"] = int(F.minor)
+    rec["lx_sha"] = _sha(F.Lx.cpu().numpy())
+    n = A.ncol
+    b = 1.0 + np.arange(n) / n
+    if F.ok:
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            F = dist.dist_factorize_device(A, S, mesh, cfg)
+            torch.cuda.synchronize(dev)
+            walls.append(time.perf_counter() - t0)
+        rec["factor_s"] = min(walls)
+        rec["seconds"] = F.dist.seconds
+        rec["census"] = diag.collective_census(F)["factor"]
+        x = supernodal_solve.solve_device(F, b, cfg)
+        rec["residual"] = sstt.residual_norm(A, x, b)
+        if rank == 0:
+            Fs = supernodal_device.factorize_device(A, S, cfg, dev)
+            ref = Fs.lx_host()
+            rec["lx_err"] = float(np.abs(F.lx_host() - ref).max()
+                                  / np.abs(ref).max())
+            rec["single_factor_s"] = _best_s(
+                lambda: supernodal_device.factorize_device(A, S, cfg, dev))
+            del Fs
+    elif rank == 0:
+        rec["single_minor"] = int(
+            supernodal_device.factorize_device(A, S, cfg, dev).minor)
+    if rank == 0 and spec.get("kernels"):
+        from suitesparse_tpu_torch.numeric.supernodal_device import \
+            _use_potrf_kernel
+
+        g_of = {st.key: st.g for st in mp.steps}
+        k1 = max((st for st in mp.steps if st.axis == "tree" and
+                  st.ix is not None and
+                  _use_potrf_kernel(torch.float32, st.g.B, st.g.C)),
+                 key=lambda st: st.shape.B * st.g.R * st.g.C)
+        k7 = max((st for st in mp.steps
+                  if st.ix is not None and st.ix.k7_all is not None),
+                 key=lambda st: st.ix.k7_all.cells)
+        work = k7.ix.k7_all
+        rec["kernels"] = _k1_k7_rows(
+            "mesh", (k1.shape.B, k1.g.C, k1.g.R - k1.g.C), work,
+            {k: (g_of[k].B, g_of[k].R - g_of[k].C) for k in work.keys},
+            f"{k7.axis or 'replicated'} group", dev)
+    rec["peak_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(rec, f, default=float)
+    if torch.distributed.is_initialized():
+        torch.distributed.barrier()
+        torch.distributed.destroy_process_group()
+
+
+def mesh_phase(perm50) -> tuple[dict, dict, dict]:
+    """The sharded (tree, panel) factor on the card (``parallel/dist.py``).
+
+    The parent builds the kernels; ranks start by ``spawn``. Runs: (a)
+    world 1 over NCCL, mesh (1, 1), the model problem; (b) 4 ranks over
+    gloo on cuda:0, mesh (2, 2), the model problem; (c) 4 ranks, mesh (1,
+    4), fp64, ``laplacian_3d(30)`` (the panel axis alone); (d) mesh (2,
+    1) on ``dist_phase``'s indefinite ``laplacian_3d(12)``. Gates:
+    ``lx_host()`` within DIST_LX_TOL of the single-card factor on the same
+    analysis, every rank's ``Lx`` bit-equal to rank 0's, the single-card
+    solve of each rank's factor below DIST_RESID_TOL, (d)'s minor on every
+    rank the single-card factor's, the census (one assembly sum; a tree
+    gather a tree-sharded group with a parent; an L21 and a U gather a
+    panel-sharded one), and K1 and K7 launched on every rank as often as
+    its share of the plan predicts. K1 and K7 are held against their plain
+    versions on (b)'s rank 0. Returns (summary, kernel records,
+    launches)."""
+    import tempfile
+
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.kernels import _build
+    from suitesparse_tpu_torch.parallel.schedule import partition_tree
+    from suitesparse_tpu_torch.symbolic.supernodes import analyze_supernodal
+
+    _build.load()       # before any rank starts: the ranks only load it
+    os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")
+    cfg = sstt.DEFAULT.replace(ordering=sstt.Ordering.METIS)
+    perm30 = sstt.analyze(sstt.fixtures.laplacian_3d(30), cfg).perm
+    A12 = sstt.fixtures.laplacian_3d(12)
+    perm12 = sstt.analyze(A12, cfg).perm
+    S12 = analyze_supernodal(A12, perm12, cfg)
+    s = int(np.flatnonzero(partition_tree(S12, 2).own == 1)[0])
+    neg = int(S12.perm[S12.super_first[s]])
+    runs = [
+        dict(name="a", world=1, backend="nccl", mesh=(1, 1), nx=SIZE,
+             perm=perm50, dtype="float32"),
+        dict(name="b", world=4, backend="gloo", mesh=(2, 2), nx=SIZE,
+             perm=perm50, dtype="float32", kernels=True),
+        dict(name="c", world=4, backend="gloo", mesh=(1, 4), nx=30,
+             perm=perm30, dtype="float64"),
+        dict(name="d", world=2, backend="gloo", mesh=(2, 1), nx=12,
+             perm=perm12, dtype="float32", neg=neg),
+    ]
+    torch.cuda.empty_cache()
+    summary, krec = {}, {}
+    launches = {"potrf_trsm": 0, "extend_add": 0}
+    for spec in runs:
+        spec["port"] = _free_port()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as out_dir:
+            recs = _spawn_ranks(spec, spec["world"], out_dir, _mesh_rank)
+        wall = time.perf_counter() - t0
+        r0 = recs[0]
+        assert sorted(tuple(r["tp"]) for r in recs) == sorted(
+            (t, p) for t in range(spec["mesh"][0])
+            for p in range(spec["mesh"][1])), recs
+        for r in recs:
+            assert r["launches"] == r["predicted"], (spec["name"], r)
+            assert r["lx_sha"] == r0["lx_sha"], (spec["name"], r["rank"])
+        if spec["name"] == "d":
+            minors = [r["minor"] for r in recs]
+            assert minors == [r0["single_minor"]] * 2 and minors[0] < \
+                spec["nx"] ** 3, minors
+            summary["d"] = {"minor": minors, "wall_s": wall,
+                            "launches": [r["launches"] for r in recs]}
+            print(f"mesh (d) indefinite, mesh (2, 1): minor {minors} on "
+                  f"every rank = the single-card factor's, wall {wall:.2f} s",
+                  flush=True)
+            continue
+        fp64 = spec["dtype"] == "float64"
+        tree, panel = spec["mesh"]
+        for r in recs:
+            assert r["residual"] < DIST_RESID_TOL[spec["dtype"]], r
+            if not fp64:
+                assert r["launches"]["potrf_trsm"] > 0 and \
+                    r["launches"]["extend_add"] > 0, (spec["name"], r)
+                for k in launches:
+                    launches[k] += r["launches"][k]
+            cen = r["census"]
+            assert cen["assembly"]["count"] == 1 and \
+                cen["assembly"]["ranks"] == spec["world"], cen
+            assert cen["tree_u"]["ranks"] == tree and \
+                cen["tree_u"]["count"] > 0, cen
+            if r["axes"]["panel"]:
+                assert cen["panel_u"]["ranks"] == panel and \
+                    cen["panel_u"]["count"] == cen["panel_l21"]["count"] > 0
+        assert r0["lx_err"] <= DIST_LX_TOL[spec["dtype"]], r0
+        summary[spec["name"]] = {
+            k: r0[k] for k in ("plan_s", "first_s", "factor_s", "seconds",
+                               "census", "lx_err", "residual", "axes",
+                               "single_factor_s")}
+        summary[spec["name"]].update(
+            wall_s=wall, peaks_gb=[r["peak_gb"] for r in recs],
+            launches=[r["launches"] for r in recs],
+            residuals=[r["residual"] for r in recs])
+        sums = {k: (round(v["bytes"] / 1e6, 1), round(v["seconds"], 4),
+                    v["count"]) for k, v in r0["census"].items()}
+        print(f"mesh ({spec['name']}) world {spec['world']} "
+              f"{spec['backend']} mesh {spec['mesh']} nx {spec['nx']} "
+              f"{spec['dtype']}: groups {r0['axes']}; lx_err "
+              f"{r0['lx_err']:.3e}, residuals "
+              f"{max(r['residual'] for r in recs):.3e}; rank 0 plan "
+              f"{r0['plan_s']:.3f} s, factor {r0['factor_s']:.4f} s steady "
+              f"(min of 3; {r0['seconds']}), first {r0['first_s']:.4f} s, "
+              f"single card {r0['single_factor_s']:.4f} s; sums (MB, s, "
+              f"count) {sums}; launches {[r['launches'] for r in recs]}; "
+              f"peaks GB {[round(r['peak_gb'], 3) for r in recs]}; wall "
+              f"{wall:.2f} s", flush=True)
+        if "kernels" in r0:
+            krec = r0["kernels"]
+    return summary, krec, launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2942,7 +3196,8 @@ def main() -> int:
     import suitesparse_tpu_torch as sstt
     from suitesparse_tpu_torch.kernels import _build
     from suitesparse_tpu_torch.kernels.potrf_sweep import K1_GROUPS
-    from suitesparse_tpu_torch.numeric import supernodal, supernodal_device
+    from suitesparse_tpu_torch.numeric import (supernodal, supernodal_device,
+                                               supernodal_solve)
 
     card = _card()
     print(card)
@@ -3180,6 +3435,13 @@ def main() -> int:
     forest_classic_solve64_s = _best_s(
         lambda: sstt.solve(Ff, Bf64, forest_cfg))
     peak_mem_gb = torch.cuda.max_memory_allocated() / 1e9
+    roof = supernodal_device.roofline_report(S).splitlines()
+    print(f"roofline of the model factor ({roof[0]}; MFLOP, MB, flop/byte, "
+          f"bound_ms): {roof[-1]}; measured factor_s {factor_s:.4f} s",
+          flush=True)
+    print(f"solve bound (steps, panel MB, rhs MB, MFLOP, bound_ms): "
+          f"{supernodal_solve.solve_report(S).splitlines()[-1]}; measured "
+          f"solve_s {solve_s:.4f} s", flush=True)
 
     # ---- checkpoint/restart: Matrix Market, Info, save, load, px sweep ----
     t0 = time.perf_counter()
@@ -3217,6 +3479,11 @@ def main() -> int:
     dist, kdist, dist_launches = dist_phase(Ssim.perm)
     dist_phase_s = time.perf_counter() - t0
     print(f"dist_phase {dist_phase_s:.2f} s", flush=True)
+    # ---- the sharded (tree, panel) factor, ranks on the card ----
+    t0 = time.perf_counter()
+    mesh, kmesh, mesh_launches = mesh_phase(Ssim.perm)
+    mesh_phase_s = time.perf_counter() - t0
+    print(f"mesh_phase {mesh_phase_s:.2f} s", flush=True)
     print(json.dumps({
         "card": card, "n": n, "flops": S.fl,
         "factor_s": factor_s, "gflops": S.fl / factor_s / 1e9,
@@ -3274,6 +3541,8 @@ def main() -> int:
     print(json.dumps({"persist": persist, "persist_phase_s": persist_phase_s},
                      default=str), flush=True)
     print(json.dumps({"dist": dist, "dist_phase_s": dist_phase_s},
+                     default=str), flush=True)
+    print(json.dumps({"mesh": mesh, "mesh_phase_s": mesh_phase_s},
                      default=str), flush=True)
     print(json.dumps({"inv": inv, "inv_phase_s": inv_phase_s,
                       "mflu_sym": mflu_sym,
@@ -3339,6 +3608,12 @@ def main() -> int:
         entry("extend_add_dist", "suitesparse_tpu/kernels/extend_add.py:110",
               "extend_add.cu", kdist["extend_add_dist"],
               dist_launches["extend_add"]),
+        entry("potrf_trsm_mesh", "suitesparse_tpu/kernels/potrf.py:108",
+              "potrf_trsm.cu", kmesh["potrf_trsm_mesh"],
+              mesh_launches["potrf_trsm"]),
+        entry("extend_add_mesh", "suitesparse_tpu/kernels/extend_add.py:110",
+              "extend_add.cu", kmesh["extend_add_mesh"],
+              mesh_launches["extend_add"]),
     ]}))
     leaked = [m for m, v in sys.modules.items() if v is not None
               and m.split(".")[0] in ("jax", "jaxlib", "suitesparse_tpu")]

@@ -10,7 +10,14 @@ import contextlib
 
 import torch
 
-__all__ = ["fp32_precision", "resolve_device"]
+__all__ = ["CARD", "CARD_BYTES_S", "CARD_FLOP_S", "fp32_precision",
+           "resolve_device"]
+
+# the card whose peaks the static reports' bounds use (PERF.md, section 2)
+CARD = "NVIDIA H100 SXM"
+CARD_BYTES_S = 3.35e12                           # device memory rate
+CARD_FLOP_S = {4: 67e12, 8: 34e12}               # fp32, fp64 outside the
+#                                                  tensor cores, by itemsize
 
 
 def resolve_device(device="cuda") -> torch.device:

@@ -4,17 +4,100 @@ fixture of ``demos/bench_qr.py``: the same functions give the same matrices,
 so the port and the reference can be fed identical problems. Plus
 ``grid_gradient_3d``, the 3-D gradient least-squares problem of the QR
 smoke run, and the unsymmetric LU problems ``fem_unsym`` (the fixture of
-``demos/bench_unsym.py``) and ``upwind_unsym``."""
+``demos/bench_unsym.py``) and ``upwind_unsym``.
+
+The reference's demo matrices (the cs_demo triplet files of a SuiteSparse
+source tree) load through :func:`load_demo` from ``REFERENCE_ROOT``, which
+is ``$SUITESPARSE_REFERENCE``; unset, there is no tree and
+:func:`have_reference` is False (the JAX package falls back to a fixed
+mount path; the port reads only what it is pointed at)."""
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
 from ..sparse import CSC, from_triplets
 
-__all__ = ["laplacian_2d", "laplacian_3d", "anisotropic_laplacian_3d",
-           "fem_mesh_spd", "random_sparse", "random_spd", "local_coupling_ls",
-           "grid_gradient_3d", "fem_unsym", "upwind_unsym"]
+REFERENCE_ROOT = os.environ.get("SUITESPARSE_REFERENCE")
+
+__all__ = ["REFERENCE_ROOT", "have_reference", "load_triplet_file",
+           "load_demo", "laplacian_2d", "laplacian_3d",
+           "anisotropic_laplacian_3d", "fem_mesh_spd", "pattern_amplifier",
+           "random_sparse", "random_spd", "banded_spd", "arrow_spd",
+           "local_coupling_ls", "grid_gradient_3d", "fem_unsym",
+           "upwind_unsym"]
+
+
+def have_reference() -> bool:
+    """Whether ``REFERENCE_ROOT`` holds the demo matrices."""
+    return REFERENCE_ROOT is not None and os.path.isdir(
+        os.path.join(REFERENCE_ROOT, "CSparse", "Matrix"))
+
+
+def load_triplet_file(path: str, sym: int = 0) -> CSC:
+    """Read a 0-based ``row col value`` triplet text file (cs_load format).
+    Four-column lines are complex ``row col re im`` (the cxsparse demo
+    format, ``CXSparse/Demo/cs_demo.c`` czload)."""
+    rows, cols, vals = [], [], []
+    cplx = False
+    with open(path) as f:
+        for line in f:
+            parts = line.split()
+            if len(parts) < 2:
+                continue
+            rows.append(int(parts[0]))
+            cols.append(int(parts[1]))
+            if len(parts) >= 4:
+                cplx = True
+                vals.append(complex(float(parts[2]), float(parts[3])))
+            else:
+                vals.append(float(parts[2]) if len(parts) > 2 else 1.0)
+    r = np.array(rows, dtype=np.int64)
+    c = np.array(cols, dtype=np.int64)
+    x = np.array(vals, dtype=complex if cplx else np.float64)
+    nrow = int(r.max()) + 1 if r.size else 0
+    ncol = int(c.max()) + 1 if c.size else 0
+    if sym == 1:
+        return from_triplets(max(nrow, ncol), max(nrow, ncol),
+                             np.minimum(r, c), np.maximum(r, c), x, sym=1)
+    return from_triplets(nrow, ncol, r, c, x, sym=0)
+
+
+# The cs_demo matrices and how cs_demo2/cs_demo3 treat them (t1 general;
+# bcsstk01/bcsstk16 symmetric lower-stored; west0067/ibm32a general)
+_DEMO_SYM = {
+    "t1": 0, "ash219": 0, "bcsstk01": 1, "bcsstk16": 1, "fs_183_1": 0,
+    "grid3x5": 0, "ibm32a": 0, "ibm32b": 0, "lp_afiro": 0, "mbeacxc": 0,
+    "west0067": 0,
+}
+
+
+def load_demo(name: str) -> CSC:
+    """A CSparse/CXSparse demo matrix of ``REFERENCE_ROOT`` by name; the
+    complex demos (``c4``, ``c_ibm32a``, ...) live under CXSparse/Matrix in
+    the 4-column format. Raises FileNotFoundError without the tree."""
+    if REFERENCE_ROOT is None:
+        raise FileNotFoundError(f"load_demo({name!r}): no reference tree "
+                                f"(set SUITESPARSE_REFERENCE)")
+    path = os.path.join(REFERENCE_ROOT, "CSparse", "Matrix", name)
+    if not os.path.exists(path):
+        path = os.path.join(REFERENCE_ROOT, "CXSparse", "Matrix", name)
+    sym = _DEMO_SYM.get(name, 1 if name in ("c4", "mhd1280b") else 0)
+    A = load_triplet_file(path, sym=0)
+    if sym == 1:
+        # the files store the lower triangle of a symmetric (complex:
+        # Hermitian) matrix; to the upper-stored convention, conjugating
+        # the entries that change triangle
+        cols = np.repeat(np.arange(A.ncol, dtype=np.int64), np.diff(A.indptr))
+        data = A.data
+        if np.iscomplexobj(data):
+            data = np.where(A.indices > cols, np.conj(data), data)
+        return from_triplets(max(A.nrow, A.ncol), max(A.nrow, A.ncol),
+                             np.minimum(A.indices, cols),
+                             np.maximum(A.indices, cols), data, sym=1)
+    return A
 
 
 def laplacian_2d(nx: int, ny: int | None = None, shift: float = 0.0) -> CSC:
@@ -185,6 +268,39 @@ def fem_mesh_spd(n: int, seed: int = 0, radius: float | None = None,
     return _edges_to_spd(n, ei, ej, w)
 
 
+def pattern_amplifier(A: CSC, block: int = 8, seed: int = 0) -> CSC:
+    """A small symmetric pattern (a bcsstk demo matrix, say) amplified into
+    a large SPD matrix with the same coarse connectivity: each node of A's
+    graph becomes a path of ``block`` nodes, and each edge (i, j) couples
+    a random subset of the two paths' nodes with random positive weights
+    (the capacity rows' stand-in for the big FEM matrices of the
+    collection)."""
+    rng = np.random.default_rng(seed)
+    n0 = A.ncol
+    n = n0 * block
+    cols0 = np.repeat(np.arange(n0, dtype=np.int64), np.diff(A.indptr))
+    rows0 = A.indices
+    off = rows0 != cols0
+    ei0, ej0 = rows0[off], cols0[off]
+    # intra-node path edges
+    base = np.arange(n0, dtype=np.int64) * block
+    pi = (base[:, None] + np.arange(block - 1)).ravel()
+    eis = [pi]
+    ejs = [pi + 1]
+    ws = [rng.uniform(0.5, 2.0, size=pi.size)]
+    # inter-node couplings: 1..block/2 random pairs a coarse edge
+    kmax = max(1, block // 2)
+    kcnt = rng.integers(1, kmax + 1, size=ei0.size)
+    tot = int(kcnt.sum())
+    src_node = np.repeat(ei0, kcnt)
+    dst_node = np.repeat(ej0, kcnt)
+    eis.append(src_node * block + rng.integers(0, block, size=tot))
+    ejs.append(dst_node * block + rng.integers(0, block, size=tot))
+    ws.append(rng.uniform(0.5, 2.0, size=tot))
+    return _edges_to_spd(n, np.concatenate(eis), np.concatenate(ejs),
+                         np.concatenate(ws))
+
+
 def random_sparse(nrow: int, ncol: int, density: float = 0.05, seed: int = 0,
                   ensure_full_diag: bool = True) -> CSC:
     """Random unsymmetric matrix (for LU/QR paths)."""
@@ -217,6 +333,34 @@ def random_spd(n: int, density: float = 0.01, seed: int = 0) -> CSC:
     np.add.at(diag, hi[off], np.abs(vals))
     data = np.concatenate([vals, diag + 1.0])
     return from_triplets(n, n, rows, cols, data, sym=1)
+
+
+def banded_spd(n: int, bandwidth: int, seed: int = 0) -> CSC:
+    """Banded SPD (diagonally dominant), upper-stored."""
+    rng = np.random.default_rng(seed)
+    rows, cols, vals = [np.arange(n, dtype=np.int64)], \
+        [np.arange(n, dtype=np.int64)], [np.full(n, 2.0 * bandwidth + 1.0)]
+    for k in range(1, bandwidth + 1):
+        r = np.arange(n - k, dtype=np.int64)
+        rows.append(r)
+        cols.append(r + k)
+        vals.append(rng.uniform(-1.0, 1.0, size=n - k))
+    return from_triplets(n, n, np.concatenate(rows), np.concatenate(cols),
+                         np.concatenate(vals), sym=1)
+
+
+def arrow_spd(n: int, heads: int = 1) -> CSC:
+    """Arrowhead SPD: worst-case fill for the natural order, none for AMD."""
+    rows = [np.arange(n, dtype=np.int64)]
+    cols = [np.arange(n, dtype=np.int64)]
+    vals = [np.full(n, float(n))]
+    for h in range(heads):
+        r = np.arange(heads, n, dtype=np.int64)
+        rows.append(np.full(r.size, h, dtype=np.int64))
+        cols.append(r)
+        vals.append(np.full(r.size, -1.0))
+    return from_triplets(n, n, np.concatenate(rows), np.concatenate(cols),
+                         np.concatenate(vals), sym=1)
 
 
 def local_coupling_ls(m: int, n: int, k: int = 6, seed: int = 3) -> CSC:

@@ -29,11 +29,11 @@ from .. import native
 from ..config import DEFAULT, Config
 from ..ordering.amd import amd_order
 from ..ordering.btf import BTF, btf_order
-from ..sparse import CSC, invert_permutation
+from ..sparse import CSC, from_triplets, invert_permutation
 from .simplicial import lsolve, usolve
 
 __all__ = ["LUSymbolic", "LUNumeric", "analyze_lu", "factor_lu", "refactor_lu",
-           "solve_lu", "solve_lu_refined", "lusol"]
+           "extract_lu", "sort_lu", "solve_lu", "solve_lu_refined", "lusol"]
 
 
 @dataclasses.dataclass
@@ -350,6 +350,65 @@ def _lu_gp_python(C: CSC, tol: float) -> tuple[BlockLU | None, int]:
     return BlockLU(Lp=Lp, Li=Li, Lx=np.concatenate(Lcols_x),
                    Up=Up, Ui=np.concatenate(Ucols_i),
                    Ux=np.concatenate(Ucols_x), P=P), 0
+
+
+def extract_lu(N: LUNumeric):
+    """The factorization as global CSC matrices (``klu_extract.c``):
+    returns (L, U, F_off, P, Q, Rs) such that
+
+        diag(1/Rs[P]) @ A[P, Q] = L @ U + F_off
+
+    where L is unit-lower with the blocks' L factors, U upper with the
+    blocks' U factors and the 1x1 pivots, and F_off the off-diagonal
+    (above-block) entries in factor coordinates."""
+    assert N.ok
+    S = N.S
+    n = S.n
+    rL, cL, xL = [np.arange(n)], [np.arange(n)], [np.ones(n)]
+    rU, cU, xU = [], [], []
+    for k in range(S.btf.nblocks):
+        k1, k2 = int(S.r[k]), int(S.r[k + 1])
+        nk = k2 - k1
+        if nk == 1:
+            rU.append([k1])
+            cU.append([k1])
+            xU.append([N.diag[k1]])
+            continue
+        blu = N.blocks[k]
+        cols = np.repeat(np.arange(nk), np.diff(blu.Lp))
+        off = blu.Li != cols                # drop the unit diagonal's copy
+        rL.append(k1 + blu.Li[off])
+        cL.append(k1 + cols[off])
+        xL.append(blu.Lx[off])
+        colsU = np.repeat(np.arange(nk), np.diff(blu.Up))
+        rU.append(k1 + blu.Ui)
+        cU.append(k1 + colsU)
+        xU.append(blu.Ux)
+    cat = np.concatenate
+    dt = N.diag.dtype
+    L = from_triplets(n, n, cat([np.asarray(a) for a in rL]),
+                      cat([np.asarray(a) for a in cL]),
+                      cat([np.asarray(a, dtype=dt) for a in xL]))
+    U = from_triplets(n, n, cat([np.asarray(a) for a in rU]),
+                      cat([np.asarray(a) for a in cU]),
+                      cat([np.asarray(a, dtype=dt) for a in xU]))
+    return L, U, N.Off, N.rowperm, S.colperm, N.Rs
+
+
+def sort_lu(N: LUNumeric) -> LUNumeric:
+    """Sort the row indices within every factor column in place
+    (``klu_sort.c``): Gilbert-Peierls leaves them in topological order."""
+    for blu in N.blocks:
+        if blu is None:
+            continue
+        for (Ip, Ii, Ix) in ((blu.Lp, blu.Li, blu.Lx),
+                             (blu.Up, blu.Ui, blu.Ux)):
+            for j in range(Ip.size - 1):
+                lo, hi = Ip[j], Ip[j + 1]
+                o = np.argsort(Ii[lo:hi], kind="stable")
+                Ii[lo:hi] = Ii[lo:hi][o]
+                Ix[lo:hi] = Ix[lo:hi][o]
+    return N
 
 
 def solve_lu(N: LUNumeric, b: np.ndarray) -> np.ndarray:

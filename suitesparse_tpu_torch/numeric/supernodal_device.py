@@ -35,7 +35,8 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT, Config
-from ..device import fp32_precision, resolve_device
+from ..device import (CARD, CARD_BYTES_S, CARD_FLOP_S, fp32_precision,
+                      resolve_device)
 from ..kernels.extend_add import build_work, extend_add_group
 from ..kernels.extend_add_tiles import build_group_manifest, extend_add_tiles, \
     run_ptr
@@ -45,7 +46,7 @@ from ..symbolic.supernodes import SupernodalSymbolic
 from . import segmented
 
 __all__ = ["TILE_RMIN", "Plan", "build_plan", "device_plan",
-           "factorize_device", "k7_classes"]
+           "factorize_device", "k7_classes", "roofline_report"]
 
 TILE_RMIN = 256     # groups with R >= this assemble through the tile kernel
 
@@ -547,15 +548,16 @@ def _use_potrf_kernel(dtype: torch.dtype, B: int, C: int) -> bool:
     return B >= 32 and C <= MAX_C and dtype == torch.float32
 
 
-def _group_compute(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
-                   dtype: torch.dtype, f0: torch.Tensor | None = None):
-    """Assemble and factor one group; returns (panel (B, R, C), U or None).
+def _assemble(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
+              dtype: torch.dtype, f0: torch.Tensor | None = None):
+    """One group's fronts F (B, R, R): A's entries scattered, then the
+    children's updates added (K2 on the classes a manifest folds, fp32;
+    K7 on the others, one launch). Returns (F, the folded classes).
 
     ``f0`` (the distributed factor's, B * R * R contiguous cells): the
     summed contributions from across the cut; the fronts start from it, in
     place, and A's entries are added into it."""
-    B, R, C = g.B, g.R, g.C
-    RU = R - C
+    B, R = g.B, g.R
     dev = Cdata.device
     if f0 is None:
         Fbuf = torch.zeros(B * R * R + 1, dtype=dtype, device=dev)
@@ -578,23 +580,48 @@ def _group_compute(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
         skip, work = set(tm.folded), ix.k7
     if work is not None:
         extend_add_group(F, [updates[key] for key in work.keys], work)
+    return F, skip
 
+
+def _pivots(F: torch.Tensor, nc: torch.Tensor, C: int):
+    """(live, eye, F11m) of fronts F: the (B, C, C) mask of each slot's
+    real columns, the identity, and F11 symmetrized from its lower
+    triangle with the identity on the padding."""
     F11 = F[:, :C, :C]
     F11s = torch.tril(F11) + torch.tril(F11, -1).mT
-    ar = torch.arange(C, device=dev)
-    live = (ar[:, None] < ix.nc) & (ar[None, :] < ix.nc)        # (B, C, C)
-    eye = torch.eye(C, dtype=dtype, device=dev)
-    F11m = torch.where(live, F11s, eye)
+    ar = torch.arange(C, device=F.device)
+    live = (ar[:, None] < nc) & (ar[None, :] < nc)              # (B, C, C)
+    eye = torch.eye(C, dtype=F.dtype, device=F.device)
+    return live, eye, torch.where(live, F11s, eye)
+
+
+def _chol(F11m: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """L11 by the library: a failed tile is all NaN, as the reference's
+    XLA cholesky leaves it (the factor's minor is found from non-finite
+    panels); zero on the padding."""
+    L, info = torch.linalg.cholesky_ex(F11m)
+    L = torch.where((info > 0)[:, None, None], torch.nan, L)
+    return torch.where(live, L, 0)
+
+
+def _group_compute(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
+                   dtype: torch.dtype, f0: torch.Tensor | None = None,
+                   gate_B: int | None = None):
+    """Assemble and factor one group; returns (panel (B, R, C), U or None).
+
+    ``f0``: see :func:`_assemble`. ``gate_B``: the batch the K1 gate reads
+    (the mesh factor's tree-sharded groups pass the whole group's, so that
+    a rank's share takes the single card's route); default ``g.B``."""
+    B, R, C = g.B, g.R, g.C
+    RU = R - C
+    F, skip = _assemble(g, ix, Cdata, updates, dtype, f0)
+    live, eye, F11m = _pivots(F, ix.nc, C)
     F21 = F[:, C:, :C].contiguous() if RU > 0 else None
-    if _use_potrf_kernel(dtype, B, C):
+    if _use_potrf_kernel(dtype, B if gate_B is None else gate_B, C):
         L11, L21 = potrf_trsm(F11m.contiguous(), F21)
         L11 = torch.where(live, L11, 0)
     else:
-        L, info = torch.linalg.cholesky_ex(F11m)
-        # a failed tile is all NaN, as the reference's XLA cholesky leaves
-        # it: the factor's minor is found from non-finite panels
-        L = torch.where((info > 0)[:, None, None], torch.nan, L)
-        L11 = torch.where(live, L, 0)
+        L11 = _chol(F11m, live)
         L21 = None
         if RU > 0:
             L21 = torch.linalg.solve_triangular(
@@ -677,3 +704,67 @@ def factorize_device(A: CSC, S: SupernodalSymbolic, config: Config = DEFAULT,
         minor = _find_minor(S, plan, Lx.cpu().numpy())
     return TorchSupernodalFactor(S=S, Lx=Lx, minor=minor, dplan=dp,
                                  segments=1 if segs is None else len(segs))
+
+
+def _cached_plan(S: SupernodalSymbolic) -> Plan:
+    """A plan already built for ``S`` (any entry of ``S._torch_plan``:
+    their groups are the same); raises if none was."""
+    cache = getattr(S, "_torch_plan", None)
+    if not cache:
+        raise ValueError("no device plan for this analysis: run "
+                         "factorize_device (or device_plan) first")
+    return next(iter(cache.values())).plan
+
+
+def _roofline_rows(plan: Plan, bytes_per_elt: int = 4) -> list:
+    """One row a group, in plan order: (level, R, C, B, flops, bytes).
+
+    Flops: what the port's route computes on the padded shapes, a slot
+    C^3/3 (potrf) + RU C^2 (trsm) + 2 RU^2 C (the update, a full product).
+    Bytes: A's scatter (two int64 indices and the value read, the value
+    written), the front zeroed and read, the panel and U written, and the
+    placement of every pair class (each valid child cell read, its parent
+    cell read and written, the int32 maps read: K2 and K7 place by gather,
+    no product)."""
+    e = bytes_per_elt
+    rows = []
+    for d, glist in enumerate(plan.groups):
+        for g in glist:
+            C, RU = g.C, g.R - g.C
+            flops = g.B * (C ** 3 / 3 + RU * C * C + 2.0 * RU * RU * C)
+            byt = g.asrc.size * (16 + 2 * e) \
+                + e * g.B * (2 * g.R * g.R + g.R * C + RU * RU)
+            for src, dst, idx in g._pair_arrays:
+                cells = int(((idx >= 0).sum(1).astype(np.int64) ** 2).sum())
+                byt += 3 * e * cells + 4 * (idx.size + dst.size + src.size)
+            rows.append((d, g.R, g.C, g.B, float(flops), float(byt)))
+    return rows
+
+
+def _bound_ms(flops: float, byt: float, bytes_per_elt: int) -> float:
+    return 1e3 * max(byt / CARD_BYTES_S, flops / CARD_FLOP_S[bytes_per_elt])
+
+
+def roofline_report(S: SupernodalSymbolic, bytes_per_elt: int = 4) -> str:
+    """Per-group flop and byte accounting of the factor from the static
+    plan (the counterpart of the reference's ``roofline_report``, with the
+    port's routes, :func:`_roofline_rows`), each group's bound on the card
+    and the TOTAL (sums; the bound summed over the groups, which run one
+    after another). Needs a plan of ``S`` (:func:`_cached_plan`)."""
+    rows = _roofline_rows(_cached_plan(S), bytes_per_elt)
+    peak = CARD_FLOP_S[bytes_per_elt]
+    lines = [f"bound: max(bytes / {CARD_BYTES_S / 1e12:g} TB/s, flops / "
+             f"{peak / 1e12:g} TFLOP/s) on the {CARD}, "
+             f"{8 * bytes_per_elt}-bit",
+             "level  bucket(RxC)  batch    MFLOP       MB  flop/byte "
+             " bound_ms"]
+    tot_f = tot_b = tot_ms = 0.0
+    for d, R, C, B, fl, byt in rows:
+        ms = _bound_ms(fl, byt, bytes_per_elt)
+        tot_f, tot_b, tot_ms = tot_f + fl, tot_b + byt, tot_ms + ms
+        lines.append(f"{d:5d}  {R:5d}x{C:<5d} {B:6d} {fl / 1e6:8.1f} "
+                     f"{byt / 1e6:8.1f} {fl / max(byt, 1):10.2f} {ms:9.4f}")
+    lines.append(f"TOTAL  {'':12s} {'':6s} {tot_f / 1e6:8.1f} "
+                 f"{tot_b / 1e6:8.1f} {tot_f / max(tot_b, 1):10.2f} "
+                 f"{tot_ms:9.4f}")
+    return "\n".join(lines)

@@ -66,14 +66,15 @@ from ..kernels.solve_step import solve_step_bwd, solve_step_fwd, step_fits
 from ..kernels.trisolve import batched_trisolve, trisolve_fits
 from ..symbolic.supernodes import SupernodalSymbolic
 from .supernodal import TorchPxFactor
-from .supernodal_device import (_C_LADDER, _R_LADDER, DevicePlan, _pad_to,
-                                _ranges, _use_potrf_kernel, compute_dtype)
+from .supernodal_device import (_C_LADDER, _R_LADDER, DevicePlan, _bound_ms,
+                                _cached_plan, _pad_to, _ranges,
+                                _use_potrf_kernel, compute_dtype)
 
 __all__ = ["BMV_MIN_BATCH", "PMV_MIN_CELLS", "PxPlan", "SolvePlan",
            "build_px_plan", "build_solve_plan", "build_w2", "build_winv",
            "classic_route", "inv_route", "px_panels", "px_plan", "px_route",
            "solve_device", "solve_dispatch", "solve_mode", "solve_px",
-           "w2_route"]
+           "solve_report", "w2_route"]
 
 # the reference's defaults of SSTPU_PMV_MIN_CELLS and SSTPU_BMV_BMIN
 PMV_MIN_CELLS = 1 << 20   # K5 takes a group of at least this many cells
@@ -794,3 +795,47 @@ def solve_device(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
         return solve_px(F, b, config)
     fn, args = solve_dispatch(F, b, config)
     return _finish(F, fn(*args), np.asarray(b).ndim == 1)
+
+
+def _solve_rows(plan, nrhs: int = 1, bytes_per_elt: int = 4) -> list:
+    """One row a level of ``plan``: (level, steps, panel bytes, right-hand
+    side bytes, flops), each for one sweep.
+
+    Every sweep of the port reads each group's B R C panel cells once (the
+    classic sweep L, w2 its W2, inv W and L21); the right-hand side's B R
+    rows are gathered and scattered once; the flops are a dense panel
+    matvec's, 2 B R C a column (the classic sweep's triangles do less)."""
+    e = bytes_per_elt
+    rows = []
+    for d, glist in enumerate(plan.groups):
+        cells = sum(g.B * g.R * g.C for g in glist)
+        rhs = sum(g.B * g.R for g in glist)
+        rows.append((d, len(glist), float(e * cells),
+                     float(2 * e * rhs * nrhs), 2.0 * cells * nrhs))
+    return rows
+
+
+def solve_report(S: SupernodalSymbolic, nrhs: int = 1,
+                 bytes_per_elt: int = 4) -> str:
+    """Static accounting of the multifrontal solve (the counterpart of the
+    reference's ``solve_report``, without its TPU step floor and its
+    coarse mode): a level's sequential group steps, the bytes and flops of
+    one sweep (:func:`_solve_rows`) and the bound of the two sweeps on the
+    card; the TOTAL sums the levels. Needs a plan of ``S``."""
+    from ..device import CARD, CARD_BYTES_S, CARD_FLOP_S
+
+    rows = _solve_rows(_cached_plan(S), nrhs, bytes_per_elt)
+    lines = [f"two sweeps at nrhs {nrhs}, bound: max(bytes / "
+             f"{CARD_BYTES_S / 1e12:g} TB/s, flops / "
+             f"{CARD_FLOP_S[bytes_per_elt] / 1e12:g} TFLOP/s) on the {CARD}",
+             "level  steps  panel MB  rhs MB    MFLOP  bound_ms (2 sweeps)"]
+    tot = [0, 0.0, 0.0, 0.0, 0.0]
+    for d, steps, pan, rhs, fl in rows:
+        ms = 2 * _bound_ms(fl, pan + rhs, bytes_per_elt)
+        for i, v in enumerate((steps, pan, rhs, fl, ms)):
+            tot[i] += v
+        lines.append(f"{d:5d} {steps:6d} {pan / 1e6:9.2f} {rhs / 1e6:7.2f} "
+                     f"{fl / 1e6:8.2f} {ms:9.4f}")
+    lines.append(f"TOTAL {tot[0]:6d} {tot[1] / 1e6:9.2f} {tot[2] / 1e6:7.2f} "
+                 f"{tot[3] / 1e6:8.2f} {tot[4]:9.4f}")
+    return "\n".join(lines)

@@ -1,14 +1,16 @@
-"""Collective census of the distributed factor and solve.
+"""Collective census of the distributed factors and solve.
 
 Port of :func:`suitesparse_tpu.parallel.diag.collective_census`. The
 reference parses the compiled XLA program; the port reads the record that
 its one collective wrapper (``dist2._all_reduce``) keeps on the factor:
 every ``all_reduce`` of the last distributed factor and of its last solve,
 with its phase, group and bytes. The design contract it makes testable:
-one halo sum before the crown on the flat schedule; on the (host, chip)
-schedule one sum over the host's ranks and one over the world; one
-assembly sum; two sums a solve. (``census_from_hlo`` parses XLA's HLO and
-has no counterpart.)
+on :mod:`.dist2`'s flat schedule one halo sum before the crown, on its
+(host, chip) schedule one sum over the host's ranks and one over the
+world, one assembly sum, two sums a solve; on :mod:`.dist`'s mesh one
+gather of U over the tree group a tree-sharded group, one of L21 and one
+of U over the panel group a panel-sharded group, one assembly sum.
+(``census_from_hlo`` parses XLA's HLO and has no counterpart.)
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ def _tally(log) -> dict:
 def collective_census(F) -> dict:
     """{"factor": {phase: {group, ranks, count, bytes, seconds}}, "solve":
     the same for the factor's last solve (empty before one)} of a
-    :func:`.dist2.dist_factorize_v2` factor, on this rank."""
+    :func:`.dist2.dist_factorize_v2` or :func:`.dist.dist_factorize_device`
+    factor, on this rank."""
     if getattr(F, "dist", None) is None:
         raise ValueError("collective_census: the factor is not distributed")
     return {"factor": _tally(F.dist.collectives),

@@ -798,18 +798,19 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def _all_reduce(t: torch.Tensor, phase: str, group: str, topo,
+def _all_reduce(t: torch.Tensor, phase: str, group: str, ranks: int, pg,
                 log: list) -> None:
-    """Sum ``t`` in place over the world or over ``topo``'s host group and
-    record it: the port's one collective. A world of one rank without a
-    process group sums nothing (and records the sum all the same)."""
+    """Sum ``t`` in place over the process group ``pg`` (None: the world)
+    of ``ranks`` ranks, named ``group`` in the record, and record it: the
+    port's one collective. Without a process group a world of one rank
+    sums nothing (and records the sum all the same); a subgroup of one
+    rank sums nothing either."""
     import torch.distributed as tdist
 
-    ranks = topo.nchip if group == "host" else topo.world
     t0 = time.perf_counter()
     if tdist.is_available() and tdist.is_initialized():
-        tdist.all_reduce(t, group=topo.host_group if group == "host"
-                         else None)
+        if pg is None or ranks > 1:
+            tdist.all_reduce(t, group=pg)
     elif ranks > 1:
         raise RuntimeError(f"dist2: a {group} sum over {ranks} ranks needs "
                            f"an initialized process group")
@@ -927,7 +928,8 @@ def dist_factorize_v2(A: CSC, S: SupernodalSymbolic, topo,
             F1 = _place(rp.f1_cut, rp.f1_cells, halo, dtype, dev)
             _free(halo, last, pos)
             pos += 1
-            _all_reduce(F1, "mid_halo", "host", topo, log)
+            _all_reduce(F1, "mid_halo", "host", topo.nchip, topo.host_group,
+                        log)
             t = lap("mid_halo", t)
             mid_panels, pos = _factor_groups(rp.mid, Cdata, halo, dtype,
                                              last, pos, F1)
@@ -936,7 +938,7 @@ def dist_factorize_v2(A: CSC, S: SupernodalSymbolic, topo,
         F0 = _place(rp.f0_cut, rp.f0_cells, halo, dtype, dev)
         halo.clear()
         _all_reduce(F0, "crown_halo" if rp.topology is not None else "halo",
-                    "world", topo, log)
+                    "world", topo.world, None, log)
         t = lap("halo", t)
         crown_panels, _ = _factor_groups(rp.crown, Cdata, {}, dtype,
                                          crown_last, 0, F0)
@@ -947,7 +949,7 @@ def dist_factorize_v2(A: CSC, S: SupernodalSymbolic, topo,
         _write(Lx, rp.mid, mid_panels)
         _write(Lx, rp.crown, crown_panels)
         del leaf_panels, mid_panels, crown_panels
-        _all_reduce(Lx, "assembly", "world", topo, log)
+        _all_reduce(Lx, "assembly", "world", topo.world, None, log)
         lap("assembly", t)
     minor = S.n
     if not bool(torch.isfinite(Lx).all()):
@@ -1147,7 +1149,7 @@ def dist_solve_v2(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
         for key, src, rows in rt.cut:
             wtop.index_add_(0, rows, V[key][src].reshape(-1, nrhs))
         del V
-        _all_reduce(wtop, "solve_up", "world", topo, log)
+        _all_reduce(wtop, "solve_up", "world", topo.world, None, log)
 
         # ---- crown forward and backward (replicated) ----
         up, tf = {}, []
@@ -1181,7 +1183,7 @@ def dist_solve_v2(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
         if rp.rank == 0:
             for (g, cols, _b, _r), xs in zip(rt.top, txc):
                 x[cols] = xs.reshape(-1, nrhs)
-        _all_reduce(x, "solve_x", "world", topo, log)
+        _all_reduce(x, "solve_x", "world", topo.world, None, log)
     yz = x[:n].cpu().numpy().astype(np.float64)
     run.solve_collectives = log
     run.solve_seconds = time.perf_counter() - t0

@@ -20,7 +20,7 @@ from ..config import DEFAULT, Config
 from ..sparse import CSC
 from .etree import col_counts, etree, postorder
 
-__all__ = ["SupernodalSymbolic", "analyze_supernodal"]
+__all__ = ["SupernodalSymbolic", "Supernode", "analyze_supernodal"]
 
 
 @dataclasses.dataclass
@@ -51,6 +51,9 @@ class SupernodalSymbolic:
 
     def nrows(self, s: int) -> int:
         return len(self.rows[s])
+
+
+Supernode = SupernodalSymbolic  # the reference's legacy alias
 
 
 def analyze_supernodal(A: CSC, perm: np.ndarray | None = None,
