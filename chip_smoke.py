@@ -109,6 +109,31 @@
    1 and 8 right-hand sides (K5 and both K6 kernels must launch, residuals
    below 1e-5, x within 1e-4 * max|x| of the default w2 solve's x), each
    timed beside the default.
+7b. bfloat16 child updates (``bf16_phase``, after step 7's timings, on
+   the main path's A, analysis and plan): the model problem factored with
+   ``update_dtype="bfloat16"`` through ``factorize``: K1 must launch for
+   its 24 groups, K2, K2b and K7's fp32 and fp64 instances never, K7's
+   (float, bfloat16) instance once a group with pair classes (114
+   launches, all 800 classes: the tile path is off under bfloat16
+   updates, as in the reference); two such factors bit-equal. It prints
+   the first call, the steady factor (min of 3) timed in turns with the
+   fp32 factor (fp32, bf16, bf16, fp32), the peak of each
+   (``max_memory_allocated`` above the allocation at its reset), the
+   profiler's busy time, ops and K7 device ms a factor (``prof.profile_
+   phase``, tables in ``prof_out/``); one w2 solve below 1e-1 and
+   ``solve_refined`` (2 steps) below 1e-5 and no worse (the reference's
+   gates, ``tests/test_supernodal.py:160-179``), ``lx_host()`` against
+   the fp32 factor's (printed, no gate); the same with fp64 fronts (K7's
+   (double, bfloat16) instance once a group, 114 launches); the bfloat16
+   factor forced into at least 4 segments bit-equal to the one-piece one;
+   K7's two bfloat16 instances in the group form on the (114, 224) group
+   and the fp64 factor's (1, 3912) group, each bit-equal to its same-type
+   instance on the widened U, to one launch a class and to itself, within
+   1e-5 (1e-12 in fp64) of the plain version, timed beside it, its bound
+   (child cells at 2 bytes) and ``extend_add_library``
+   (``extend_add_bf16`` and ``extend_add_f64_bf16`` on the kernel line),
+   and the bfloat16 ``roofline_report`` TOTAL. Its JSON line (``bf16``)
+   comes before the kernel line.
 8. Multifrontal QR: ``qrsol`` on ``local_coupling_ls(6000, 2000)`` (the
    fixture of ``demos/bench_qr.py``) and ``grid_gradient_3d(32)`` (95,559
    x 32,768), fp32 and fp64 at one right-hand side (seed 7), the grid also
@@ -388,6 +413,10 @@ HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
 FP32_FLOP_S = 67e12     # H100 SXM fp32 rate outside the tensor cores
 FP64_FLOP_S = 34e12     # H100 SXM fp64 rate outside the tensor cores
 SRC = "suitesparse_tpu_torch/kernels/csrc/"
+BF16_ONE_TOL = 1e-1     # tests/test_supernodal.py:160-179: one solve with
+BF16_REFINED_TOL = 1e-5  # bfloat16 updates, then two refinement steps
+BF16_STEPS = 2
+
 
 
 def _cuda_ms(fn, reps: int, setup=None) -> float:
@@ -952,29 +981,32 @@ def w2_kernels(dp, dev, rng):
 
 
 def _k7_group_row(rec, name, g, work, dp, dev, rng, dtype, tol, label,
-                  skip=()):
+                  skip=(), udtype=None):
     """K7's group form (one launch for all classes of ``work``, the
     factor's call: the classes of ``g`` outside ``skip``) against its plain
     version, two calls bit-equal and equal bit for bit to the same kernel
     launched one class at a time; timed beside the plain version and the
     library scatter, class by class (``extend_add_library``, one call a
-    class)."""
+    class). ``udtype`` (bfloat16): the children in that dtype, the result
+    also equal bit for bit to the ``dtype`` instance on the children
+    widened, the bound's child cells at its itemsize."""
     import torch
 
     from suitesparse_tpu_torch.kernels.extend_add import (
-        build_work, class_maps, extend_add, extend_add_group,
+        _INSTANCES, build_work, class_maps, extend_add, extend_add_group,
         extend_add_group_plain, extend_add_library, group_work)
     from suitesparse_tpu_torch.numeric.supernodal_device import k7_classes
 
     B, R = g.B, g.R
+    udtype = dtype if udtype is None else udtype
     Us = []
     for key, (RU, *_rest) in zip(work.keys, work.meta):
         B_c = dp.plan.groups[key[0]][key[1]].B
         Us.append(torch.as_tensor(rng.standard_normal((B_c, RU, RU)),
-                                  device=dev).to(dtype))
+                                  device=dev).to(udtype))
     F0 = torch.as_tensor(rng.standard_normal((B, R, R)), device=dev).to(dtype)
     maps = [class_maps(work, c) for c in range(len(Us))]
-    counter = "fp64_launches" if dtype == torch.float64 else "launches"
+    counter = _INSTANCES[dtype, udtype][1]
     before = getattr(extend_add, counter)
     Fk = extend_add_group(F0.clone(), Us, work)
     assert getattr(extend_add, counter) == before + len(work.parts)
@@ -982,6 +1014,7 @@ def _k7_group_row(rec, name, g, work, dp, dev, rng, dtype, tol, label,
     Fc = F0.clone()
     for U, (idx, dst, src) in zip(Us, maps):
         extend_add(Fc, U, idx, dst, src)
+    Fs = extend_add_group(F0.clone(), [U.to(dtype) for U in Us], work)
     Fp = extend_add_group_plain(F0.clone(), Us, work)
     Fl = torch.cat([F0.reshape(-1), F0.new_zeros(1)])
     for U, (idx, dst, src) in zip(Us, maps):
@@ -990,13 +1023,16 @@ def _k7_group_row(rec, name, g, work, dp, dev, rng, dtype, tol, label,
     assert torch.equal(Fk, Fk2), f"{name} {label}: two calls differ"
     assert torch.equal(Fk, Fc), \
         f"{name} {label}: the group form differs from one launch a class"
+    assert torch.equal(Fk, Fs), \
+        f"{name} {label}: differs from the {dtype} instance on the widened U"
     d, e = _rel_err(Fk, Fp)
     e_lib = _rel_err(Fl[:-1].view(B, R, R), Fp)[1]
     assert e_lib <= tol, f"library disagrees with plain: {e_lib}"
     itemsize = F0.element_size()
     classes = k7_classes(g, skip)
     assert len(work.keys) == len(classes)
-    nbytes, adds = group_work(build_work(B, R, classes), itemsize)
+    nbytes, adds = group_work(build_work(B, R, classes), itemsize,
+                              Us[0].element_size())
 
     def library(F):
         for U, (idx, dst, src) in zip(Us, maps):
@@ -1007,7 +1043,8 @@ def _k7_group_row(rec, name, g, work, dp, dev, rng, dtype, tol, label,
         f"{label} (B,R)=({B},{R}) classes={len(Us)} "
         f"RU_c={sorted({int(m[0]) for m in work.meta})} band={work.geom.rows} "
         f"blocks={sum(p[2].numel() for p in work.parts)} cells={adds:.0f} "
-        f"group form, two calls bit-equal, equal to one launch a class",
+        f"U {str(udtype)[6:]}, group form, two calls bit-equal, equal to one "
+        f"launch a class and to the {str(dtype)[6:]} instance on U widened",
         e, d,
         _cuda_ms(lambda F: extend_add_group(F, Us, work), 10,
                  setup=lambda: (F0.clone(),)),
@@ -1126,7 +1163,7 @@ def k7_launches(dp, dtype: str) -> int:
     list (fp32: the classes no manifest folds; fp64: all), one a group
     with K7 classes on these plans."""
     attr = "k7" if dtype == "float32" else "k7_all"
-    return sum(len(getattr(ix, attr).parts) for il in dp.groups for ix in il
+    return sum(len(getattr(ix, attr).parts) for ix in dp.host
                if getattr(ix, attr) is not None)
 
 
@@ -1216,7 +1253,9 @@ def _counters() -> dict:
             "bmatvec": (bmatvec, "launches"),
             "bmatvec_t": (bmatvec, "transposed_launches"),
             "extend_add": (extend_add, "launches"),
-            "extend_add_f64": (extend_add, "fp64_launches")}
+            "extend_add_f64": (extend_add, "fp64_launches"),
+            "extend_add_bf16": (extend_add, "bf16_launches"),
+            "extend_add_f64_bf16": (extend_add, "f64_bf16_launches")}
 
 
 def zero_counts() -> None:
@@ -2049,15 +2088,15 @@ def segmented_phase(A=None, S=None) -> dict:
         return (res, time.perf_counter() - t0,
                 (torch.cuda.max_memory_allocated() - base) / 1e9, counts())
 
-    def cell(name, dp, factor, nseg, gate):
+    def cell(name, dp, factor, nseg, gate, key=torch.float32):
         """``factor(config)`` in one piece under the auto budget, then
         forced into segments; ``nseg(F)`` its segment count; ``gate(F1,
         Fs, launches1, launches_s)`` the cell's gates (raise past a
-        tolerance) and the numbers they read."""
+        tolerance) and the numbers they read; ``key`` the factor's entry
+        of ``dp.costs``."""
         F1, first1, peak1, l1 = measure(dp, lambda: factor(cfg))
         assert nseg(F1) == 1, (name, "the auto budget segmented it")
-        est = segmented.one_piece_bytes(dp.index_bytes,
-                                        dp.costs[torch.float32])
+        est = segmented.one_piece_bytes(dp.index_bytes, dp.costs[key])
         seg_cfg = cfg.replace(segment_bytes=max(1, est // SEG_SHARE))
         Fs, first_s, peak_s, ls = measure(dp, lambda: factor(seg_cfg))
         segs = nseg(Fs)
@@ -2103,7 +2142,8 @@ def segmented_phase(A=None, S=None) -> dict:
 
         out["chol"], _c = cell(
             "chol", dp, lambda c: sd.factorize_device(A, S, c, dev),
-            lambda F: F.segments, chol_gate)
+            lambda F: F.segments, chol_gate,
+            key=(torch.float32, torch.float32))
         del S, dp, A
 
         # ---- QR: grid_gradient_3d(32), fp32 ----
@@ -3188,6 +3228,172 @@ def mesh_phase(perm50) -> tuple[dict, dict, dict]:
     return summary, krec, launches
 
 
+def bf16_phase(A, Ssim, dp) -> tuple[dict, dict, dict]:
+    """bfloat16 child updates (``Config.update_dtype="bfloat16"``) on the
+    main path's ``A``, analysis ``Ssim`` and device plan ``dp`` (see the
+    module docstring, item 7b). Returns (the phase's record, K7's rows of
+    the bfloat16 instances, their launches in the factors driven through
+    ``factorize``). Every gate raises."""
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch import prof
+    from suitesparse_tpu_torch.kernels.potrf_sweep import K1_GROUPS
+    from suitesparse_tpu_torch.numeric import segmented, supernodal
+    from suitesparse_tpu_torch.numeric import supernodal_device as sd
+
+    dev = torch.device("cuda", 0)
+    bf = torch.bfloat16
+    cfg = sstt.DEFAULT.replace(ordering=sstt.Ordering.METIS)
+    bcfg = cfg.replace(update_dtype="bfloat16")
+    b64cfg = bcfg.replace(compute_dtype="float64")
+    S = supernodal.supernodal_symbolic(A, Ssim, cfg)
+    n = A.ncol
+    b = 1.0 + np.arange(n) / n
+    # every class of every group through K7, one launch a group with
+    # classes (the work lists the fp64 factor reads)
+    n_k7_all = k7_launches(dp, "float64")
+    others = ("extend_add_tiles", "extend_add_tiles_pair", "extend_add",
+              "extend_add_f64")
+    steps: dict = {}
+
+    def measure(c):
+        """(factor, seconds, peak GB above the allocation at the reset,
+        launches) of one factor under ``c``."""
+        gc.collect()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        zero_counts()
+        t0 = time.perf_counter()
+        Fx = sstt.factorize(A, Ssim, c, device="cuda")
+        torch.cuda.synchronize()
+        return (Fx, time.perf_counter() - t0,
+                (torch.cuda.max_memory_allocated() - base) / 1e9, counts())
+
+    # ---- the first bfloat16 factor, its launches, the fp32 factor's peak --
+    with _step(steps, "first_and_peaks"):
+        Fb, first_s, peak_bf16, launches = measure(bcfg)
+        assert Fb.ok, f"bf16 factorization failed at column {Fb.minor}"
+        assert Fb.F.Lx.dtype == torch.float32
+        assert launches["potrf_trsm"] == len(K1_GROUPS) and \
+            launches["extend_add_bf16"] == n_k7_all > 0 and \
+            launches["extend_add_f64_bf16"] == 0 and \
+            all(launches[k] == 0 for k in others), launches
+        F32, _first32, peak_fp32, _l32 = measure(cfg)
+        assert torch.equal(Fb.F.Lx, sstt.factorize(A, Ssim, bcfg).F.Lx), \
+            "two bf16 factors differ"
+    # ---- steady walls in turns: fp32, bf16, bf16, fp32 ----
+    walls: dict = {"fp32": [], "bf16": []}
+    with _step(steps, "walls"):
+        for name in ("fp32", "bf16", "bf16", "fp32"):
+            c = bcfg if name == "bf16" else cfg
+            walls[name].append(_best_s(
+                lambda: sstt.factorize(A, Ssim, c, device="cuda")))
+    # ---- device time by kernel (profiler), K7 a factor ----
+    with _step(steps, "profiles"):
+        os.makedirs(prof.OUT_DIR, exist_ok=True)
+        p32 = prof.profile_phase(
+            "factor", lambda: sstt.factorize(A, Ssim, cfg, device="cuda"))
+        p16 = prof.profile_phase(
+            "factor_bf16",
+            lambda: sstt.factorize(A, Ssim, bcfg, device="cuda"))
+    # ---- one solve, then refinement ----
+    with _step(steps, "solves"):
+        x0 = sstt.solve(Fb, b, bcfg)
+        r0 = sstt.residual_norm(A, x0, b)
+        xr = sstt.solve_refined(Fb, A, b, iters=BF16_STEPS, config=bcfg)
+        r = sstt.residual_norm(A, xr, b)
+        assert np.isfinite(x0).all() and np.isfinite(xr).all()
+        assert r0 < BF16_ONE_TOL and r < BF16_REFINED_TOL and r <= r0, \
+            (r0, r)
+    with _step(steps, "lx_host"):
+        l16, l32 = Fb.F.lx_host(), F32.F.lx_host()
+        lx_diff = float(np.abs(l16 - l32).max() / np.abs(l32).max())
+        del F32, l16, l32
+    # ---- fp64 fronts, bfloat16 updates ----
+    with _step(steps, "fp64_fronts"):
+        zero_counts()
+        F64 = sstt.factorize(A, Ssim, b64cfg, device="cuda")
+        torch.cuda.synchronize()
+        l64 = counts()
+        assert F64.ok and F64.F.Lx.dtype == torch.float64
+        assert l64["extend_add_f64_bf16"] == n_k7_all and \
+            l64["extend_add_bf16"] == 0 and l64["potrf_trsm"] == 0 and \
+            all(l64[k] == 0 for k in others), l64
+        x064 = sstt.solve(F64, b, b64cfg)
+        r064 = sstt.residual_norm(A, x064, b)
+        xr64 = sstt.solve_refined(F64, A, b, iters=BF16_STEPS,
+                                  config=b64cfg)
+        r64 = sstt.residual_norm(A, xr64, b)
+        assert r064 < BF16_ONE_TOL and r64 < BF16_REFINED_TOL and \
+            r64 <= r064, (r064, r64)
+        factor64_s = _best_s(lambda: sstt.factorize(A, Ssim, b64cfg,
+                                                    device="cuda"))
+        del F64
+    # ---- K7's bfloat16 instances at the plan's groups ----
+    rec: dict = {}
+    with _step(steps, "k7_rows"):
+        rng = np.random.default_rng(SEED)
+        groups = [g for gl in dp.plan.groups for g in gl]
+        (i,) = [i for i, g in enumerate(groups) if (g.B, g.R) == K7_GROUP]
+        i64 = max((i for i, g in enumerate(groups) if g._tile is not None),
+                  key=lambda i: groups[i].R)
+        assert groups[i64].R == K7_F64_GROUP, groups[i64].R
+        _k7_group_row(rec, "extend_add_bf16", groups[i],
+                      dp.host[i].k7_all.to(dev), dp, dev, rng, torch.float32,
+                      K567_TOL, "bf16 factor group", udtype=bf)
+        _k7_group_row(rec, "extend_add_f64_bf16", groups[i64],
+                      dp.host[i64].k7_all.to(dev), dp, dev, rng,
+                      torch.float64, K7_F64_TOL,
+                      "fp64 factor's largest tile group", udtype=bf)
+    # ---- forced into segments: the one-piece bits ----
+    with _step(steps, "segmented"):
+        est = segmented.one_piece_bytes(dp.index_bytes,
+                                        dp.costs[torch.float32, bf])
+        seg_cfg = bcfg.replace(segment_bytes=max(1, est // SEG_SHARE))
+        zero_counts()
+        Fs = sd.factorize_device(A, S, seg_cfg, dev)
+        torch.cuda.synchronize()
+        ls = counts()
+        assert Fs.segments >= SEG_MIN, Fs.segments
+        assert torch.equal(Fs.Lx, Fb.F.Lx), "segmented bf16 factor differs"
+        assert ls["extend_add_bf16"] == launches["extend_add_bf16"], ls
+        segments = Fs.segments
+        del Fs, Fb
+    roof = sd.roofline_report(S, 4, 2).splitlines()
+    k7_ms, k7_n = p16["hand_kernels"]["extend_add_kernel"]
+    out = {
+        "card": _card(), "first_factor_s": first_s,
+        "factor_s": min(walls["bf16"]), "fp32_factor_s": min(walls["fp32"]),
+        "walls": walls, "factor64_s": factor64_s,
+        "peak_gb": peak_bf16, "fp32_peak_gb": peak_fp32,
+        "launches": launches, "launches_f64": l64,
+        "residual_one_solve": r0, "residual_refined": r,
+        "residual_one_solve_f64": r064, "residual_refined_f64": r64,
+        "lx_host_vs_fp32": lx_diff, "segments": segments,
+        "segment_budget": seg_cfg.segment_bytes, "one_piece_estimate": est,
+        "k7_ms_per_factor": k7_ms, "k7_launches_profiled": k7_n,
+        "fp32_hand_kernels": p32["hand_kernels"],
+        "busy_s": p16["device_busy_s"], "idle_share": p16["device_idle_share"],
+        "ops": p16["n_device_ops"], "fp32_busy_s": p32["device_busy_s"],
+        "fp32_ops": p32["n_device_ops"], "roofline": roof[-1],
+        "steps_s": steps}
+    print(f"bf16 updates: first factor {first_s:.4f} s, steady "
+          f"{out['factor_s']:.4f} s against fp32 {out['fp32_factor_s']:.4f} "
+          f"s (in turns {walls}), fp64 fronts {factor64_s:.4f} s; peak "
+          f"{peak_bf16:.3f} GB against fp32 {peak_fp32:.3f} GB; K7 "
+          f"{k7_ms:.4f} ms a factor in {k7_n} launches; busy "
+          f"{out['busy_s']:.4f} s, idle {out['idle_share']:.3f}, "
+          f"{out['ops']} ops (fp32 {out['fp32_busy_s']:.4f} s, "
+          f"{out['fp32_ops']} ops); residual {r0:.3e} after one solve, "
+          f"{r:.3e} after {BF16_STEPS} steps (fp64 fronts {r064:.3e}, "
+          f"{r64:.3e}); lx_host vs fp32 {lx_diff:.3e}; {segments} segments "
+          f"bit-equal; launches {launches}, fp64 {l64}; roofline "
+          f"({roof[0]}): {roof[-1]}; step seconds {steps}", flush=True)
+    return out, rec, {"extend_add_bf16": launches["extend_add_bf16"],
+                      "extend_add_f64_bf16": l64["extend_add_f64_bf16"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3443,6 +3649,12 @@ def main() -> int:
           f"{supernodal_solve.solve_report(S).splitlines()[-1]}; measured "
           f"solve_s {solve_s:.4f} s", flush=True)
 
+    # ---- bfloat16 child updates on the same problem ----
+    t0 = time.perf_counter()
+    bf16, k7b, bf16_launches = bf16_phase(A, Ssim, dp)
+    bf16_phase_s = time.perf_counter() - t0
+    print(f"bf16_phase {bf16_phase_s:.2f} s", flush=True)
+
     # ---- checkpoint/restart: Matrix Market, Info, save, load, px sweep ----
     t0 = time.perf_counter()
     persist, kpx = persist_phase(A, Ssim)
@@ -3536,6 +3748,8 @@ def main() -> int:
         "lu_phase_s": lu_phase_s, "lu": lu}), flush=True)
     print(json.dumps({"complex": cplx, "complex_phase_s": cplx_phase_s}),
           flush=True)
+    print(json.dumps({"bf16": bf16, "bf16_phase_s": bf16_phase_s},
+                     default=str), flush=True)
     print(json.dumps({"segmented": seg, "segmented_phase_s": seg_phase_s}),
           flush=True)
     print(json.dumps({"persist": persist, "persist_phase_s": persist_phase_s},
@@ -3602,6 +3816,13 @@ def main() -> int:
         entry("extend_add_f64", "suitesparse_tpu/kernels/extend_add.py:110",
               "extend_add.cu", k7["extend_add_f64"],
               f64_launches["extend_add_f64"]),
+        entry("extend_add_bf16", "suitesparse_tpu/kernels/extend_add.py:110",
+              "extend_add.cu", k7b["extend_add_bf16"],
+              bf16_launches["extend_add_bf16"]),
+        entry("extend_add_f64_bf16",
+              "suitesparse_tpu/kernels/extend_add.py:110", "extend_add.cu",
+              k7b["extend_add_f64_bf16"],
+              bf16_launches["extend_add_f64_bf16"]),
         entry("potrf_trsm_dist", "suitesparse_tpu/kernels/potrf.py:108",
               "potrf_trsm.cu", kdist["potrf_trsm_dist"],
               dist_launches["potrf_trsm"]),

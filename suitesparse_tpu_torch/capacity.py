@@ -73,7 +73,8 @@ def main() -> None:
         resid = residual_norm(A, x, b)
         peak = torch.cuda.max_memory_allocated() / 1e9
         est = segmented.one_piece_bytes(dp.index_bytes,
-                                        dp.costs[torch.float32])
+                                        dp.costs[torch.float32,
+                                                 torch.float32])
         segments = F.segments
         del F, x
         best = float("inf")

@@ -2,9 +2,16 @@
 
 The fields of the JAX package's ``Config`` that the port reads, with the
 same defaults (the reference's numerical contract, ``cholmod_core.h:456-510``),
-plus the port's own knob ``solve_mode`` and the fields that stand for the
-reference's opt-in kernel switches (``tile_pair``, ``solve_pmv``,
-``solve_bmv``). The port takes no ``SSTPU_*`` environment variables.
+plus the port's own knobs ``solve_mode`` and ``segment_bytes`` and the
+fields that stand for the reference's opt-in kernel switches
+(``tile_pair``, ``solve_pmv``, ``solve_bmv``). The port takes no
+``SSTPU_*`` environment variables.
+
+The reference's fields that no code of the reference reads are left out:
+``accum_dtype``, ``grow_ratio``, ``leaf_batch``, ``lu_memgrow``,
+``nd_components``, ``nd_oksep``, ``panel_pad``, ``sublane_pad``,
+``umf_block_size``, ``umf_pivot_tol``, ``umf_sym_pivot_tol`` and
+``use_pallas``.
 """
 
 from __future__ import annotations
@@ -56,6 +63,12 @@ class Config:
     amd_dense: float = 10.0          # rows with deg > dense*sqrt(n) postponed
     amd_aggressive: bool = True      # aggressive absorption
 
+    # ----- COLAMD (reference colamd.h knobs) -----
+    # rows with more than max(16, dense_row * sqrt(n)) entries, and columns
+    # with more than max(16, dense_col * sqrt(min(m, n))), are set aside
+    colamd_dense_row: float = 10.0
+    colamd_dense_col: float = 10.0
+
     # ----- nested dissection (reference cholmod_core.h:702-731) -----
     nd_small: int = 200              # stop dissecting below this many nodes
 
@@ -69,8 +82,18 @@ class Config:
     halt_if_singular: bool = True
     ir_steps: int = 2                # iterative-refinement sweeps (IRSTEP)
 
+    # ----- QR (reference spqr_tol.cpp:23) -----
+    # rank-detection tolerance; <0 means 20*(m+n)*eps*max column 2-norm
+    qr_tol: float = -1.0
+
     # ----- device execution -----
     compute_dtype: str = "float32"   # factor and solve dtype on the device
+    # store child update matrices in bfloat16 (halves extend-add traffic and
+    # the memory the live updates hold; fronts/panels stay in compute_dtype,
+    # accumulation is in compute_dtype). Pair with solve-side iterative
+    # refinement (solve_refined) to recover fp32-class residuals. Any other
+    # value means compute_dtype.
+    update_dtype: str = "float32"
     # "highest": true fp32 matmuls (TF32 off inside each call)
     precision: str = "highest"
     # multifrontal solve sweep of a device factor:

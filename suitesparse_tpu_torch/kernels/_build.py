@@ -58,7 +58,8 @@ _SIGNATURES = {
     # F, host array of the classes' U, host array of their (RU, first
     # pair, npairs, first idx entry), ncls, idx, dst, src (or null), blocks
     # (or null), nblocks, B, R, then extend_add_geometry's rows and warps,
-    # fp64; stream
+    # the instance (0 fp32, 1 fp64, 2 fp32 fronts with bf16 updates, 3 fp64
+    # fronts with bf16 updates); stream
     "sst_extend_add": [_vp, _vp, _vp, _i, _vp, _vp, _vp, _vp, _i, _i, _i, _i,
                        _i, _i, _vp],
     # M, X, Z, B, I, J, NR, transpose, then bmv_geometry's epb, split,

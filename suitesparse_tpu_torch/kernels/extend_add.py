@@ -9,9 +9,12 @@ row) and int32 destination slots dst (np,) sorted ascending:
 
 child_p is U[src[p]] for an int32 ``src`` (np,): the factor passes the
 source group's whole (B_c, RU, RU) update block. Without ``src``, U holds
-the children in the order of ``dst`` and child_p is U[p]. fp32 and fp64.
-The kernel takes each row map as the plan makes it: its valid rows first,
-strictly increasing, then -1.
+the children in the order of ``dst`` and child_p is U[p]. F in fp32 or
+fp64, U of F's dtype or bfloat16 (a factor under
+``Config.update_dtype="bfloat16"``): a bfloat16 child is widened to F's
+dtype, exactly, and added in F's dtype, so the result is bit for bit the
+one of U widened first. The kernel takes each row map as the plan makes
+it: its valid rows first, strictly increasing, then -1.
 
 Both versions update F IN PLACE and return it (the reference returns
 F + the contribution). :func:`pad_pairs` (the reference's, copied) adds a
@@ -48,7 +51,12 @@ __all__ = ["BANDS", "BLOCK_CELLS", "FILL_BLOCKS", "MAX_CLASSES",
            "extend_add_group", "extend_add_group_plain", "extend_add_library",
            "extend_add_plain", "group_work", "pad_pairs"]
 
-_FP64 = {torch.float32: 0, torch.float64: 1}
+# the kernel's instance (``inst`` of sst_extend_add) for (F, U) dtypes, and
+# the wrapper's attribute that counts its launches
+_INSTANCES = {(torch.float32, torch.float32): (0, "launches"),
+              (torch.float64, torch.float64): (1, "fp64_launches"),
+              (torch.float32, torch.bfloat16): (2, "bf16_launches"),
+              (torch.float64, torch.bfloat16): (3, "f64_bf16_launches")}
 WARPS = 8              # warps of a block (kWarps in the kernel)
 BANDS = (32, 16, 8)    # parent rows a block: 4, 2 or 1 a warp
 # blocks a grid should have, where the slots' rows allow (4 an SM), and the
@@ -231,17 +239,21 @@ def _touched(R: int, idx: np.ndarray, dst: np.ndarray) -> np.ndarray:
 
 
 def class_work(R: int, idx: np.ndarray, dst: np.ndarray, itemsize: int = 4,
-               src: np.ndarray | None = None) -> tuple[float, float]:
+               src: np.ndarray | None = None,
+               u_itemsize: int | None = None) -> tuple[float, float]:
     """(bytes, adds) that one class's placement must move and do on these
-    maps: each valid child cell read once, each parent cell it reaches read
-    and written once, the int32 maps read once."""
+    maps: each valid child cell read once (``u_itemsize`` bytes, default
+    ``itemsize``: 2 for bfloat16 updates), each parent cell it reaches read
+    and written once (``itemsize`` bytes), the int32 maps read once."""
     cells = float(((idx >= 0).sum(1).astype(np.int64) ** 2).sum())
     maps = idx.size + dst.size + (0 if src is None else src.size)
-    return itemsize * (cells + 2.0 * _touched(R, idx, dst).size) \
+    u = itemsize if u_itemsize is None else u_itemsize
+    return u * cells + 2.0 * itemsize * _touched(R, idx, dst).size \
         + 4.0 * maps, cells
 
 
-def group_work(work: ExtendAddWork, itemsize: int = 4) -> tuple[float, float]:
+def group_work(work: ExtendAddWork, itemsize: int = 4,
+               u_itemsize: int | None = None) -> tuple[float, float]:
     """(bytes, adds) of one group's placement (host maps): as
     :func:`class_work`, a parent cell that several classes reach read and
     written once, the block list read once."""
@@ -250,14 +262,16 @@ def group_work(work: ExtendAddWork, itemsize: int = 4) -> tuple[float, float]:
          for c in range(len(work.keys))]))
     maps = work.idx.size + work.dst.size + work.src.size \
         + sum(blk.size for _c0, _c1, blk in work.parts)
-    return itemsize * (work.cells + 2.0 * touched.size) + 4.0 * maps, \
+    u = itemsize if u_itemsize is None else u_itemsize
+    return u * work.cells + 2.0 * itemsize * touched.size + 4.0 * maps, \
         float(work.cells)
 
 
 def extend_add_plain(F, U, idx, dst, src=None):
     """The reference's two-pass placement with ``index_add_``: child rows
-    into per-pair (R, RU) blocks, then their columns into F (in place)."""
-    child = U if src is None else U[src.long()]
+    into per-pair (R, RU) blocks, then their columns into F (in place); a
+    child of another dtype (bfloat16) is widened to F's first."""
+    child = (U if src is None else U[src.long()]).to(F.dtype)
     B, R, _ = F.shape
     npairs, RU, _ = child.shape
     dev = F.device
@@ -286,8 +300,9 @@ def extend_add_library(Fbuf, U, idx, dst, R: int, src=None):
     """The same placement as one ``index_put_(accumulate=True)`` (a sort on
     CUDA) into the flat fronts Fbuf (B * R * R + 1,), in place. Cells with
     idx < 0 go to Fbuf's last element, a dump cell outside the fronts, so
-    the scatter needs no mask compaction (and no device sync)."""
-    child = U if src is None else U[src.long()]
+    the scatter needs no mask compaction (and no device sync). A child of
+    another dtype (bfloat16) is widened to Fbuf's first."""
+    child = (U if src is None else U[src.long()]).to(Fbuf.dtype)
     dump = Fbuf.numel() - 1
     ix = idx.long()
     ok = ix >= 0
@@ -300,11 +315,12 @@ def extend_add_library(Fbuf, U, idx, dst, R: int, src=None):
 
 
 def _check_blocks(F, U, name: str) -> None:
-    if F.device.type != "cuda" or F.dtype not in _FP64 \
-            or U.dtype != F.dtype or U.device != F.device:
-        raise ValueError(f"{name}: needs fp32 or fp64 CUDA tensors of one "
-                         f"dtype on one device, got F {F.dtype} on "
-                         f"{F.device}, U {U.dtype} on {U.device}")
+    if F.device.type != "cuda" or (F.dtype, U.dtype) not in _INSTANCES \
+            or U.device != F.device:
+        raise ValueError(f"{name}: needs CUDA tensors on one device, F in "
+                         f"fp32 or fp64 and U in F's dtype or bfloat16, got "
+                         f"F {F.dtype} on {F.device}, U {U.dtype} on "
+                         f"{U.device}")
     if F.dim() != 3 or U.dim() != 3 or F.shape[1] != F.shape[2] \
             or U.shape[1] != U.shape[2] or not F.is_contiguous() \
             or not U.is_contiguous():
@@ -325,11 +341,12 @@ def _launch(F, Us, meta: np.ndarray, idx, dst, src, blocks, nblocks: int,
             geom: ExtendAddGeometry) -> None:
     """One launch of the kernel for the classes of ``meta`` (rows of
     (RU_c, first pair, npairs, first idx entry)), class c reading
-    ``Us[c]``; ``blocks`` None: every (slot, band) of F."""
+    ``Us[c]`` (all of one dtype); ``blocks`` None: every (slot, band) of
+    F."""
     lib = _build.load()
     ptrs = (ctypes.c_void_p * len(Us))(*[U.data_ptr() for U in Us])
     meta = np.ascontiguousarray(meta, np.int32)
-    fp64 = _FP64[F.dtype]
+    inst, counter = _INSTANCES[F.dtype, Us[0].dtype]
     B, R, _ = F.shape
     with torch.cuda.device(F.device):
         err = lib.sst_extend_add(
@@ -337,13 +354,10 @@ def _launch(F, Us, meta: np.ndarray, idx, dst, src, blocks, nblocks: int,
             idx.data_ptr(), dst.data_ptr(),
             None if src is None else src.data_ptr(),
             None if blocks is None else blocks.data_ptr(), nblocks, B, R,
-            geom.rows, geom.warps, fp64,
+            geom.rows, geom.warps, inst,
             torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "extend_add")
-    if fp64:
-        extend_add.fp64_launches += 1
-    else:
-        extend_add.launches += 1
+    setattr(extend_add, counter, getattr(extend_add, counter) + 1)
 
 
 def extend_add_group(F, Us, work: ExtendAddWork):
@@ -353,9 +367,10 @@ def extend_add_group(F, Us, work: ExtendAddWork):
 
     A CPU F takes :func:`extend_add_group_plain`; a CUDA F launches the
     kernel once a part of ``work`` (one launch for a group of up to
-    MAX_CLASSES classes), or raises: F and each U contiguous, all fp32 or
-    all fp64, U c of (B_c, RU_c, RU_c), the work's maps uploaded to F's
-    device (the src values are not checked)."""
+    MAX_CLASSES classes), or raises: F and each U contiguous, F fp32 or
+    fp64 and every U of F's dtype or every U bfloat16, U c of (B_c, RU_c,
+    RU_c), the work's maps uploaded to F's device (the src values are not
+    checked)."""
     if len(Us) != len(work.keys):
         raise ValueError(f"extend_add_group: {len(Us)} update blocks for "
                          f"{len(work.keys)} classes")
@@ -364,6 +379,9 @@ def extend_add_group(F, Us, work: ExtendAddWork):
     if tuple(F.shape) != (work.B, work.R, work.R):
         raise ValueError(f"extend_add_group: F {tuple(F.shape)} is not the "
                          f"work's ({work.B}, {work.R}, {work.R})")
+    if len({U.dtype for U in Us}) > 1:
+        raise ValueError(f"extend_add_group: the update blocks of one group "
+                         f"must share a dtype, got {[U.dtype for U in Us]}")
     for U, (RU, *_rest) in zip(Us, work.meta):
         _check_blocks(F, U, "extend_add_group")
         if U.shape[1] != RU:
@@ -385,7 +403,8 @@ def extend_add(F, U, idx, dst, src=None):
 
     A CPU F takes :func:`extend_add_plain`; a CUDA F launches the kernel
     on a one-class work list, every (slot, band) of F a block, or raises:
-    F and U contiguous, both fp32 or both fp64, idx (np, RU), dst (np,)
+    F and U contiguous, F fp32 or fp64 and U of F's dtype or bfloat16,
+    idx (np, RU), dst (np,)
     and src (np,) contiguous int32 on F's device (the src values, which
     index U's first axis, are not checked; each map's valid rows come
     first, increasing, as the plan makes them)."""
@@ -412,3 +431,5 @@ def extend_add(F, U, idx, dst, src=None):
 
 extend_add.launches = 0         # fp32 instance, group and one-class launches
 extend_add.fp64_launches = 0    # fp64 instance
+extend_add.bf16_launches = 0    # fp32 fronts, bfloat16 updates
+extend_add.f64_bf16_launches = 0   # fp64 fronts, bfloat16 updates

@@ -6,12 +6,15 @@ through it, on one card.
 Plan: the n = 125k model plan (``laplacian_3d(50)``, METIS ordering,
 default tile threshold). The factor launches K7 once a group with classes
 to place: in fp32 the classes no tile manifest folds (381 classes in 41
-groups), in fp64 every class (800 in 114 groups). Each group's work list
+groups), in fp64 every class (800 in 114 groups), and so with bfloat16
+updates (``update_dtype="bfloat16"``, fp32 or fp64 fronts: every class,
+through K7's bfloat16 instances). Each group's work list
 (``build_work``, as the factor builds it) on random fronts and random
 source update blocks made on the card from seed 0: the group form
 (``extend_add_group``) held against ``extend_add_group_plain`` (1e-5 of
 the largest entry in fp32, 1e-12 in fp64), then timed beside its band
-height, its summed bound (``class_work`` of each class at 3.35 TB/s) and
+height, its summed bound (``class_work`` of each class at 3.35 TB/s, the
+child cells at the update's itemsize) and
 ``extend_add_library`` (one ``index_put_(accumulate=True)`` a class,
 the placement the factor made before K7, summed over the group's
 classes). The sums over the groups are the per-factor figures. On the ten
@@ -65,40 +68,45 @@ def unfolded_classes(plan):
     return out
 
 
-def group_works(plan, dtype):
+def group_works(plan, dtype, udtype=None):
     """(group, its classes, its host work list) of each group the factor
-    launches K7 on in ``dtype``, in plan order."""
-    from ..numeric.supernodal_device import k7_classes
+    launches K7 on in ``dtype`` with updates in ``udtype`` (default
+    ``dtype``), in plan order."""
+    from ..numeric.supernodal_device import _tiled, k7_classes
 
     out = []
     for gl in plan.groups:
         for g in gl:
             skip = set(g._tile.folded) if g._tile is not None \
-                and dtype == torch.float32 else ()
+                and _tiled(dtype, udtype) else ()
             classes = k7_classes(g, skip)
             if classes:
                 out.append((g, classes, build_work(g.B, g.R, classes)))
     return out
 
 
-def _blocks(plan, work, gen, dev, dtype):
-    """Random fronts and source update blocks for ``work``."""
+def _blocks(plan, work, gen, dev, dtype, udtype=None):
+    """Random fronts and source update blocks (in ``udtype``, default
+    ``dtype``) for ``work``."""
     F = torch.randn(work.B, work.R, work.R, generator=gen, device=dev,
                     dtype=dtype)
     Us = [torch.randn(plan.groups[k[0]][k[1]].B, int(RU), int(RU),
-                      generator=gen, device=dev, dtype=dtype)
+                      generator=gen, device=dev, dtype=dtype).to(
+                          udtype or dtype)
           for k, (RU, *_r) in zip(work.keys, work.meta)]
     return F, Us
 
 
-def sweep_groups(plan, dtype, gen, dev, flush, library=True):
-    """The per-group table of one dtype (without the library call's times
-    where ``library`` is false); returns its rows."""
+def sweep_groups(plan, dtype, gen, dev, flush, library=True, udtype=None):
+    """The per-group table of one dtype, with updates in ``udtype``
+    (without the library call's times where ``library`` is false); returns
+    its rows."""
     itemsize = torch.finfo(dtype).bits // 8
+    u_itemsize = torch.finfo(udtype or dtype).bits // 8
     rows = []
-    for g, classes, host in group_works(plan, dtype):
+    for g, classes, host in group_works(plan, dtype, udtype):
         work = host.to(dev)
-        F, Us = _blocks(plan, work, gen, dev, dtype)
+        F, Us = _blocks(plan, work, gen, dev, dtype, udtype)
         got = extend_add_group(F.clone(), Us, work)
         ref = extend_add_group_plain(F.clone(), Us, work)
         torch.cuda.synchronize()
@@ -113,7 +121,7 @@ def sweep_groups(plan, dtype, gen, dev, flush, library=True):
                 extend_add_library(Fbuf, U, idx, dst, g.R, src)
 
         lib = _device_ms(scatter, flush, LIB_REPS) if library else np.nan
-        bound = sum(class_work(g.R, idx, dst, itemsize, src)[0]
+        bound = sum(class_work(g.R, idx, dst, itemsize, src, u_itemsize)[0]
                     for _key, src, dst, idx in classes) / HBM_BYTES_S * 1e3
         rows.append(dict(
             g=g, classes=classes, host=host, k7=k7, bound=bound, lib=lib,
@@ -127,11 +135,11 @@ def sweep_groups(plan, dtype, gen, dev, flush, library=True):
     return rows
 
 
-def band_heights(plan, rows, dtype, gen, dev, flush):
+def band_heights(plan, rows, dtype, gen, dev, flush, udtype=None):
     """Every band height of BANDS on the TOP groups with the most cells."""
     for r in sorted(rows, key=lambda r: -r["host"].cells)[:TOP]:
         g, host = r["g"], r["host"]
-        F, Us = _blocks(plan, host, gen, dev, dtype)
+        F, Us = _blocks(plan, host, gen, dev, dtype, udtype)
         times = []
         for h in BANDS:
             w = build_work(g.B, g.R, r["classes"], rows=h).to(dev)
@@ -163,9 +171,11 @@ def main() -> int:
     quick = "--quick" in sys.argv[1:]
     os.makedirs(OUT_DIR, exist_ok=True)
     lines = []
-    for dtype in (torch.float32, torch.float64):
-        rows = sweep_groups(plan, dtype, gen, dev, flush, not quick)
-        name = str(dtype).split(".")[-1]
+    bf = torch.bfloat16
+    for dtype, udtype in ((torch.float32, None), (torch.float64, None),
+                          (torch.float32, bf), (torch.float64, bf)):
+        rows = sweep_groups(plan, dtype, gen, dev, flush, not quick, udtype)
+        name = str(dtype).split(".")[-1] + ("_bf16" if udtype else "")
         lines += [f"{name} {r['line']}" for r in rows]
         k7 = np.array([r["k7"] for r in rows])
         print(f"{name}: {len(rows)} groups, "
@@ -178,7 +188,7 @@ def main() -> int:
               flush=True)
         for r in sorted(rows, key=lambda r: -r["k7"])[:15]:
             print(f"  {r['line']}", flush=True)
-        band_heights(plan, rows, dtype, gen, dev, flush)
+        band_heights(plan, rows, dtype, gen, dev, flush, udtype)
     with open(os.path.join(OUT_DIR, "extend_add_groups.txt"), "w") as f:
         f.write("\n".join(lines) + "\n")
     if quick:

@@ -465,7 +465,7 @@ def factorize_qr_device(A: CSC, SQ: QRSymbolicMF, b: np.ndarray,
         for _pos, g in _walk(dp, groups, segs, _factor_part):
             _factor_group(g, pool)
     ok = bool(torch.isfinite(pool[plan.pool_data:]).all())
-    tol = rank_tol(A, dtype)
+    tol = rank_tol(A, dtype, config.qr_tol)
     rank_est = int((pool[_diag_index(dp)[0]].abs() > tol).sum())
     device_factors += 1
     return MFQRDeviceFactor(SQ=SQ, dplan=dp, pool=pool, ok=ok,
@@ -473,15 +473,18 @@ def factorize_qr_device(A: CSC, SQ: QRSymbolicMF, b: np.ndarray,
                             segments=segs, rank_est=rank_est, tol=tol)
 
 
-def rank_tol(A: CSC, dtype: torch.dtype) -> float:
-    """The rank-detection tolerance of a factor in ``dtype``: 20 max_j
-    ||A(:, j)||_2 times the larger of (m + n) eps_64, SPQR's default
+def rank_tol(A: CSC, dtype: torch.dtype, qr_tol: float = -1.0) -> float:
+    """The rank-detection tolerance of a factor in ``dtype``: ``qr_tol``
+    where it is >= 0 (``Config.qr_tol``, as the host QR reads it), else 20
+    max_j ||A(:, j)||_2 times the larger of (m + n) eps_64, SPQR's default
     (``spqr_tol.cpp:23``, the host QR's ``qr.py``: the tolerance of every
     fp64 factor), and sqrt(m + n) eps of ``dtype``. In fp32, (m + n) eps
     outgrows the true pivots of large problems (it marked pivots of the
     full-rank grid_gradient_3d(32), m + n = 128,327, dead), while the
     roundoff that a dependent column's pivot keeps grows like sqrt(m + n)
     eps."""
+    if qr_tol >= 0:
+        return float(qr_tol)
     m, n = A.shape
     sq = np.zeros(n)
     np.add.at(sq, np.repeat(np.arange(n), np.diff(A.indptr)),
@@ -581,11 +584,12 @@ _SQ_CACHE: dict = {}     # analysis key -> QRSymbolicMF
 
 def _analysis_key(A: CSC, config: Config) -> tuple:
     """Everything of the config the front-tree analysis of A reads: the
-    ordering with COLAMD's absorption, and the supernode relaxation (the
-    reference keys on the pattern only, so a second ordering reused the
-    first's)."""
+    ordering with COLAMD's absorption and dense cuts, and the supernode
+    relaxation (the reference keys on the pattern only, so a second
+    ordering reused the first's)."""
     return (A.nrow, A.ncol, A.pattern_key(), config.ordering,
-            config.amd_aggressive, tuple(config.nrelax),
+            config.amd_aggressive, config.colamd_dense_row,
+            config.colamd_dense_col, tuple(config.nrelax),
             tuple(config.zrelax))
 
 

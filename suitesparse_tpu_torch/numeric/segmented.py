@@ -14,9 +14,11 @@ for the next upload.
 The estimate is in bytes of what the port holds, not the reference's
 cells of one-hot placement terms and XLA buffers: each group costs its
 index arrays (``index``) and its transient working set (``work``: the
-front, the update or panel, the library's workspace), and a segment holds
-the sum of its groups' index arrays and the largest working set among
-them. The switch, ``Config.segment_bytes``: 0 (auto) gives a budget of
+front, the update or panel, the library's workspace; the Cholesky's
+update at its own itemsize, 2 bytes under
+``Config.update_dtype="bfloat16"``), and a segment holds the sum of its
+groups' index arrays and the largest working set among them. The
+Cholesky's schedule is cached per (compute dtype, update dtype). The switch, ``Config.segment_bytes``: 0 (auto) gives a budget of
 :data:`AUTO_SHARE` of the device's free memory at call time (none on the
 CPU); a positive value is the budget itself. A factor runs in segments
 when its one-piece estimate (every group's index arrays and the largest

@@ -20,6 +20,14 @@ factored by the fused potrf+trsm kernel where its gate passes (B >= 32,
 C <= 96, fp32) and by ``cholesky_ex`` + ``solve_triangular`` elsewhere;
 the update U = F22 - L21 L21^T goes up to the parent group.
 
+``Config.update_dtype="bfloat16"`` stores each U in bfloat16 (the
+reference's mixed-precision factor): the fronts, the panels and the sums
+stay in the compute dtype, U is rounded once after it is computed, and the
+extend-add kernel widens it exactly as it reads it. Such a factor places
+every pair class through the extend-add kernel (no tile manifest, as the
+reference turns its tiled kernel off for any update dtype but fp32);
+``solve_refined`` brings its residual back to the fp32 class.
+
 Each group's index arrays are built once a plan on the host. The one-piece
 factor uploads them all once and keeps them; past ``Config.segment_bytes``
 (or its auto budget on the card) a factor uploads them a segment at a time
@@ -422,7 +430,8 @@ class GroupArrays:
     nc: torch.Tensor             # (B, 1, 1) actual column counts
     k7: object                   # ExtendAddWork of the classes no manifest
     #                              folds (the fp32 factor's K7), or None
-    k7_all: object               # ExtendAddWork of every class (fp64), or None
+    k7_all: object               # ExtendAddWork of every class (fp64 and
+    #                              bfloat16-update factors), or None
     tile: tuple | None           # (man, rowmap, colmap, runs) int32
     uslices: list                # per folded class (k0, src key, RU_c, src)
 
@@ -441,7 +450,8 @@ class DevicePlan:
     #                              [GroupArrays] on the host, in plan order
     index_bytes: int = 0         # bytes of the one-piece upload
     costs: dict = dataclasses.field(default_factory=dict)
-    #                              dtype -> [(index, work) bytes a group]
+    #                              (dtype, update dtype) -> [(index, work)
+    #                              bytes a group]
     schedule: tuple | None = None   # (key, segments) of the last segmented
     #                                 factor (numeric/segmented.py)
     solve: object = None         # solve routing, built at the first solve
@@ -486,24 +496,37 @@ def _host_arrays(plan: Plan) -> list:
     return out
 
 
-def _select(ix: GroupArrays, dtype: torch.dtype) -> GroupArrays:
-    """The arrays a factor in ``dtype`` reads of a group: an fp32 factor
-    assembles a group with a manifest through K2 and K7 on the unfolded
-    classes, every other group through K7 on all classes."""
-    if ix.tile is not None and dtype == torch.float32:
+def _tiled(dtype: torch.dtype, udtype: torch.dtype | None = None) -> bool:
+    """Whether a factor in ``dtype`` with updates in ``udtype`` (default
+    ``dtype``) assembles the groups that have a manifest through K2: fp32
+    fronts and fp32 updates only, as the reference's ``_tile_runtime``."""
+    return dtype == torch.float32 and udtype in (None, torch.float32)
+
+
+def _select(ix: GroupArrays, dtype: torch.dtype,
+            udtype: torch.dtype | None = None) -> GroupArrays:
+    """The arrays a factor in ``dtype`` with updates in ``udtype`` reads
+    of a group: an fp32 factor assembles a group with a manifest through
+    K2 and K7 on the unfolded classes, every other group, and every group
+    of any other factor, through K7 on all classes."""
+    if ix.tile is not None and _tiled(dtype, udtype):
         return dataclasses.replace(ix, k7_all=None)
     return dataclasses.replace(ix, k7=None, tile=None, uslices=[])
 
 
-def _work_bytes(g: GroupPlan, dtype: torch.dtype) -> int:
+def _work_bytes(g: GroupPlan, dtype: torch.dtype,
+                udtype: torch.dtype | None = None) -> int:
     """One group's transient working set in bytes (:func:`_group_compute`):
-    the fronts, the update and its product, the finished panel, the pivot
-    blocks' copies and, for an fp32 manifest, the padded child blocks."""
+    the fronts, the update's product, the finished panel and the pivot
+    blocks' copies in ``dtype``, the update it hands up in ``udtype``
+    (default ``dtype``) and, for an fp32 manifest, the padded child
+    blocks."""
+    udtype = dtype if udtype is None else udtype
     RU = g.R - g.C
-    cells = g.B * (g.R * g.R + 2 * RU * RU + g.R * g.C + 3 * g.C * g.C)
-    if g._tile is not None and dtype == torch.float32:
+    cells = g.B * (g.R * g.R + RU * RU + g.R * g.C + 3 * g.C * g.C)
+    if g._tile is not None and _tiled(dtype, udtype):
         cells += max(g._tile.nslots, 1) * g._tile.RUp ** 2
-    return cells * dtype.itemsize
+    return cells * dtype.itemsize + g.B * RU * RU * udtype.itemsize
 
 
 def _plan_entry(A: CSC, S: SupernodalSymbolic, device: torch.device,
@@ -549,10 +572,12 @@ def _use_potrf_kernel(dtype: torch.dtype, B: int, C: int) -> bool:
 
 
 def _assemble(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
-              dtype: torch.dtype, f0: torch.Tensor | None = None):
+              dtype: torch.dtype, f0: torch.Tensor | None = None,
+              udtype: torch.dtype | None = None):
     """One group's fronts F (B, R, R): A's entries scattered, then the
-    children's updates added (K2 on the classes a manifest folds, fp32;
-    K7 on the others, one launch). Returns (F, the folded classes).
+    children's updates (in ``udtype``, default ``dtype``) added (K2 on the
+    classes a manifest folds, fp32 fronts and updates; K7 on the others,
+    one launch). Returns (F, the folded classes).
 
     ``f0`` (the distributed factor's, B * R * R contiguous cells): the
     summed contributions from across the cut; the fronts start from it, in
@@ -570,7 +595,7 @@ def _assemble(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
             F.view(-1)[ix.adst] += Cdata[ix.asrc]
 
     skip, work = (), ix.k7_all
-    if ix.tile is not None and dtype == torch.float32:
+    if ix.tile is not None and _tiled(dtype, udtype):
         tm = g._tile
         Ucat = torch.zeros(max(tm.nslots, 1), tm.RUp, tm.RUp, dtype=dtype,
                            device=dev)
@@ -606,15 +631,20 @@ def _chol(F11m: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
 
 def _group_compute(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
                    dtype: torch.dtype, f0: torch.Tensor | None = None,
-                   gate_B: int | None = None):
+                   gate_B: int | None = None,
+                   udtype: torch.dtype | None = None):
     """Assemble and factor one group; returns (panel (B, R, C), U or None).
 
     ``f0``: see :func:`_assemble`. ``gate_B``: the batch the K1 gate reads
     (the mesh factor's tree-sharded groups pass the whole group's, so that
-    a rank's share takes the single card's route); default ``g.B``."""
+    a rank's share takes the single card's route); default ``g.B``.
+    ``udtype``: the dtype the children's updates come in and U goes up in
+    (default ``dtype``); U is computed in ``dtype`` and rounded once, after
+    its symmetrization, as the reference does."""
     B, R, C = g.B, g.R, g.C
     RU = R - C
-    F, skip = _assemble(g, ix, Cdata, updates, dtype, f0)
+    udtype = dtype if udtype is None else udtype
+    F, skip = _assemble(g, ix, Cdata, updates, dtype, f0, udtype)
     live, eye, F11m = _pivots(F, ix.nc, C)
     F21 = F[:, C:, :C].contiguous() if RU > 0 else None
     if _use_potrf_kernel(dtype, B if gate_B is None else gate_B, C):
@@ -632,15 +662,17 @@ def _group_compute(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
     if skip and g._symm_u:
         # lower-only tile assembly, and a consumer reads U whole
         U = torch.tril(U) + torch.tril(U, -1).mT
-    return torch.cat([L11, L21], dim=1), U
+    return torch.cat([L11, L21], dim=1), U.to(udtype)
 
 
-def _run_plan(plan: Plan, arrays, Cdata: torch.Tensor, dtype: torch.dtype):
+def _run_plan(plan: Plan, arrays, Cdata: torch.Tensor, dtype: torch.dtype,
+              udtype: torch.dtype | None = None):
     """Every group in plan order; returns the padded factor (dev_size,).
 
     ``arrays`` yields (position, GroupArrays on the device) for each group
     in plan order: the one-piece upload, or a segment's upload at a time.
-    A child update is freed right after the last group that reads it."""
+    The updates are held in ``udtype`` (default ``dtype``). A child update
+    is freed right after the last group that reads it."""
     keys = [(d, gi) for d, glist in enumerate(plan.groups)
             for gi in range(len(glist))]
     _order, last = _update_consumers(plan)
@@ -652,7 +684,8 @@ def _run_plan(plan: Plan, arrays, Cdata: torch.Tensor, dtype: torch.dtype):
     for pos, ix in arrays:
         d, gi = keys[pos]
         g = plan.groups[d][gi]
-        panel, U = _group_compute(g, ix, Cdata, updates, dtype)
+        panel, U = _group_compute(g, ix, Cdata, updates, dtype,
+                                  udtype=udtype)
         Lx[g.panel_base:g.panel_base + panel.numel()] = panel.reshape(-1)
         if U is not None and (d, gi) in last:
             updates[(d, gi)] = U
@@ -667,38 +700,49 @@ def compute_dtype(config: Config) -> torch.dtype:
         else torch.float32
 
 
+def update_dtype(config: Config, dtype: torch.dtype) -> torch.dtype:
+    """The dtype the factor in ``dtype`` holds its child updates in under
+    ``config``: bfloat16 for ``update_dtype="bfloat16"``, else ``dtype``
+    (the reference's ``factorize_device``, whatever the front dtype)."""
+    return torch.bfloat16 if config.update_dtype == "bfloat16" else dtype
+
+
 def factorize_device(A: CSC, S: SupernodalSymbolic, config: Config = DEFAULT,
                      device="cuda", tile_rmin: int = TILE_RMIN):
     """A(p,p) = L L^T on ``device``; a TorchSupernodalFactor (device layout).
 
     ``config.tile_pair`` picks the two-piece tile manifests;
-    ``config.segment_bytes`` the budget past which the groups run in
-    segments (:mod:`.segmented`; the same kernels, the same layout and the
-    same bits). ``minor`` follows the cholmod contract: the first column of
-    the first supernode whose panel is not finite, or n on success."""
+    ``config.update_dtype`` the dtype of the child updates
+    (:func:`update_dtype`); ``config.segment_bytes`` the budget past which
+    the groups run in segments (:mod:`.segmented`; the same kernels, the
+    same layout and the same bits). ``minor`` follows the cholmod contract:
+    the first column of the first supernode whose panel is not finite, or n
+    on success."""
     from .supernodal import TorchSupernodalFactor
 
     dev = resolve_device(device)
     dtype = compute_dtype(config)
+    udtype = update_dtype(config, dtype)
     dp = _plan_entry(A, S, dev, tile_rmin, config.tile_pair)
     plan = dp.plan
-    costs = dp.costs.get(dtype)
+    costs = dp.costs.get((dtype, udtype))
     if costs is None:
-        dp.costs[dtype] = costs = [
-            (segmented.nbytes(_select(ix, dtype)), _work_bytes(g, dtype))
+        dp.costs[dtype, udtype] = costs = [
+            (segmented.nbytes(_select(ix, dtype, udtype)),
+             _work_bytes(g, dtype, udtype))
             for ix, g in zip(dp.host, (g for gl in plan.groups for g in gl))]
     segs = segmented.segments(
-        dp, (id(plan), str(dtype), str(dev)), costs, config, dev,
-        plan.dev_size * dtype.itemsize)
+        dp, (id(plan), str(dtype), str(udtype), str(dev)), costs, config,
+        dev, plan.dev_size * dtype.itemsize)
     if segs is None:
         groups = _upload(dp).groups
         arrays = enumerate(ix for il in groups for ix in il)
     else:
         arrays = segmented.uploads(dp.host, segs, dev,
-                                   lambda ix: _select(ix, dtype))
+                                   lambda ix: _select(ix, dtype, udtype))
     Cdata = torch.as_tensor(_clow_data(A, S), device=dev).to(dtype)
     with fp32_precision(config.precision):
-        Lx = _run_plan(plan, arrays, Cdata, dtype)
+        Lx = _run_plan(plan, arrays, Cdata, dtype, udtype)
     minor = S.n
     if not bool(torch.isfinite(Lx).all()):
         minor = _find_minor(S, plan, Lx.cpu().numpy())
@@ -716,7 +760,8 @@ def _cached_plan(S: SupernodalSymbolic) -> Plan:
     return next(iter(cache.values())).plan
 
 
-def _roofline_rows(plan: Plan, bytes_per_elt: int = 4) -> list:
+def _roofline_rows(plan: Plan, bytes_per_elt: int = 4,
+                   update_bytes: int | None = None) -> list:
     """One row a group, in plan order: (level, R, C, B, flops, bytes).
 
     Flops: what the port's route computes on the padded shapes, a slot
@@ -725,18 +770,22 @@ def _roofline_rows(plan: Plan, bytes_per_elt: int = 4) -> list:
     written), the front zeroed and read, the panel and U written, and the
     placement of every pair class (each valid child cell read, its parent
     cell read and written, the int32 maps read: K2 and K7 place by gather,
-    no product)."""
+    no product). U written and the child cells read count
+    ``update_bytes`` each (default ``bytes_per_elt``; 2 for bfloat16
+    updates), the rest ``bytes_per_elt``."""
     e = bytes_per_elt
+    u = e if update_bytes is None else update_bytes
     rows = []
     for d, glist in enumerate(plan.groups):
         for g in glist:
             C, RU = g.C, g.R - g.C
             flops = g.B * (C ** 3 / 3 + RU * C * C + 2.0 * RU * RU * C)
             byt = g.asrc.size * (16 + 2 * e) \
-                + e * g.B * (2 * g.R * g.R + g.R * C + RU * RU)
+                + e * g.B * (2 * g.R * g.R + g.R * C) + u * g.B * RU * RU
             for src, dst, idx in g._pair_arrays:
                 cells = int(((idx >= 0).sum(1).astype(np.int64) ** 2).sum())
-                byt += 3 * e * cells + 4 * (idx.size + dst.size + src.size)
+                byt += (u + 2 * e) * cells \
+                    + 4 * (idx.size + dst.size + src.size)
             rows.append((d, g.R, g.C, g.B, float(flops), float(byt)))
     return rows
 
@@ -745,17 +794,22 @@ def _bound_ms(flops: float, byt: float, bytes_per_elt: int) -> float:
     return 1e3 * max(byt / CARD_BYTES_S, flops / CARD_FLOP_S[bytes_per_elt])
 
 
-def roofline_report(S: SupernodalSymbolic, bytes_per_elt: int = 4) -> str:
+def roofline_report(S: SupernodalSymbolic, bytes_per_elt: int = 4,
+                    update_bytes: int | None = None) -> str:
     """Per-group flop and byte accounting of the factor from the static
     plan (the counterpart of the reference's ``roofline_report``, with the
     port's routes, :func:`_roofline_rows`), each group's bound on the card
     and the TOTAL (sums; the bound summed over the groups, which run one
-    after another). Needs a plan of ``S`` (:func:`_cached_plan`)."""
-    rows = _roofline_rows(_cached_plan(S), bytes_per_elt)
+    after another). ``update_bytes``: the updates' itemsize (2 for a
+    factor under ``update_dtype="bfloat16"``; default ``bytes_per_elt``).
+    Needs a plan of ``S`` (:func:`_cached_plan`)."""
+    rows = _roofline_rows(_cached_plan(S), bytes_per_elt, update_bytes)
     peak = CARD_FLOP_S[bytes_per_elt]
+    upd = "" if update_bytes in (None, bytes_per_elt) else \
+        f", {8 * update_bytes}-bit updates"
     lines = [f"bound: max(bytes / {CARD_BYTES_S / 1e12:g} TB/s, flops / "
              f"{peak / 1e12:g} TFLOP/s) on the {CARD}, "
-             f"{8 * bytes_per_elt}-bit",
+             f"{8 * bytes_per_elt}-bit{upd}",
              "level  bucket(RxC)  batch    MFLOP       MB  flop/byte "
              " bound_ms"]
     tot_f = tot_b = tot_ms = 0.0

@@ -20,13 +20,6 @@ from .amd import amd_order
 
 __all__ = ["colamd_order", "ccolamd_order", "symamd_order", "csymamd_order"]
 
-# COLAMD's dense thresholds (colamd.h knobs, the reference's defaults): rows
-# with more than max(16, DENSE_ROW * sqrt(n)) entries, and columns with more
-# than max(16, DENSE_COL * sqrt(min(m, n))), are set aside
-DENSE_ROW = 10.0
-DENSE_COL = 10.0
-
-
 def colamd_order(A: CSC, config: Config = DEFAULT) -> np.ndarray:
     """Fill-reducing column permutation q for QR of A (colamd analog):
     q[k] = column ordered kth."""
@@ -35,16 +28,17 @@ def colamd_order(A: CSC, config: Config = DEFAULT) -> np.ndarray:
         return np.empty(0, dtype=np.int64)
     Ag = A.to_full_storage() if A.sym != 0 else A
     return native.colamd(Ag.nrow, n, Ag.indptr, Ag.indices,
-                         dense_row=DENSE_ROW, dense_col=DENSE_COL,
+                         dense_row=config.colamd_dense_row,
+                         dense_col=config.colamd_dense_col,
                          aggressive=config.amd_aggressive)
 
 
-def _ata_pattern(A: CSC) -> CSC:
+def _ata_pattern(A: CSC, config: Config) -> CSC:
     """Fallback-only: pattern of A'A with dense rows dropped."""
     m, n = A.nrow, A.ncol
     Ag = A.to_full_storage() if A.sym != 0 else A
     row_counts = np.bincount(Ag.indices, minlength=m)
-    cut = max(16.0, DENSE_ROW * np.sqrt(max(n, 1)))
+    cut = max(16.0, config.colamd_dense_row * np.sqrt(max(n, 1)))
     keep_rows = row_counts < cut
     cols = np.repeat(np.arange(n, dtype=np.int64), np.diff(Ag.indptr))
     sel = keep_rows[Ag.indices]
@@ -79,11 +73,12 @@ def ccolamd_order(A: CSC, cset: np.ndarray,
     Ag = A.to_full_storage() if A.sym != 0 else A
     if native.available():
         return native.colamd(Ag.nrow, n, Ag.indptr, Ag.indices,
-                             dense_row=DENSE_ROW, dense_col=DENSE_COL,
+                             dense_row=config.colamd_dense_row,
+                             dense_col=config.colamd_dense_col,
                              aggressive=config.amd_aggressive,
                              cmember=np.asarray(cset, dtype=np.int64))
     from . import camd_order
-    return camd_order(_ata_pattern(A), cset, config)
+    return camd_order(_ata_pattern(A, config), cset, config)
 
 
 def symamd_order(A: CSC, config: Config = DEFAULT) -> np.ndarray:

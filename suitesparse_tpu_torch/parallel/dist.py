@@ -37,7 +37,10 @@ pair class by K7, as :mod:`.dist2` does. The reference skips its tile
 kernel and K1 on this path only because ``pallas_call`` does not partition
 under GSPMD; the port's kernels run on every rank. The factor runs in one
 piece (no segments) and solves through
-:func:`..numeric.supernodal_solve.solve_device` on each rank's card.
+:func:`..numeric.supernodal_solve.solve_device` on each rank's card. It
+holds its updates in the compute dtype whatever ``Config.update_dtype``
+says: ``_group_compute`` runs with its default, as the reference's
+``dist.py:89`` calls ``_run_plan`` without an update dtype.
 """
 
 from __future__ import annotations

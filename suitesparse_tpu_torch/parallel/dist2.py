@@ -38,7 +38,10 @@ No tile manifest (K2) runs here: the leaf groups are re-sliced per rank,
 and the reference's distributed path runs none. Every sum goes through
 :func:`_all_reduce`, which records its phase, group and bytes on the
 factor (:mod:`.diag` reads the record). Gloo takes CUDA tensors for
-``all_reduce``; no ``all_gather`` is used.
+``all_reduce``; no ``all_gather`` is used. The updates stay in the compute
+dtype whatever ``Config.update_dtype`` says: ``_group_compute`` runs with
+its default, as the reference's ``dist2.py:558-875`` calls it without an
+update dtype.
 """
 
 from __future__ import annotations

@@ -4,8 +4,9 @@
 
 On the model problem ``laplacian_3d(50)`` (n = 125,000, nested dissection,
 fp32, default tile threshold) it profiles ``factorize`` (``factor``,
-``factor_pair`` with the two-piece tile steps, ``tile_pair=True``, and
-``factor64`` in fp64, ``compute_dtype="float64"``), and
+``factor_pair`` with the two-piece tile steps, ``tile_pair=True``,
+``factor64`` in fp64, ``compute_dtype="float64"``, and ``factor_bf16``
+with bfloat16 child updates, ``update_dtype="bfloat16"``), and
 ``solve`` at 1 and at 64 right-hand sides through the w2 sweep (the
 default; ``solve1``, ``solve64``) and through the classic sweep
 (``solve_mode="classic"``; ``classic1``, ``classic64``), and at 1 and 8
@@ -135,10 +136,10 @@ def group_times(A, S, cfg, fname: str = "prof_groups.txt") -> None:
     times = []
     inner = supernodal_device._group_compute
 
-    def timed(g, *args):
+    def timed(g, *args, **kw):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = inner(g, *args)
+        out = inner(g, *args, **kw)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         return out
@@ -313,6 +314,8 @@ def main() -> int:
                   lambda: factorize(A, Ssim, pair, device="cuda"))
     fp64 = cfg.replace(compute_dtype="float64")
     profile_phase("factor64", lambda: factorize(A, Ssim, fp64, device="cuda"))
+    profile_phase("factor_bf16", lambda: factorize(
+        A, Ssim, cfg.replace(update_dtype="bfloat16"), device="cuda"))
     profile_phase("solve1", lambda: solve(F, b, cfg))
     profile_phase("solve64", lambda: solve(F, B64, cfg))
     classic = cfg.replace(solve_mode="classic")

@@ -4,7 +4,10 @@ pair reads its child out of the source group's whole update block through
 bit-equal, and the wrapper's checks on ``src``; the group form (one launch
 for several classes, ``extend_add_group``) against its plain version, bit
 for bit equal to one launch a class and to itself cut into launches of
-fewer classes, under every band height. Marked ``card``: they skip
+fewer classes, under every band height; the bfloat16-update instances
+(fp32 and fp64 fronts) bit for bit equal to the same-type instance on the
+widened U, in both forms, over vector and scalar child rows. Marked
+``card``: they skip
 where no card is found (the check is made inside the fixture, not at
 import). On the card (whose Python needs no JAX: ``--noconftest`` skips
 the JAX set-up of ``tests/conftest.py``):
@@ -55,6 +58,13 @@ def _class(B, R, RU, npairs, B_c, dtype, dev, seed):
     F = t(rng.standard_normal((B, R, R))).to(dtype)
     U = t(rng.standard_normal((B_c, RU, RU))).to(dtype)
     return F, U, t(idx), t(dst), t(src)
+
+
+# the wrapper's launch counter of each (F, U) instance
+COUNTER = {(torch.float32, torch.float32): "launches",
+           (torch.float64, torch.float64): "fp64_launches",
+           (torch.float32, torch.bfloat16): "bf16_launches",
+           (torch.float64, torch.bfloat16): "f64_bf16_launches"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -149,3 +159,53 @@ def test_group_form_checks_its_blocks(dev):
         extend_add_group(F[:-1].contiguous(), Us, work)
     with pytest.raises(ValueError, match="update blocks"):
         extend_add_group(F, Us[:-1], work)
+    mixed = [Us[0].to(torch.bfloat16)] + Us[1:]
+    with pytest.raises(ValueError, match="share a dtype"):
+        extend_add_group(F, mixed, work)
+    with pytest.raises(ValueError):
+        extend_add_group(F.to(torch.bfloat16),
+                         [U.to(torch.bfloat16) for U in Us], work)
+
+
+@pytest.mark.parametrize("fdtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,R,RU,npairs,B_c", SHAPES)
+def test_bf16_instance_equals_the_same_type_instance(dev, B, R, RU, npairs,
+                                                     B_c, fdtype):
+    """One class: a bfloat16 U gives the bits the F-dtype instance gives
+    on U widened (RU 128 loads eight bfloat16 a lane, 40 and 37 one)."""
+    F0, U, idx, dst, src = _class(B, R, RU, npairs, B_c, fdtype, dev,
+                                  seed=B + R + RU)
+    Ub = U.to(torch.bfloat16)
+    counter = COUNTER[fdtype, torch.bfloat16]
+    before = getattr(extend_add, counter)
+    got = extend_add(F0.clone(), Ub, idx, dst, src)
+    again = extend_add(F0.clone(), Ub, idx, dst, src)
+    same = extend_add(F0.clone(), Ub.to(fdtype), idx, dst, src)
+    want = extend_add_plain(F0.clone(), Ub, idx, dst, src)
+    torch.cuda.synchronize()
+    assert getattr(extend_add, counter) == before + 2
+    assert got.dtype == fdtype
+    assert torch.equal(got, again) and torch.equal(got, same)
+    assert (got - want).abs().max() <= RTOL[fdtype] * want.abs().max()
+
+
+# the bfloat16 rows of GROUPS' classes (RU 37, 40, 16; 700, 300) and a
+# group whose every class loads eight bfloat16 a lane (RU % 8 == 0)
+BF16_GROUPS = GROUPS + ((2, 1000, ((1, 704, 2), (2, 296, 3))),)
+
+
+@pytest.mark.parametrize("fdtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("B,R,classes", BF16_GROUPS)
+def test_bf16_group_form_equals_the_same_type_instance(dev, B, R, classes,
+                                                       fdtype):
+    F0, Us, work = _group(B, R, classes, fdtype, dev, seed=R)
+    Ub = [U.to(torch.bfloat16) for U in Us]
+    counter = COUNTER[fdtype, torch.bfloat16]
+    before = getattr(extend_add, counter)
+    got = extend_add_group(F0.clone(), Ub, work)
+    assert getattr(extend_add, counter) == before + len(work.parts)
+    same = extend_add_group(F0.clone(), [U.to(fdtype) for U in Ub], work)
+    want = extend_add_group_plain(F0.clone(), Ub, work)
+    torch.cuda.synchronize()
+    assert torch.equal(got, same)
+    assert (got - want).abs().max() <= RTOL[fdtype] * want.abs().max()
