@@ -30,9 +30,16 @@ sweeps walk the factor plan's groups leaves -> root (forward) and back
   fp32) or ``torch.linalg.solve_triangular``, then a batched matmul
   applies L21 (forward v = wb + L21 xc, backward y - L21^T xb).
 
-Contributions move child -> parent along the factor plan's pair classes:
-forward, each class's pass-up rows are added into the parent's vector with
-``index_add_``; backward, each child gathers its rows of the parent's x.
+Contributions move child -> parent along the factor plan's pair classes
+in class-sorted pass-up buffers, after the reference's ``_sorted_route``
+(its default at nrhs <= 8; the port takes it at every nrhs): forward, one
+``index_select`` a child group lays its pass-up vectors out in
+consuming-class order, and each class adds a contiguous slice of them (a
+view, no launch) into the parent's vector with ``index_add_``; backward,
+each class gathers its rows of the parent's x straight into its slice of
+the child group's slab, and one ``index_select`` a child group brings the
+slab back to batch order (slots no class feeds read the slab's zero pad
+row).
 
 A factor in the CHOLMOD px layout (``TorchPxFactor``, one that
 ``serialize.load_factor`` put on the device) takes the px sweep, the
@@ -47,8 +54,7 @@ under the reference's gate, else ``solve_triangular``.
 ``solve_dispatch`` returns the sweep as a callable and its device
 arguments, every cache filled, as the reference's does.
 
-The reference's class-sorted routing and its coarse plans are not ported
-(see ROADMAP).
+The reference's coarse plans are not ported (see ROADMAP).
 """
 
 from __future__ import annotations
@@ -136,13 +142,54 @@ class SolveRouting:
 
     splan: SolvePlan
     col_idx: list        # col_idx[d][gi]: (B*C,) rows of the permuted rhs
-    classes: list        # classes[d][gi] = [(src key, src, rows)]
+    # classes[d][gi] = [(src key, off, hi, rows)]: the class reads rows
+    # off:hi of its child group's sorted buffer
+    classes: list
     xmap: torch.Tensor   # (n,) row of the concatenated xc holding column j
+    sorted: dict         # child key -> (cat, inv, ncat), :func:`_sorted_route`
+
+
+def _sorted_route(plan) -> tuple[dict, dict]:
+    """The class-sorted routing maps of the factor plan ``plan``, after the
+    reference's ``_sorted_route``: ({child key: (cat, inv, ncat)},
+    {(d, gi, ci): (off, hi)}).
+
+    ``cat`` lists a child group's slots in consuming-class order (the
+    ``src`` of each class that reads the group, one after another, in plan
+    order), so class ci of group (d, gi) reads rows off:hi of the sorted
+    buffer; ``inv`` maps each slot to its row there, and a slot that no
+    class reads to the zero pad row ``ncat``. The classes of one child
+    group must read disjoint slots (the routing runs along tree edges);
+    a plan where they do not raises ``ValueError``."""
+    order: dict = {}
+    for d, glist in enumerate(plan.groups):
+        for gi, g in enumerate(glist):
+            for ci, (pc, (src, _dst, _idx)) in enumerate(
+                    zip(g.pairs, g._pair_arrays)):
+                order.setdefault((pc.src_level, pc.src_gi), []).append(
+                    ((d, gi, ci), np.asarray(src, dtype=np.int64)))
+    groups_map, class_map = {}, {}
+    for key, lst in order.items():
+        cat = np.concatenate([s for _pk, s in lst])
+        if np.unique(cat).size != cat.size:
+            raise ValueError(f"_sorted_route: the classes that read child "
+                             f"group {key} share slots")
+        inv = np.full(plan.groups[key[0]][key[1]].B, cat.size,
+                      dtype=np.int64)
+        inv[cat] = np.arange(cat.size)
+        off = 0
+        for pk, s in lst:
+            class_map[pk] = (off, off + s.size)
+            off += s.size
+        groups_map[key] = (cat, inv, cat.size)
+    return groups_map, class_map
 
 
 def _routing(S, dp: DevicePlan) -> SolveRouting:
     """Built once per device plan: ``rows`` flattens (dst, idx) into the
-    parent's (B*R + 1) vector rows, with idx < 0 sent to the last (dump) row."""
+    parent's (B*R + 1) vector rows, with idx < 0 sent to the last (dump)
+    row, and each class's slice of its child's sorted buffer
+    (:func:`_sorted_route`)."""
     if dp.solve is None:
         plan, dev = dp.plan, dp.device
 
@@ -150,22 +197,27 @@ def _routing(S, dp: DevicePlan) -> SolveRouting:
             return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
 
         splan = build_solve_plan(S, plan)
+        smap, cmap = _sorted_route(plan)
         col_idx, classes = [], []
-        for glist, sglist in zip(plan.groups, splan.groups):
+        for d, (glist, sglist) in enumerate(zip(plan.groups, splan.groups)):
             col_idx.append([t64(sg.col_idx) for sg in sglist])
             crow = []
-            for g in glist:
+            for gi, g in enumerate(glist):
                 cl = []
-                for pc, (src, dst, idx) in zip(g.pairs, g._pair_arrays):
+                for ci, (pc, (_src, dst, idx)) in enumerate(
+                        zip(g.pairs, g._pair_arrays)):
                     rows = np.where(idx >= 0,
                                     dst.astype(np.int64)[:, None] * g.R + idx,
                                     g.B * g.R)
-                    cl.append(((pc.src_level, pc.src_gi), t64(src),
-                               t64(rows.ravel())))
+                    cl.append(((pc.src_level, pc.src_gi),
+                               *cmap[(d, gi, ci)], t64(rows.ravel())))
                 crow.append(cl)
             classes.append(crow)
-        dp.solve = SolveRouting(splan=splan, col_idx=col_idx,
-                                classes=classes, xmap=t64(_mf_xmap(S, plan)))
+        dp.solve = SolveRouting(
+            splan=splan, col_idx=col_idx, classes=classes,
+            xmap=t64(_mf_xmap(S, plan)),
+            sorted={k: (t64(cat), t64(inv), ncat)
+                    for k, (cat, inv, ncat) in smap.items()})
     return dp.solve
 
 
@@ -415,14 +467,15 @@ def _mf_solve_fn(dp: DevicePlan, rt: SolveRouting, pb: torch.Tensor,
         for gi, g in enumerate(glist):
             B, R, C = g.B, g.R, g.C
             w = torch.zeros(B * R + 1, nrhs, dtype=dtype, device=dev)
-            for key, src, rows in rt.classes[d][gi]:
-                w.index_add_(0, rows, up[key][src].reshape(-1, nrhs))
+            for key, off, hi, rows in rt.classes[d][gi]:
+                w.index_add_(0, rows, up[key][off:hi].reshape(-1, nrhs))
             w = w[:-1].view(B, R, nrhs)
             yc = pb[rt.col_idx[d][gi]].view(B, C, nrhs) - w[:, :C]
             xc, v = fwd(d, gi, yc, w[:, C:] if R > C else None)
             yfwd[(d, gi)] = xc
-            if R > C:
-                up[(d, gi)] = v
+            if (d, gi) in rt.sorted:
+                # consuming-class order: each class reads a slice
+                up[(d, gi)] = v.index_select(0, rt.sorted[(d, gi)][0])
 
     xb: dict = {}      # (level, gi) -> x on the group's below rows
     xcs: dict = {}
@@ -434,6 +487,9 @@ def _mf_solve_fn(dp: DevicePlan, rt: SolveRouting, pb: torch.Tensor,
             below = xb.pop((d, gi), None)
             if below is None and RU > 0:
                 below = torch.zeros(B, RU, nrhs, dtype=dtype, device=dev)
+            elif below is not None:
+                # the sorted slab back to batch order
+                below = below.index_select(0, rt.sorted[(d, gi)][1])
             xc = bwd(d, gi, yfwd.pop((d, gi)), below)
             xcs[(d, gi)] = xc
             if not rt.classes[d][gi]:
@@ -441,14 +497,18 @@ def _mf_solve_fn(dp: DevicePlan, rt: SolveRouting, pb: torch.Tensor,
             fx = torch.cat([xc, below], dim=1) if RU > 0 else xc
             fx = torch.cat([fx.reshape(B * R, nrhs),
                             fx.new_zeros(1, nrhs)])
-            for key, src, rows in rt.classes[d][gi]:
-                cg = plan.groups[key[0]][key[1]]
+            for key, off, hi, rows in rt.classes[d][gi]:
                 buf = xb.get(key)
                 if buf is None:
-                    buf = torch.zeros(cg.B, cg.R - cg.C, nrhs, dtype=dtype,
-                                      device=dev)
+                    # every row but the pad is some class's slice
+                    cg = plan.groups[key[0]][key[1]]
+                    ncat = rt.sorted[key][2]
+                    buf = torch.empty(ncat + 1, cg.R - cg.C, nrhs,
+                                      dtype=dtype, device=dev)
+                    buf[ncat].zero_()
                     xb[key] = buf
-                buf[src] = fx[rows].view(src.numel(), cg.R - cg.C, nrhs)
+                torch.index_select(fx, 0, rows,
+                                   out=buf[off:hi].view(-1, nrhs))
     return torch.cat([xcs[(d, gi)].reshape(-1, nrhs)
                       for d in range(len(plan.groups))
                       for gi in range(len(plan.groups[d]))])

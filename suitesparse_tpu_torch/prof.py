@@ -9,9 +9,12 @@ fp32, default tile threshold) it profiles ``factorize`` (``factor``,
 with bfloat16 child updates, ``update_dtype="bfloat16"``), and
 ``solve`` at 1 and at 64 right-hand sides through the w2 sweep (the
 default; ``solve1``, ``solve64``) and through the classic sweep
-(``solve_mode="classic"``; ``classic1``, ``classic64``), and at 1 and 8
+(``solve_mode="classic"``; ``classic1``, ``classic64``), at 1 and 8
 through the w2 sweep with its plain matmul (``solve8``) and with the K5 and
-K6 kernel routes (``solve_pmv=True, solve_bmv=True``; ``w2k1``, ``w2k8``).
+K6 kernel routes (``solve_pmv=True, solve_bmv=True``; ``w2k1``, ``w2k8``),
+and at 1 and 8 through the inv sweep (``solve_mode="inv"``; ``inv1``,
+``inv8``); ``solve_profile()`` runs the model problem's solve phases
+alone.
 Then the multifrontal QR: a pattern-cached ``qrsol`` (b from seed 7) on
 ``local_coupling_ls(6000, 2000)`` (``qr_lc``) and on
 ``grid_gradient_3d(32)`` in fp32 (``qr_grid``) and fp64 (``qr_grid64``).
@@ -286,11 +289,7 @@ def complex_profile() -> None:
                 "prof_cplx_groups.txt")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("prof: no CUDA device", file=sys.stderr)
-        return 2
-    os.makedirs(OUT_DIR, exist_ok=True)
+def _header() -> None:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
@@ -298,16 +297,53 @@ def main() -> int:
           f"linalg {torch.backends.cuda.preferred_linalg_library()}",
           flush=True)
 
+
+def _model():
+    """(A, config, analysis, factor on the card) of the model problem."""
     A = fixtures.laplacian_3d(SIZE)
-    n = A.ncol
     cfg = DEFAULT.replace(ordering=Ordering.METIS)
     Ssim = analyze(A, cfg)
     supernodal_symbolic(A, Ssim, cfg)
     F = factorize(A, Ssim, cfg, device="cuda")
     assert F.ok
+    return A, cfg, Ssim, F
+
+
+def solve_phases(A, F, cfg) -> None:
+    """The solve phases of the module docstring on the factor ``F``."""
+    n = A.ncol
     b = 1.0 + np.arange(n) / n
     B64 = np.tile(b.reshape(-1, 1), (1, NRHS)) * (1.0 + np.arange(NRHS) / NRHS)
+    B8 = B64[:, :8].copy()
+    profile_phase("solve1", lambda: solve(F, b, cfg))
+    profile_phase("solve64", lambda: solve(F, B64, cfg))
+    classic = cfg.replace(solve_mode="classic")
+    profile_phase("classic1", lambda: solve(F, b, classic))
+    profile_phase("classic64", lambda: solve(F, B64, classic))
+    kernels = cfg.replace(solve_pmv=True, solve_bmv=True)
+    profile_phase("solve8", lambda: solve(F, B8, cfg))
+    profile_phase("w2k1", lambda: solve(F, b, kernels))
+    profile_phase("w2k8", lambda: solve(F, B8, kernels))
+    inv = cfg.replace(solve_mode="inv")
+    profile_phase("inv1", lambda: solve(F, b, inv))
+    profile_phase("inv8", lambda: solve(F, B8, inv))
 
+
+def solve_profile() -> None:
+    """The model problem's solve phases alone."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    _header()
+    A, cfg, _Ssim, F = _model()
+    solve_phases(A, F, cfg)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("prof: no CUDA device", file=sys.stderr)
+        return 2
+    os.makedirs(OUT_DIR, exist_ok=True)
+    _header()
+    A, cfg, Ssim, F = _model()
     profile_phase("factor", lambda: factorize(A, Ssim, cfg, device="cuda"))
     pair = cfg.replace(tile_pair=True)
     profile_phase("factor_pair",
@@ -316,16 +352,7 @@ def main() -> int:
     profile_phase("factor64", lambda: factorize(A, Ssim, fp64, device="cuda"))
     profile_phase("factor_bf16", lambda: factorize(
         A, Ssim, cfg.replace(update_dtype="bfloat16"), device="cuda"))
-    profile_phase("solve1", lambda: solve(F, b, cfg))
-    profile_phase("solve64", lambda: solve(F, B64, cfg))
-    classic = cfg.replace(solve_mode="classic")
-    profile_phase("classic1", lambda: solve(F, b, classic))
-    profile_phase("classic64", lambda: solve(F, B64, classic))
-    kernels = cfg.replace(solve_pmv=True, solve_bmv=True)
-    B8 = B64[:, :8].copy()
-    profile_phase("solve8", lambda: solve(F, B8, cfg))
-    profile_phase("w2k1", lambda: solve(F, b, kernels))
-    profile_phase("w2k8", lambda: solve(F, B8, kernels))
+    solve_phases(A, F, cfg)
     group_times(A, Ssim, cfg)
 
     Alc = fixtures.local_coupling_ls(6000, 2000)

@@ -53,6 +53,10 @@ class CSC:
     def shape(self) -> tuple[int, int]:
         return (self.nrow, self.ncol)
 
+    def copy(self) -> "CSC":
+        return CSC(self.nrow, self.ncol, self.indptr.copy(),
+                   self.indices.copy(), self.data.copy(), self.sym)
+
     def pattern_key(self) -> tuple:
         """(nnz, sym, crc32(indptr||indices)): the cache key of the
         analyze-once/factor-many value maps, memoized per indices array."""
@@ -63,6 +67,9 @@ class CSC:
             memo = (self.indices, (self.nnz, self.sym, crc))
             self._pat_key = memo
         return memo[1]
+
+    def col_lengths(self) -> np.ndarray:
+        return np.diff(self.indptr)
 
     def rows_of(self, j: int) -> np.ndarray:
         return self.indices[self.indptr[j]:self.indptr[j + 1]]
@@ -116,6 +123,13 @@ class CSC:
         (cs_permute.c / cholmod_ptranspose analog); None is the identity.
         Rows come out sorted (two counting transposes when p reorders
         them)."""
+        indptr, indices, pos = self.permuted_map(p, q)
+        return CSC(self.nrow, self.ncol, indptr, indices, self.data[pos], 0)
+
+    def permuted_map(self, p: np.ndarray | None, q: np.ndarray | None):
+        """(indptr, indices, pos) of C = P A Q': its pattern and the map
+        of its values, C.data = A.data[pos] (cached once per pattern, a
+        refactorization's permutation is one gather)."""
         if self.sym != 0:
             raise ValueError("permuted expects general storage (sym=0); "
                              "use symperm")
@@ -127,13 +141,13 @@ class CSC:
         indptr = np.zeros(n + 1, dtype=np.int64)
         np.cumsum(lens, out=indptr[1:])
         gather = _concat_ranges(starts, lens)
-        rows, data = self.indices[gather], self.data[gather]
+        rows = self.indices[gather]
         if p is None:
-            return CSC(m, n, indptr, rows, data, 0)
+            return indptr, rows, gather
         rows = invert_permutation(p)[rows]
         tp, ti, tpos = native.transpose(m, n, indptr, rows)
         _op, oi, opos = native.transpose(n, m, tp, ti)
-        return CSC(m, n, indptr, oi, data[tpos][opos], 0)
+        return indptr, oi, gather[tpos][opos]
 
     def symperm(self, p: np.ndarray) -> "CSC":
         """C = P A P' keeping only the upper triangle, for symmetric A stored
@@ -148,6 +162,32 @@ class CSC:
         if np.iscomplexobj(data):
             data = np.where(flip, np.conj(data), data)
         return CSC(self.ncol, self.ncol, outp, outi, data, 1)
+
+    def drop_zeros(self, tol: float = 0.0) -> "CSC":
+        """Drop stored entries with |x| <= tol (cholmod_drop analog)."""
+        return self._filter(np.abs(self.data) > tol)
+
+    def band(self, k1: int, k2: int) -> "CSC":
+        """Entries within diagonals k1..k2 inclusive (cholmod_band
+        analog), in general storage for a symmetric-stored A."""
+        A = self.to_full_storage()
+        d = _col_ids(A.indptr) - A.indices
+        return A._filter((d >= k1) & (d <= k2))
+
+    def tril(self, k: int = 0) -> "CSC":
+        """The entries on and below diagonal -k of the stored pattern."""
+        return self._filter(self.indices >= _col_ids(self.indptr) + k)
+
+    def triu(self, k: int = 0) -> "CSC":
+        """The entries on and above diagonal k of the stored pattern."""
+        return self._filter(self.indices <= _col_ids(self.indptr) - k)
+
+    def _filter(self, keep: np.ndarray) -> "CSC":
+        counts = np.bincount(_col_ids(self.indptr)[keep], minlength=self.ncol)
+        indptr = np.zeros(self.ncol + 1, dtype=np.int64)
+        np.cumsum(counts, out=indptr[1:])
+        return CSC(self.nrow, self.ncol, indptr, self.indices[keep],
+                   self.data[keep], self.sym)
 
     def to_full_storage(self) -> "CSC":
         """Symmetric-stored (sym=1) -> general storage, both triangles (the
@@ -179,6 +219,44 @@ class CSC:
             return self.matvec(x)
         return self.transpose().matvec(x)
 
+    def add(self, other: "CSC", alpha: float = 1.0,
+            beta: float = 1.0) -> "CSC":
+        """alpha*A + beta*B in A's storage (cholmod_add analog); both of one
+        shape and storage."""
+        if self.shape != other.shape or self.sym != other.sym:
+            raise ValueError("add: the matrices differ in shape or storage")
+        return from_triplets(
+            self.nrow, self.ncol,
+            np.concatenate([self.indices, other.indices]),
+            np.concatenate([_col_ids(self.indptr), _col_ids(other.indptr)]),
+            np.concatenate([alpha * self.data, beta * other.data]),
+            sym=self.sym)
+
+    def matmat(self, other: "CSC") -> "CSC":
+        """C = A @ B, sparse times sparse, in general storage
+        (cholmod_ssmult / cs_multiply analog): a column at a time, the
+        products of each column summed in B's then A's storage order."""
+        A = self.to_full_storage()
+        B = other.to_full_storage()
+        if A.ncol != B.nrow:
+            raise ValueError(f"matmat: {A.ncol} columns against {B.nrow} "
+                             f"rows")
+        rows_out, cols_out, vals_out = [], [], []
+        for j in range(B.ncol):
+            acc: dict = {}
+            for t in range(B.indptr[j], B.indptr[j + 1]):
+                k, bv = B.indices[t], B.data[t]
+                lo, hi = A.indptr[k], A.indptr[k + 1]
+                for i, av in zip(A.indices[lo:hi], A.data[lo:hi]):
+                    acc[i] = acc.get(i, 0.0) + av * bv
+            rows_out.extend(acc.keys())
+            cols_out.extend([j] * len(acc))
+            vals_out.extend(acc.values())
+        return from_triplets(A.nrow, B.ncol,
+                             np.array(rows_out, dtype=np.int64),
+                             np.array(cols_out, dtype=np.int64),
+                             np.array(vals_out, dtype=A.data.dtype))
+
     def norm1(self) -> float:
         """max column sum of |A| (cholmod_norm analog)."""
         A = self.to_full_storage()
@@ -187,6 +265,61 @@ class CSC:
         sums = np.bincount(_col_ids(A.indptr), weights=np.abs(A.data),
                            minlength=A.ncol)
         return float(sums.max())
+
+    def norm_inf(self) -> float:
+        """max row sum of |A| (cholmod_norm analog)."""
+        A = self.to_full_storage()
+        if A.nnz == 0:
+            return 0.0
+        sums = np.bincount(A.indices, weights=np.abs(A.data),
+                           minlength=A.nrow)
+        return float(sums.max())
+
+    def norm_fro(self) -> float:
+        """The Frobenius norm (cholmod_norm analog)."""
+        return float(np.sqrt(np.sum(np.abs(self.to_full_storage().data)
+                                    ** 2)))
+
+    def scale(self, left: np.ndarray | None = None,
+              right: np.ndarray | None = None) -> "CSC":
+        """diag(left) @ A @ diag(right) (cholmod_scale analog; either side
+        may be None); a symmetric-stored A takes left == right."""
+        if self.sym != 0 and left is not None and right is not None \
+                and not np.array_equal(left, right):
+            raise ValueError("scale: a symmetric matrix takes left == right")
+        data = self.data.copy()
+        if left is not None:
+            data *= np.asarray(left)[self.indices]
+        if right is not None:
+            data *= np.asarray(right)[_col_ids(self.indptr)]
+        return CSC(self.nrow, self.ncol, self.indptr.copy(),
+                   self.indices.copy(), data, self.sym)
+
+    def submatrix(self, rows: np.ndarray | None,
+                  cols: np.ndarray | None) -> "CSC":
+        """A[rows, cols] for index lists that may permute and repeat
+        (cholmod_submatrix analog); None takes all, in order."""
+        A = self.to_full_storage()
+        rsel = (np.arange(A.nrow, dtype=np.int64) if rows is None
+                else _as_index(rows))
+        csel = (np.arange(A.ncol, dtype=np.int64) if cols is None
+                else _as_index(cols))
+        # each row of A to the positions it takes in rsel (repeats too)
+        rr, cc, xx = [], [], []
+        order = np.argsort(rsel, kind="stable")
+        rsorted = rsel[order]
+        for out_j, j in enumerate(csel):
+            lo, hi = A.indptr[j], A.indptr[j + 1]
+            ridx = A.indices[lo:hi]
+            loi = np.searchsorted(rsorted, ridx, side="left")
+            hii = np.searchsorted(rsorted, ridx, side="right")
+            for t in range(ridx.size):
+                for k in range(loi[t], hii[t]):
+                    rr.append(order[k])
+                    cc.append(out_j)
+                    xx.append(A.data[lo + t])
+        return from_triplets(rsel.size, csel.size, rr, cc,
+                             np.asarray(xx, dtype=A.data.dtype))
 
     def symmetry(self, tol: float = 0.0) -> dict:
         """Structural/numeric symmetry report (cholmod_symmetry analog):
@@ -224,6 +357,16 @@ class CSC:
             raise ValueError("aat_pattern needs a square matrix")
         outp, outi = native.aat(n, self.indptr, self.indices)
         return CSC(n, n, outp, outi, np.ones(outi.size), 0)
+
+    def ata_pattern(self) -> "CSC":
+        """A'A, formed explicitly (small host-side uses; COLAMD orders A's
+        columns without it)."""
+        return self.transpose().matmat(self)
+
+    def to_csr_arrays(self):
+        """(indptr, indices, data) of the CSR view of A (the CSC of A')."""
+        T = self.transpose()
+        return T.indptr, T.indices, T.data
 
 
 def from_triplets(nrow: int, ncol: int, rows, cols, vals, sym: int = 0) -> CSC:

@@ -27,6 +27,27 @@ class Stats:
     def record(self, key: str, value) -> None:
         self.values[key] = value
 
+    def gflops(self, phase: str, flops: float) -> float:
+        """``flops`` over the seconds ``phase`` has taken, in GFLOP/s (0
+        for a phase not timed)."""
+        t = self.times.get(phase, 0.0)
+        return flops / t / 1e9 if t > 0 else 0.0
+
+    def report(self) -> str:
+        """A table of the phases (calls, seconds), then the values."""
+        lines = ["phase                          calls   seconds"]
+        for phase in sorted(self.times):
+            lines.append(f"{phase:<30} {self.counts[phase]:>5} "
+                         f"{self.times[phase]:>9.4f}")
+        for k in sorted(self.values):
+            lines.append(f"{k:<30} = {self.values[k]}")
+        return "\n".join(lines)
+
+    def clear(self) -> None:
+        self.times.clear()
+        self.counts.clear()
+        self.values.clear()
+
 
 GLOBAL_STATS = Stats()
 

@@ -1,10 +1,11 @@
 """Port's w2 multifrontal solve vs the reference's ``solve_device``.
 
 The reference runs its stacked-inverse (w2) sweep with unsorted routing
-(``SSTPU_SOLVE_SORT=0``: the sorted route is an XLA fusion trick the port
-leaves out). Both sweeps apply the same W2 panels in fp32 with sums in
-another order, so x is held to 1e-4 * max|x| and the residual to 1e-5 (the
-factor's own fp32 accuracy bounds both)."""
+(``SSTPU_SOLVE_SORT=0``); the port takes its default, the class-sorted
+buffers at nrhs <= 8, which give the unsorted sweep's bits on the CPU
+(``tests/test_torch_sorted_route.py``). Both sweeps apply the same W2
+panels in fp32 with sums in another order, so x is held to 1e-4 * max|x|
+and the residual to 1e-5 (the factor's own fp32 accuracy bounds both)."""
 
 import numpy as np
 import pytest
