@@ -6,9 +6,11 @@
 1. Builds the CUDA kernels from ``suitesparse_tpu_torch/kernels/csrc``.
 2. Kernel phase: builds the plans of the 3-D Laplacian model problem
    ``laplacian_3d(50)`` (n = 125,000, nested dissection) and of a forest of
-   512 independent ``laplacian_3d(6)`` blocks (n = 110,592), and runs each
+   512 independent ``laplacian_3d(6)`` blocks (n = 110,592), the factor's
+   plan and the coarse solve plan that the solves take, and runs each
    kernel and its plain PyTorch version on the card at the shapes those
-   plans give it, from a numpy seed: potrf_trsm (K1) at the three largest
+   plans give it (the solve kernels at the coarse solve plans'), from a
+   numpy seed: potrf_trsm (K1) at the three largest
    groups of its gate (after checking that the plan sends the 24 groups of
    ``K1_GROUPS`` to it), each timed beside the factor's library route for
    the groups K1 does not take (``cholesky_ex`` + ``solve_triangular``),
@@ -21,8 +23,9 @@
    groups of their gate at 1 and 64 right-hand sides and at three shapes
    off the plan (``K3_OFF_PLAN``: an odd C at NR 5, RU far above 720, RU =
    0), each K3 row with NaN above L11's diagonal, called twice for bit-equal
-   results and printed with its launch plan, after the count of model-plan
-   groups that take K3 (``K3_GROUPS``, at nrhs 1 and 64), the batched
+   results and printed with its launch plan, after the count of the model
+   problem's solve-plan groups that take K3 (``K3_GROUPS``, at nrhs 1 and
+   64), the batched
    trisolve
    (K4) at the forest's (512, 64) root group and the (45, 48) L11 shape,
    plain and transposed, at 1 and 64 right-hand sides, and at three
@@ -80,8 +83,10 @@
    and K7 once for each group with a pair class that no tile manifest
    folds (41 groups, 381 classes) during the factorization, and a second factorization must give the
    same bits; residuals must
-   stay below 1e-5. ``solve_mode="auto"`` must pick w2 on the fresh factor
-   and classic once the reported free memory leaves no room for W2. Also a
+   stay below 1e-5; the solves must take the coarse solve plan.
+   ``solve_mode="auto"`` must pick w2 on the fresh factor and classic once
+   the reported free memory leaves no room for the coarse plan's W2 and
+   the factor's copy relaid into it. Also a
    small problem whose card factor must match the
    CPU factor entry by entry and whose solution must match the host
    simplicial solve.
@@ -242,7 +247,7 @@
    solve's x within 1e-6 * max|x| (the card's ``index_add_`` sums in no
    fixed order; its own wall printed). K6 is held against its
    plain version at the largest gated W (C, C) and L21 (RU, C) panels (the
-   factor's own), each way, at 1 and 8 right-hand sides, beside its bound
+   solve plan's own), each way, at 1 and 8 right-hand sides, beside its bound
    and ``torch.bmm`` (L2 flushed). It prints the bytes of the inv state (W
    and the K6 groups' L21 copies) against W2's and the steady inv, inv
    with K6, w2 and classic solves (min of 3, collector off).
@@ -297,6 +302,21 @@
    (``mesh``) before the kernel line. The main path also prints the
    TOTAL lines of ``roofline_report`` and ``solve_report`` beside the
    measured ``factor_s`` and ``solve_s``.
+17. The coarse solve plan (``ladder_phase``, after step 13, on the main
+   path's factor): the groups, pair classes and cells of the factor's
+   plan and of the coarse solve plan that the solves take, with the
+   ``solve_report`` TOTAL of each; the relayout of ``Lx`` into the coarse
+   plan, its first and steady time, equal bit for bit on the card to
+   ``relayout_map``'s gather and to the main path's copy; each sweep (w2,
+   classic, inv) on the coarse plan and on the factor's own plan (which a
+   solve takes where the copy does not fit in the card's free memory;
+   here ``solve_ladder`` is held at "fine") at 1 and 64 right-hand sides:
+   its first call, its steady wall (min of 3, all six in turns), its
+   K3-K6 launches (K3 on classic, ``K3_GROUPS`` a sweep on the coarse
+   plan; none on w2 and inv), the state built from the copy or from
+   ``Lx``, residual below 1e-5 (columns 0 and 63 at 64), x within 1e-4 *
+   max|x| of the main path's w2 x. Its JSON line (``ladder``) comes
+   before the kernel line; it drops the factor plan's states at its end.
 
 Every kernel count is set to 0 just before each path and read just after.
 Any failure raises (exit code != 0). Without a CUDA device the script exits
@@ -361,6 +381,7 @@ SEG_SHARE = 8          # its budget: the one-piece estimate over this
 SEG_LX_TOL = 1e-6      # segmented Lx against the one-piece Lx (fp32)
 PX_X_TOL = 1e-4        # the reloaded factor's px solve against the w2 x
 INV_X_TOL = 1e-4       # the inv sweep's x against the w2 and classic x
+LADDER_X_TOL = 1e-4    # every sweep on each plan against the main w2 x
 BENCH_GATES = (1e-2, 1e-4)   # bench.py:122,144: residual, residual64
 QR_RANK = (6000, 2000, (5, 7))  # local_coupling_ls(6000, 2000), column 7
 #                                 made a copy of column 5 (F11)
@@ -406,7 +427,8 @@ K1_OFF_PLAN = ((5, 1, 3), (7, 96, 500), (2, 37, 101), (9, 64, 77))
 # 4-byte copies) at NR 5; RU far above 720 (a part staged in several
 # chunks, a cluster of 8 backward); no rows below (RU = 0, v is None)
 K3_OFF_PLAN = ((3, 37, 101, 5), (1, 96, 4000, 64), (8, 8, 0, 1))
-K3_GROUPS = 50     # groups of the n = 125k plan that take K3, nrhs 1 and 64
+K3_GROUPS = 15     # groups of the n = 125k coarse solve plan that take K3,
+#                    nrhs 1 and 64
 L2_FLUSH_BYTES = 64 << 20   # more than the H100's 50 MB L2 cache
 SPIN_CYCLES = 2_000_000  # about 1 ms of device spin before each timed call
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
@@ -804,10 +826,11 @@ def _k3_rows(rec, r, B, C, RU, nrs, where, dev):
                     nbytes, flops, library_ms=lib_ms)
 
 
-def solve_kernels(dp, dpf, dev, rng):
+def solve_kernels(splan, fplan, dev, rng):
     """K3 (forward, backward) and K4 against their plain versions at the
-    shapes of the model plan and the forest plan. Returns the records and
-    K4's device ms by (B, C, NR, transpose)."""
+    shapes of the model problem's and the forest's coarse solve plans
+    (``splan``, ``fplan``: the plans their solves take). Returns the
+    records and K4's device ms by (B, C, NR, transpose)."""
     import torch
 
     from suitesparse_tpu_torch.kernels.trisolve import (
@@ -815,11 +838,11 @@ def solve_kernels(dp, dpf, dev, rng):
     from suitesparse_tpu_torch.numeric.supernodal_solve import classic_route
 
     rec: dict = {}
-    groups = [g for gl in dp.plan.groups for g in gl]
+    groups = [g for gl in splan.groups for g in gl]
     taken = {nr: [g for g in groups if classic_route(
         torch.float32, g.B, g.C, g.R - g.C, nr) == "solve_step"]
         for nr in (1, NRHS)}
-    print(f"K3 groups of the model plan: {len(taken[1])} at nrhs 1, "
+    print(f"K3 groups of the model solve plan: {len(taken[1])} at nrhs 1, "
           f"{len(taken[NRHS])} at nrhs {NRHS}", flush=True)
     assert len(taken[1]) == len(taken[NRHS]) == K3_GROUPS, \
         {nr: len(g) for nr, g in taken.items()}
@@ -833,7 +856,7 @@ def solve_kernels(dp, dpf, dev, rng):
     for B, C, RU, nr in K3_OFF_PLAN:
         _k3_rows(rec, off3, B, C, RU, (nr,), "off-plan", dev)
 
-    root = [g for gl in dpf.plan.groups for g in gl
+    root = [g for gl in fplan.groups for g in gl
             if classic_route(torch.float32, g.B, g.C, g.R - g.C, 1)
             == "trisolve"]
     assert [(g.B, g.C) for g in root] == [(FOREST[0], 64)], root
@@ -882,9 +905,10 @@ def solve_kernels(dp, dpf, dev, rng):
     return rec, k4_ms
 
 
-def w2_kernels(dp, dev, rng):
+def w2_kernels(splan, dev, rng):
     """K5 and K6 against their plain versions at the four largest groups
-    (B * R * C) that the w2 kernel routes send to each in the model plan,
+    (B * R * C) that the w2 kernel routes send to each in the model
+    problem's coarse solve plan ``splan``,
     with the L2 cache flushed before every timed call. K5 also off the plan
     (``K5_OFF_PLAN``), every K5 row called twice for a bit-equal Z, its
     launch plan printed with it."""
@@ -897,7 +921,7 @@ def w2_kernels(dp, dev, rng):
     from suitesparse_tpu_torch.numeric.supernodal_solve import w2_route
 
     cfg = sstt.DEFAULT.replace(solve_pmv=True, solve_bmv=True)
-    groups = [g for gl in dp.plan.groups for g in gl]
+    groups = [g for gl in splan.groups for g in gl]
     flush = torch.empty(L2_FLUSH_BYTES // 4, device=dev)
 
     def cold():
@@ -1205,8 +1229,9 @@ def small_check(dev):
 def auto_fallback(F) -> None:
     """solve_mode="auto" on a card factor with no W2 built yet: w2 with the
     card's real free memory, classic once the free memory reported by
-    ``torch.cuda.mem_get_info`` leaves no room for W2 (the capacity gate's
-    own arithmetic, PyTorch's cached blocks included)."""
+    ``torch.cuda.mem_get_info`` leaves no room for the coarse plan's W2 and
+    the factor's copy relaid into it (the capacity gate's own arithmetic,
+    PyTorch's cached blocks included); the coarse plan either way."""
     import torch
 
     import suitesparse_tpu_torch as sstt
@@ -1216,19 +1241,23 @@ def auto_fallback(F) -> None:
     assert not dev_F._solve, "the factor already holds a solve state"
     assert supernodal_solve.solve_mode(dev_F, sstt.DEFAULT) == "w2"
     torch.cuda.empty_cache()
-    need = 2 * 4 * dev_F.dplan.plan.dev_size
+    need = supernodal_solve._w2_need(
+        supernodal_solve._coarse_plan(dev_F.S), torch.float32,
+        sstt.DEFAULT) + supernodal_solve._coarse_need(dev_F)
     cached = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
     real = torch.cuda.mem_get_info
     short = max(need - 1 - cached, 0)     # one byte short of W2's room
     torch.cuda.mem_get_info = lambda device=None: (short, real(device)[1])
     try:
         mode = supernodal_solve.solve_mode(dev_F, sstt.DEFAULT)
+        ladder = supernodal_solve.solve_ladder(dev_F)
     finally:
         torch.cuda.mem_get_info = real
-    assert cached < need and mode == "classic", (cached, need, mode)
+    assert cached < need and mode == "classic" and ladder == "coarse", \
+        (cached, need, mode, ladder)
     print(f"auto solve_mode: w2 with the card's free memory, classic with "
-          f"{short} B free and {cached} B cached (W2 needs {need} B)",
-          flush=True)
+          f"{short} B free and {cached} B cached (W2 and the copy need "
+          f"{need} B)", flush=True)
 
 
 def _counters() -> dict:
@@ -2417,7 +2446,10 @@ def inv_phase(A, F, refs: dict) -> tuple[dict, dict]:
     inv_k = inv.replace(solve_bmv=True)
     classic = cfg.replace(solve_mode="classic")
     P = F.F
-    groups = [g for gl in P.dplan.plan.groups for g in gl]
+    # the plan the solves take: the coarse solve plan
+    assert ss.solve_ladder(P) == "coarse"
+    splan = ss._coarse_entry(P.S, P.dplan)[0].plan
+    groups = [g for gl in splan.groups for g in gl]
     k6 = {nr: [g for g in groups if ss.inv_route(g.B, g.C, g.R - g.C, nr,
                                                    inv_k) == "bmv"]
           for nr in refs}
@@ -2496,7 +2528,7 @@ def inv_phase(A, F, refs: dict) -> tuple[dict, dict]:
         flush.zero_()
         return ()
 
-    where = {id(g): (d, gi) for d, gl in enumerate(P.dplan.plan.groups)
+    where = {id(g): (d, gi) for d, gl in enumerate(splan.groups)
              for gi, g in enumerate(gl)}
     gW = max(k6[1], key=lambda g: g.B * g.C * g.C)
     gL = max((g for g in k6[1] if g.R > g.C),
@@ -2552,6 +2584,151 @@ def inv_phase(A, F, refs: dict) -> tuple[dict, dict]:
         if key[0] == "inv":
             del P._solve[key]
     return out, rec
+
+
+def _turns_s(fns: dict, reps: int = 3) -> dict:
+    """{name: minimum seconds of reps calls of fns[name]} (CUDA events,
+    collector off), the calls taken in turns, one of each a round, after
+    one warm call each."""
+    import torch
+
+    for fn in fns.values():
+        fn()
+    best = {k: float("inf") for k in fns}
+    gc.disable()
+    try:
+        for _ in range(reps):
+            for k, fn in fns.items():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                torch.cuda.synchronize()
+                best[k] = min(best[k], start.elapsed_time(end) / 1e3)
+    finally:
+        gc.enable()
+    return best
+
+
+def _plan_stats(plan) -> dict:
+    groups = [g for gl in plan.groups for g in gl]
+    return {"groups": len(groups), "classes": sum(len(g.pairs)
+                                                  for g in groups),
+            "cells": plan.dev_size}
+
+
+def ladder_phase(A, S, F, refs: dict) -> dict:
+    """The coarse solve plan (module docstring, item 17) on the main path's
+    factor ``F`` of the model problem: the plans' sizes, the relayout of
+    ``Lx`` (first and steady, bit-equal on the card to ``relayout_map``'s
+    gather), and every sweep (w2, classic, inv) on the coarse plan and on
+    the factor's own at 1 and 64 right-hand sides (``refs``: {nrhs: (b,
+    the main path's w2 x)}). Returns the phase's numbers; every gate
+    raises."""
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.numeric import supernodal_solve as ss
+
+    dev = torch.device("cuda", 0)
+    cfg = sstt.DEFAULT.replace(ordering=sstt.Ordering.METIS)
+    P = F.F
+    out: dict = {"card": _card()}
+    t_phase = time.perf_counter()
+    assert ss.solve_ladder(P) == "coarse"
+    dpc, relayout = ss._coarse_entry(S, P.dplan)
+    plans = {"fine": P.dplan.plan, "coarse": dpc.plan}
+    out["plans"] = {k: _plan_stats(p) for k, p in plans.items()}
+    for k in plans:
+        # the two sweeps' bound at nrhs 1 (steps, panel MB, rhs MB, MFLOP,
+        # bound_ms)
+        out["plans"][k]["solve_report"] = ss.solve_report(
+            S, 1, 4, k).splitlines()[-1]
+    print(f"solve plans on {out['card']}: {out['plans']}", flush=True)
+
+    # the relayout of Lx, bit-equal to the reference's map on the card and
+    # to the main path's copy
+    t0 = time.perf_counter()
+    lx2 = relayout(P.Lx)
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    m = torch.as_tensor(ss.relayout_map(S, P.dplan.plan, dpc.plan),
+                        device=dev).long()
+    same = torch.equal(lx2, torch.cat([P.Lx, P.Lx.new_zeros(1)])[m])
+    del m
+    assert same, "the relayout differs from relayout_map"
+    assert torch.equal(lx2, P._solve[("relayout",)][2])
+    out["relayout"] = {
+        "first_s": first, "steady_s": _best_s(lambda: relayout(P.Lx)),
+        "bytes": lx2.numel() * lx2.element_size(), "equals_map": same}
+    del lx2
+    print(f"relayout: {out['relayout']}", flush=True)
+
+    real = ss.solve_ladder
+
+    def on_fine(call):
+        """``call()`` with the solves held on the factor's own plan."""
+        ss.solve_ladder = lambda _F: "fine"
+        try:
+            return call()
+        finally:
+            ss.solve_ladder = real
+
+    modes = {"w2": "auto", "classic": "classic", "inv": "inv"}
+    kern3_6 = ("solve_step_fwd", "solve_step_bwd", "batched_trisolve",
+               "pmatvec_t", "bmatvec", "bmatvec_t")
+    sweeps: dict = {}
+    for nr, (rhs, x_ref) in refs.items():
+        calls = {}
+        for sw, mode in modes.items():
+            c = cfg.replace(solve_mode=mode)
+            calls[f"{sw}_coarse_{nr}"] = \
+                lambda c=c, rhs=rhs: sstt.solve(F, rhs, c)
+            calls[f"{sw}_fine_{nr}"] = \
+                lambda c=c, rhs=rhs: on_fine(lambda: sstt.solve(F, rhs, c))
+        for key, call in calls.items():
+            sw, lad = key.split("_")[:2]
+            zero_counts()
+            t0 = time.perf_counter()
+            x = call()
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            got = counts()
+            k = {name: got[name] for name in kern3_6}
+            assert sum(got.values()) == sum(k.values()), got
+            if sw == "classic":
+                assert k["solve_step_fwd"] == k["solve_step_bwd"] > 0, k
+                assert lad == "fine" or k["solve_step_fwd"] == K3_GROUPS, k
+            else:
+                assert sum(k.values()) == 0, (key, k)
+            # the sweep's state, built from the panels of its plan
+            skey = {"w2": ("w2", torch.float32),
+                    "classic": ("classic", torch.float32),
+                    "inv": ss._inv_key(torch.float32, cfg)}[sw]
+            src = P._solve[("relayout",)][2] if lad == "coarse" else P.Lx
+            skey = skey if lad == "coarse" else skey + ("fine",)
+            assert P._solve[skey][0] is src, key
+            cols = [(x, rhs)] if nr == 1 else \
+                [(x[:, j], rhs[:, j]) for j in (0, nr - 1)]
+            resid = max(sstt.residual_norm(A, xc, bc) for xc, bc in cols)
+            dx = np.abs(x - x_ref).max() / np.abs(x_ref).max()
+            assert np.isfinite(x).all() and resid < RESID_TOL and \
+                dx <= LADDER_X_TOL, (key, resid, dx)
+            sweeps[key] = {"first_s": first, "residual": resid,
+                           "vs_main_w2": dx, "launches": k}
+        for key, sec in _turns_s(calls).items():
+            sweeps[key]["steady_s"] = sec
+    out["sweeps"] = sweeps
+    for key, v in sweeps.items():
+        print(f"solve plan sweep {key}: steady {v['steady_s']:.4f} s, first "
+              f"{v['first_s']:.4f} s, residual {v['residual']:.3e}, x vs "
+              f"main w2 {v['vs_main_w2']:.3e}, K3-K6 {v['launches']}",
+              flush=True)
+    for key in [k for k in P._solve if k[-1] == "fine"]:
+        del P._solve[key]
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
 
 
 def mflu_sym_phase() -> dict:
@@ -3450,10 +3627,19 @@ def main() -> int:
           f"fl={Sf.fl:.4g} groups={sum(len(gl) for gl in dpf.plan.groups)} "
           f"analyze_and_plan_s={time.perf_counter() - t0:.2f}", flush=True)
 
+    # the plans the solves take: the coarse solve plans
+    t0 = time.perf_counter()
+    splan = supernodal_solve._coarse_plan(S)
+    splan_s = time.perf_counter() - t0
+    fplan = supernodal_solve._coarse_plan(Sf)
+    print(f"coarse solve plan: groups={sum(len(gl) for gl in splan.groups)} "
+          f"cells={splan.dev_size} plan_s={splan_s:.2f}; forest groups="
+          f"{sum(len(gl) for gl in fplan.groups)}", flush=True)
+
     rng = np.random.default_rng(SEED)
     k1, k2, k2b = factor_kernels(dp, dpp, dev, rng)
-    ks, k4_ms = solve_kernels(dp, dpf, dev, rng)
-    kw = w2_kernels(dp, dev, rng)
+    ks, k4_ms = solve_kernels(splan, fplan, dev, rng)
+    kw = w2_kernels(splan, dev, rng)
     k7 = extend_add_kernel(dp, dev, rng)
     small_check(dev)
     # pair classes of the plan, and those no tile manifest folds: the fp32
@@ -3494,6 +3680,8 @@ def main() -> int:
     assert x.shape == (n,) and x64.shape == (n, NRHS)
     assert np.isfinite(x).all() and np.isfinite(x64).all()
     assert resid < RESID_TOL and resid64 < RESID_TOL, (resid, resid64)
+    assert supernodal_solve.solve_ladder(F.F) == "coarse" and \
+        F.F.dplan.coarse[0].plan is splan, "the solve left the coarse plan"
 
     # ---- classic sweep on the same factor ----
     zero_counts()
@@ -3645,9 +3833,10 @@ def main() -> int:
     print(f"roofline of the model factor ({roof[0]}; MFLOP, MB, flop/byte, "
           f"bound_ms): {roof[-1]}; measured factor_s {factor_s:.4f} s",
           flush=True)
-    print(f"solve bound (steps, panel MB, rhs MB, MFLOP, bound_ms): "
-          f"{supernodal_solve.solve_report(S).splitlines()[-1]}; measured "
-          f"solve_s {solve_s:.4f} s", flush=True)
+    srep = supernodal_solve.solve_report(S, ladder="coarse")
+    print(f"solve bound on the coarse solve plan (steps, panel MB, rhs MB, "
+          f"MFLOP, bound_ms): {srep.splitlines()[-1]}; measured solve_s "
+          f"{solve_s:.4f} s", flush=True)
 
     # ---- bfloat16 child updates on the same problem ----
     t0 = time.perf_counter()
@@ -3664,6 +3853,11 @@ def main() -> int:
     inv, k6inv = inv_phase(A, F, {1: (b, x, xc), NRHS_K: (
         B8, x8, sstt.solve(F, B8, classic))})
     inv_phase_s = time.perf_counter() - t0
+    # ---- the coarse solve plan against the factor's own, every sweep ----
+    t0 = time.perf_counter()
+    ladder = ladder_phase(A, S, F, {1: (b, x), NRHS: (B64, x64)})
+    ladder_phase_s = time.perf_counter() - t0
+    print(f"ladder_phase {ladder_phase_s:.2f} s", flush=True)
     # ---- multifrontal QR through qrsol ----
     t0 = time.perf_counter()
     qr = qr_phase()
@@ -3706,7 +3900,7 @@ def main() -> int:
         "solve64_s": solve64_s, "classic_solve_s": classic_solve_s,
         "classic_solve64_s": classic_solve64_s,
         # panel bytes the two classic sweeps must read at least
-        "classic_floor_s": 2 * 4 * dp.plan.dev_size / HBM_BYTES_S,
+        "classic_floor_s": 2 * 4 * splan.dev_size / HBM_BYTES_S,
         "residual": resid, "residual64": resid64,
         "classic_residual": cresid, "classic_residual64": cresid64,
         "classic_vs_w2": max(dx, dx64), "refined_residual": rresid,
@@ -3757,6 +3951,8 @@ def main() -> int:
     print(json.dumps({"dist": dist, "dist_phase_s": dist_phase_s},
                      default=str), flush=True)
     print(json.dumps({"mesh": mesh, "mesh_phase_s": mesh_phase_s},
+                     default=str), flush=True)
+    print(json.dumps({"ladder": ladder, "ladder_phase_s": ladder_phase_s},
                      default=str), flush=True)
     print(json.dumps({"inv": inv, "inv_phase_s": inv_phase_s,
                       "mflu_sym": mflu_sym,

@@ -101,12 +101,15 @@ class Config:
     #             L21 L11^-1], one batched matmul per group and sweep, one
     #             extra factor-sized copy built at the first solve) where W2
     #             fits in the device memory, else the classic sweep;
-    #   "classic" triangular solves on the factor's own panels (K3 solve_step
-    #             and K4 trisolve kernels), no extra copy;
+    #   "classic" triangular solves on the factor's panels (K3 solve_step
+    #             and K4 trisolve kernels), no inverse panels;
     #   "inv"     inverse panels without W2: W = L11^-1 a group (a C x C
     #             copy, built at the first solve), each step two batched
     #             matvecs (W, then the factor's L21), with K6 under
     #             solve_bmv. "auto" does not take it (ROADMAP item 4).
+    #   Every mode runs on the coarse solve plan, over a copy of the factor
+    #   relaid into it, where that copy fits in the device memory, else on
+    #   the factor's own plan (numeric/supernodal_solve.solve_ladder).
     solve_mode: str = "auto"
     # opt-in kernel routes, the counterparts of the reference's
     # SSTPU_TILE_PAIR, SSTPU_SOLVE_PMV and SSTPU_SOLVE_BMV (all default off):

@@ -374,7 +374,8 @@ def _find_minor(S, plan, Lxdev) -> int:
 
 def build_plan(S: SupernodalSymbolic, C_low: CSC,
                tile_rmin: int = TILE_RMIN, tile_pair: bool = False,
-               split_mask: np.ndarray | None = None) -> Plan:
+               split_mask: np.ndarray | None = None,
+               ladders: tuple | None = None) -> Plan:
     """The device plan, with tile manifests attached explicitly.
 
     Groups with ``R >= tile_rmin`` get the manifest that folds every pair
@@ -384,7 +385,12 @@ def build_plan(S: SupernodalSymbolic, C_low: CSC,
     puts supernodes of different values into different groups, as the
     reference's: the distributed planner keeps the separator crown (and,
     on a (host, chip) topology, the host-local MID supernodes) out of the
-    subtree groups (:mod:`..parallel.schedule`)."""
+    subtree groups (:mod:`..parallel.schedule`). ``ladders`` ((R rungs, C
+    rungs); default the factor's ``_R_LADDER`` and ``_C_LADDER``) buckets
+    the supernodes: the coarse solve plan's pow4 rungs, or the reference's
+    other ladders (the panels are tightened to each group's maxima either
+    way)."""
+    R_lad, C_lad = (_R_LADDER, _C_LADDER) if ladders is None else ladders
     level_layouts = []
     place = {}
     panel_off = 0
@@ -392,8 +398,8 @@ def build_plan(S: SupernodalSymbolic, C_low: CSC,
         buckets: dict = {}
         for s in level_nodes:
             nr, nc = S.nrows(s), S.ncols(s)
-            key = (_pad_to(nr - nc, _R_LADDER) + _pad_to(nc, _C_LADDER),
-                   _pad_to(nc, _C_LADDER),
+            key = (_pad_to(nr - nc, R_lad) + _pad_to(nc, C_lad),
+                   _pad_to(nc, C_lad),
                    int(split_mask[s]) if split_mask is not None else 0)
             buckets.setdefault(key, []).append(int(s))
         placed = []
@@ -455,6 +461,9 @@ class DevicePlan:
     schedule: tuple | None = None   # (key, segments) of the last segmented
     #                                 factor (numeric/segmented.py)
     solve: object = None         # solve routing, built at the first solve
+    coarse: tuple | None = None  # (the coarse solve plan's DevicePlan, the
+    #                              relayout of this plan's Lx into it),
+    #                              built at the first solve that takes it
 
 
 def k7_classes(g: GroupPlan, skip=()) -> list:

@@ -2,9 +2,10 @@
 
 Port of :mod:`suitesparse_tpu.numeric.supernodal_solve`: the solve plan
 (per group, the panel offset and the rhs rows of its columns), the
-child -> parent routing and the two sweeps of ``_mf_solve_fn``. Both
-sweeps walk the factor plan's groups leaves -> root (forward) and back
-(backward); per group and sweep:
+child -> parent routing and the two sweeps of ``_mf_solve_fn`` (and
+``_mf2_solve_fn``). Both sweeps walk the plan's groups (the coarse solve
+plan's, below) leaves -> root (forward) and back (backward); per group
+and sweep:
 
 * ``w2`` (the reference's default on its accelerator): once per factor,
   every group gets the stacked panel W2 = [W ; L21 W] with W = L11^-1
@@ -30,16 +31,25 @@ sweeps walk the factor plan's groups leaves -> root (forward) and back
   fp32) or ``torch.linalg.solve_triangular``, then a batched matmul
   applies L21 (forward v = wb + L21 xc, backward y - L21^T xb).
 
-Contributions move child -> parent along the factor plan's pair classes
-in class-sorted pass-up buffers, after the reference's ``_sorted_route``
-(its default at nrhs <= 8; the port takes it at every nrhs): forward, one
-``index_select`` a child group lays its pass-up vectors out in
-consuming-class order, and each class adds a contiguous slice of them (a
-view, no launch) into the parent's vector with ``index_add_``; backward,
-each class gathers its rows of the parent's x straight into its slice of
-the child group's slab, and one ``index_select`` a child group brings the
-slab back to batch order (slots no class feeds read the slab's zero pad
-row).
+In the w2 and inv sweeps, contributions move child -> parent along the
+plan's pair classes in class-sorted pass-up buffers, after the
+reference's ``_sorted_route`` (its default at nrhs <= 8; the port takes
+it at every nrhs): forward, one ``index_select`` a child group lays its
+pass-up vectors out in consuming-class order, and each class adds a
+contiguous slice of them (a view, no launch) into the parent's vector
+with ``index_add_``; backward, each class gathers its rows of the
+parent's x straight into its slice of the child group's slab, and one
+``index_select`` a child group brings the slab back to batch order
+(slots no class feeds read the slab's zero pad row).
+
+The classic sweep routes a level at a time, after the reference's mf2
+sweep (``SSTPU_SOLVE_MF2``, ``build_mf2_plan``): forward, the pass-up
+vectors of every group live in one heap, each level writing its groups'
+vectors by one slice copy, and each parent group takes its children's
+rows by one gather from the heap and one ``index_add_`` into its vector
+(the reference's one-hot placement matmul); backward, the solved x of
+every group lives in a second heap, and each group gathers its below
+rows from it once. No op is issued per pair class.
 
 A factor in the CHOLMOD px layout (``TorchPxFactor``, one that
 ``serialize.load_factor`` put on the device) takes the px sweep, the
@@ -51,10 +61,20 @@ group forward ``xc = L11^-1 y[cols]``, ``y[below] -= L21 xc``
 backward ``xc = L11^-T (y[cols] - L21^T y[below])``; the triangles by K4
 under the reference's gate, else ``solve_triangular``.
 
+The sweeps run on the coarse solve plan (the reference's
+``SSTPU_SOLVE_COARSE`` with its pow4 rungs): the supernodes re-bucketed
+on pow4 rungs, about a quarter of the factor plan's groups and pair
+classes for about 1.3x its cells, over a copy of ``Lx`` relaid into it
+(``relayout_fn``: per pair of factor and solve group one gather of the
+slots and the row moves of the gapped panels; no map the size of the
+factor goes to the device). The copy is built at the first solve and
+kept on the factor, tied to its ``Lx`` and its device plan. Where it
+does not fit in the card's free memory (the reference's
+``SSTPU_COARSE_MAX_CELLS`` gate), the sweeps run on the factor's own
+plan (:func:`solve_ladder` says which plan a solve takes).
+
 ``solve_dispatch`` returns the sweep as a callable and its device
 arguments, every cache filled, as the reference's does.
-
-The reference's coarse plans are not ported (see ROADMAP).
 """
 
 from __future__ import annotations
@@ -70,21 +90,31 @@ from ..kernels.bmatvec import bmatvec, bmv_fits
 from ..kernels.pmatvec import pmatvec_t
 from ..kernels.solve_step import solve_step_bwd, solve_step_fwd, step_fits
 from ..kernels.trisolve import batched_trisolve, trisolve_fits
+from ..sparse import CSC
 from ..symbolic.supernodes import SupernodalSymbolic
 from .supernodal import TorchPxFactor
 from .supernodal_device import (_C_LADDER, _R_LADDER, DevicePlan, _bound_ms,
                                 _cached_plan, _pad_to, _ranges,
-                                _use_potrf_kernel, compute_dtype)
+                                _use_potrf_kernel, build_plan, compute_dtype)
 
-__all__ = ["BMV_MIN_BATCH", "PMV_MIN_CELLS", "PxPlan", "SolvePlan",
-           "build_px_plan", "build_solve_plan", "build_w2", "build_winv",
-           "classic_route", "inv_route", "px_panels", "px_plan", "px_route",
-           "solve_device", "solve_dispatch", "solve_mode", "solve_px",
-           "solve_report", "w2_route"]
+__all__ = ["BMV_MIN_BATCH", "MF2Plan", "PMV_MIN_CELLS", "PxPlan",
+           "SolvePlan", "build_mf2_plan", "build_px_plan",
+           "build_solve_plan", "build_w2", "build_winv", "classic_route",
+           "inv_route", "px_panels", "px_plan", "px_route", "relayout_fn",
+           "relayout_map", "solve_device", "solve_dispatch", "solve_ladder",
+           "solve_mode", "solve_px", "solve_report", "w2_route"]
 
 # the reference's defaults of SSTPU_PMV_MIN_CELLS and SSTPU_BMV_BMIN
 PMV_MIN_CELLS = 1 << 20   # K5 takes a group of at least this many cells
 BMV_MIN_BATCH = 32        # K6 takes a group of at least this batch
+
+# pow4 rungs of the coarse solve plan (the reference's _SOLVE_R_LADDER and
+# _SOLVE_C_LADDER): far fewer sequential group steps than the factor's
+# plan, for more padded panel cells
+_SOLVE_R_LADDER = [16, 64, 256, 1024, 4096, 8192]
+_SOLVE_C_LADDER = [16, 64, 256, 512]
+_NO_TILES = 1 << 40       # tile_rmin no group reaches: a solve plan has no
+#                           tile manifest
 
 
 @dataclasses.dataclass
@@ -136,6 +166,192 @@ def _mf_xmap(S: SupernodalSymbolic, plan) -> np.ndarray:
     return xmap
 
 
+def _plans(S: SupernodalSymbolic) -> dict:
+    """``S._solve_plans``: the solve plans built for ``S`` (the px plan,
+    the coarse solve plan), as the reference caches them."""
+    plans = getattr(S, "_solve_plans", None)
+    if plans is None:
+        plans = {}
+        S._solve_plans = plans
+    return plans
+
+
+def _coarse_plan(S: SupernodalSymbolic):
+    """The coarse solve plan of ``S`` (pow4 rungs), built once and cached
+    on ``S._solve_plans["coarse"]``: the factor's ``build_plan`` on other
+    rungs, without tile manifests and from an empty pattern (a solve reads
+    no entry of A, so its groups, panels and pair classes are the plan's
+    and its A scatter is empty)."""
+    plans = _plans(S)
+    if "coarse" not in plans:
+        n = S.n
+        empty = CSC(n, n, np.zeros(n + 1, dtype=np.int64),
+                    np.empty(0, dtype=np.int64), np.empty(0), 1)
+        plans["coarse"] = build_plan(
+            S, empty, tile_rmin=_NO_TILES,
+            ladders=(_SOLVE_R_LADDER, _SOLVE_C_LADDER))
+    return plans["coarse"]
+
+
+def _snode_panels(S: SupernodalSymbolic, plan):
+    """Per-supernode (flat panel base, R, C) for a device plan."""
+    base = np.zeros(S.nsuper, dtype=np.int64)
+    Rs = np.zeros(S.nsuper, dtype=np.int64)
+    Cs = np.zeros(S.nsuper, dtype=np.int64)
+    for gl in plan.groups:
+        for g in gl:
+            for b, s in enumerate(g.snodes):
+                base[s] = g.panel_base + b * g.R * g.C
+                Rs[s] = g.R
+                Cs[s] = g.C
+    return base, Rs, Cs
+
+
+def relayout_map(S: SupernodalSymbolic, plan1, plan2) -> np.ndarray:
+    """int32 gather map: Lx2[i] = Lx1[map[i]] (sentinel plan1.dev_size for
+    plan2 padding, which the padded source resolves to 0).
+
+    Device panels are GAPPED row-major (R, C): supernode s's pivot rows sit
+    at panel rows [0, nc) and its below rows at [C, C + nr - nc) — the gap
+    [nc, C) is the dead-pivot padding region, which must stay zero. The
+    reference's map, the oracle of :func:`relayout_fn`."""
+    b1, R1, C1 = _snode_panels(S, plan1)
+    b2, R2, C2 = _snode_panels(S, plan2)
+    m = np.full(plan2.dev_size, plan1.dev_size, dtype=np.int64)
+    for s in range(S.nsuper):
+        nr = len(S.rows[s])
+        nc = int(S.super_first[s + 1] - S.super_first[s])
+        r1 = np.concatenate([np.arange(nc), C1[s] + np.arange(nr - nc)])
+        r2 = np.concatenate([np.arange(nc), C2[s] + np.arange(nr - nc)])
+        c = np.arange(nc, dtype=np.int64)[None, :]
+        src = b1[s] + r1[:, None] * C1[s] + c
+        dst = b2[s] + r2[:, None] * C2[s] + c
+        m[dst.ravel()] = src.ravel()
+    assert m.max() <= np.iinfo(np.int32).max
+    return m.astype(np.int32)
+
+
+def relayout_fn(S: SupernodalSymbolic, plan1, plan2):
+    """``fn(Lx1) -> Lx2``: a factor in ``plan1``'s layout relaid into
+    ``plan2``'s on ``Lx1``'s device, equal to :func:`relayout_map`'s
+    gather (zero on every padded cell of ``plan2``).
+
+    Each supernode keeps its gapped panel: its pivot rows at [0, nc), its
+    below rows from C on. So for each (``plan1`` group g1, ``plan2`` group
+    g2) whose supernodes meet, the move is shape-static: one gather of
+    the slots out of g1's panels, then rows [0, min(C1, C2)) land at the
+    top of g2's slots and rows [C1, C1 + min(RU1, RU2)) at [C2, ...),
+    columns [0, min(C1, C2)), each by one ``index_put_`` (what is cut
+    off is padding: nc <= min(C1, C2) and nr - nc <= min(RU1, RU2)).
+    Only the slot vectors cross to the device, once a device."""
+    g1s = [g for gl in plan1.groups for g in gl]
+    gid = np.zeros(S.nsuper, dtype=np.int64)
+    slot = np.zeros(S.nsuper, dtype=np.int64)
+    for k, g in enumerate(g1s):
+        gid[g.snodes] = k
+        slot[g.snodes] = np.arange(g.B)
+    moves = []
+    for gl in plan2.groups:
+        for g2 in gl:
+            k1 = gid[g2.snodes]
+            for k in np.unique(k1):
+                dst = np.flatnonzero(k1 == k)
+                moves.append((g1s[k], g2, slot[g2.snodes[dst]], dst))
+    on_device: dict = {}
+
+    def fn(lx: torch.Tensor) -> torch.Tensor:
+        dev = lx.device
+        if str(dev) not in on_device:
+            on_device[str(dev)] = [
+                (g1, g2, torch.as_tensor(src, device=dev),
+                 torch.as_tensor(dst, device=dev))
+                for g1, g2, src, dst in moves]
+        out = lx.new_zeros(plan2.dev_size)
+        for g1, g2, src, dst in on_device[str(dev)]:
+            P = lx[g1.panel_base:g1.panel_base + g1.B * g1.R * g1.C].view(
+                g1.B, g1.R, g1.C)[src]
+            Q = out[g2.panel_base:g2.panel_base + g2.B * g2.R * g2.C].view(
+                g2.B, g2.R, g2.C)
+            c = min(g1.C, g2.C)
+            nb = min(g1.R - g1.C, g2.R - g2.C)
+            Q[dst, :c, :c] = P[:, :c, :c]
+            if nb > 0:
+                Q[dst, g2.C:g2.C + nb, :c] = P[:, g1.C:g1.C + nb, :c]
+        return out
+
+    return fn
+
+
+def _coarse_entry(S: SupernodalSymbolic, dp: DevicePlan):
+    """(the coarse solve plan's :class:`DevicePlan` on ``dp``'s device,
+    the relayout of ``dp``'s layout into it), built once per (factor
+    plan, coarse plan) and cached on ``dp.coarse``."""
+    if dp.coarse is None:
+        plan2 = _coarse_plan(S)
+        dp.coarse = (DevicePlan(plan=plan2, device=dp.device, groups=None),
+                     relayout_fn(S, dp.plan, plan2))
+    return dp.coarse
+
+
+def _coarse_copy(F):
+    """The relayouted copy of ``F.Lx`` if it is built for this ``Lx`` and
+    this device plan, else None."""
+    c = F._solve.get(("relayout",))
+    if c is not None and c[0] is F.Lx and c[1] is F.dplan:
+        return c[2]
+    return None
+
+
+def _coarse_lx(F) -> torch.Tensor:
+    """``F.Lx`` relaid into the coarse solve plan, built once and kept on
+    ``F._solve[("relayout",)]``, tied to ``F.Lx`` and to ``F.dplan``: a
+    new factor, or a factor whose device plan was swapped, rebuilds it
+    (the reference's ``test_coarse_solve_after_distributed_swap``)."""
+    lx2 = _coarse_copy(F)
+    if lx2 is None:
+        F._solve.pop(("relayout",), None)     # let the old copy go
+        lx2 = _coarse_entry(F.S, F.dplan)[1](F.Lx)
+        F._solve[("relayout",)] = (F.Lx, F.dplan, lx2)
+    return lx2
+
+
+def _free_bytes(dev: torch.device) -> int:
+    """The card's free memory, PyTorch's cached free blocks included."""
+    free, _total = torch.cuda.mem_get_info(dev)
+    return free + torch.cuda.memory_reserved(dev) \
+        - torch.cuda.memory_allocated(dev)
+
+
+def _coarse_need(F) -> int:
+    """Bytes the relayouted copy of ``F.Lx`` still asks of the device
+    (0 where it is built)."""
+    if _coarse_copy(F) is not None:
+        return 0
+    return _coarse_plan(F.S).dev_size * F.Lx.element_size()
+
+
+def solve_ladder(F) -> str:
+    """The plan the multifrontal sweeps of the device factor ``F`` take:
+    ``"coarse"`` (the coarse solve plan, over the relayouted copy of
+    ``Lx``) where that copy is built or fits in the card's free memory
+    (the reference's ``SSTPU_COARSE_MAX_CELLS`` gate on the card's memory,
+    as :func:`_w2_fits`; a CPU factor always fits), else ``"fine"`` (the
+    factor's own plan)."""
+    dev = F.Lx.device
+    if dev.type != "cuda" or _coarse_need(F) <= _free_bytes(dev):
+        return "coarse"
+    return "fine"
+
+
+def _solve_target(F, ladder: str):
+    """(the :class:`DevicePlan` the sweep walks, the panels it reads) of
+    ``F`` on ``ladder``: the coarse plan's and the relayouted copy, or
+    the factor's own."""
+    if ladder == "fine":
+        return F.dplan, F.Lx
+    return _coarse_entry(F.S, F.dplan)[0], _coarse_lx(F)
+
+
 @dataclasses.dataclass
 class SolveRouting:
     """Index tensors of the multifrontal solve, on the plan's device."""
@@ -147,6 +363,8 @@ class SolveRouting:
     classes: list
     xmap: torch.Tensor   # (n,) row of the concatenated xc holding column j
     sorted: dict         # child key -> (cat, inv, ncat), :func:`_sorted_route`
+    heap: object = None  # the classic sweep's level routing
+    #                      (:class:`MF2Routing`), built at its first solve
 
 
 def _sorted_route(plan) -> tuple[dict, dict]:
@@ -514,6 +732,206 @@ def _mf_solve_fn(dp: DevicePlan, rt: SolveRouting, pb: torch.Tensor,
                       for gi in range(len(plan.groups[d]))])
 
 
+@dataclasses.dataclass
+class MF2Plan:
+    """Per-level fused contribution routing of the reference's mf2 sweep,
+    which the classic sweep takes (a copy).
+
+    Forward: child pass-up vectors live in one global V-heap (rows =
+    concatenated per-group (B*RU) blocks, schedule order, plus a zero dump
+    row); each parent group reads its children's rows with one gather.
+
+    Backward: solved x values live in an x-heap (concatenated per-group
+    (B*C) blocks — exactly the ``_mf_xmap`` layout); each group PULLS its
+    below-row values with one static gather (below rows are columns of
+    ancestors, already solved when the backward sweep reaches the group)."""
+
+    vbase: dict          # (d, gi) -> row base of the group's V block
+    vrows: int           # total V-heap rows (excl. dump)
+    lv_vbase: list       # level -> base row of the level's first group
+    xbase: dict          # (d, gi) -> row base of the group's xc block
+    xrows: int
+    lv_xbase: list
+    # per level, per group: (NP, RUmax) src rows into the V-heap, (NP,
+    # RUmax) front coords (pad -1), (NP,) dst slots, or None
+    lv_route: list
+    # per group: (B*RU,) x-heap positions of its below rows (pad -> dump)
+    xpos: dict
+
+
+def build_mf2_plan(S: SupernodalSymbolic, plan) -> MF2Plan:
+    """The :class:`MF2Plan` of the factor plan ``plan`` (the reference's
+    ``build_mf2_plan``, a copy)."""
+    vbase, xbase = {}, {}
+    lv_vbase, lv_xbase = [], []
+    voff = xoff = 0
+    for d, glist in enumerate(plan.groups):
+        lv_vbase.append(voff)
+        lv_xbase.append(xoff)
+        for gi, g in enumerate(glist):
+            vbase[(d, gi)] = voff
+            xbase[(d, gi)] = xoff
+            voff += g.B * max(g.R - g.C, 0)
+            xoff += g.B * g.C
+    vrows, xrows = voff, xoff
+
+    # column -> x-heap position (for below-row pulls)
+    colpos = np.empty(S.n, dtype=np.int64)
+    for d, glist in enumerate(plan.groups):
+        for gi, g in enumerate(glist):
+            for b, s in enumerate(g.snodes):
+                f = int(S.super_first[s])
+                nc = int(S.super_first[s + 1]) - f
+                colpos[f:f + nc] = xbase[(d, gi)] + b * g.C + np.arange(nc)
+
+    lv_route = []
+    xpos = {}
+    for d, glist in enumerate(plan.groups):
+        # forward routing: one route per parent group, padded to the
+        # group's own max child RU
+        routes = []
+        for gi, g in enumerate(glist):
+            srcs, coords, dsts = [], [], []
+            RUmax = 1
+            for pc, (src, dst, idx) in zip(g.pairs, g._pair_arrays):
+                cb = vbase[(pc.src_level, pc.src_gi)]
+                RU_c = pc.RU_c
+                RUmax = max(RUmax, RU_c)
+                # V-heap rows of each pair's child block
+                rows = (cb + src.astype(np.int64)[:, None] * RU_c
+                        + np.arange(RU_c)[None, :])
+                rows = np.where(idx >= 0, rows, vrows)   # pad -> dump row
+                srcs.append(rows)
+                coords.append(idx)
+                dsts.append(dst.astype(np.int64))
+            if not srcs:
+                routes.append(None)
+                continue
+            NP = sum(a.shape[0] for a in srcs)
+            sr = np.full((NP, RUmax), vrows, dtype=np.int64)
+            co = np.full((NP, RUmax), -1, dtype=np.int32)
+            k = 0
+            for a, c in zip(srcs, coords):
+                sr[k:k + a.shape[0], :a.shape[1]] = a
+                co[k:k + a.shape[0], :c.shape[1]] = c
+                k += a.shape[0]
+            ds = np.concatenate(dsts)
+            order = np.argsort(ds, kind="stable")
+            routes.append((sr[order], co[order],
+                           ds[order].astype(np.int32)))
+        lv_route.append(routes)
+        # backward pulls
+        for gi, g in enumerate(glist):
+            RU = g.R - g.C
+            if RU <= 0:
+                continue
+            pos = np.full(g.B * RU, xrows, dtype=np.int64)
+            for b, s in enumerate(g.snodes):
+                nc = S.ncols(int(s))
+                below = S.rows[s][nc:]
+                pos[b * RU:b * RU + below.size] = colpos[below]
+            xpos[(d, gi)] = pos
+    return MF2Plan(vbase=vbase, vrows=vrows, lv_vbase=lv_vbase,
+                   xbase=xbase, xrows=xrows, lv_xbase=lv_xbase,
+                   lv_route=lv_route, xpos=xpos)
+
+
+@dataclasses.dataclass
+class MF2Routing:
+    """The classic sweep's level routing (:class:`MF2Plan`) as index
+    tensors on the plan's device."""
+
+    nv: int              # rows of the V-heap (MF2Plan.vrows)
+    nx: int              # rows of the x-heap (MF2Plan.xrows)
+    # fwd[d][gi]: (V-heap rows, rows of the parent's (B*R) vector) of every
+    # real child row that group (d, gi) takes in, or None
+    fwd: list
+    xpos: list           # xpos[d][gi]: x-heap rows of its below rows, or None
+    vlevel: list         # vlevel[d]: (first, end) heap rows of level d's V
+    xlevel: list         # xlevel[d]: (first, end) heap rows of level d's x
+
+
+def _heap_routing(S, dp: DevicePlan, rt: SolveRouting) -> MF2Routing:
+    """Built once per device plan (``rt.heap``, beside the plan's other
+    routing ``rt``): :func:`build_mf2_plan`, each route's padded entries
+    (front coordinate -1) dropped and the rest flattened to (heap row,
+    parent row) pairs."""
+    if rt.heap is None:
+        plan, dev = dp.plan, dp.device
+        m2 = build_mf2_plan(S, plan)
+
+        def t64(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+
+        fwd, xpos, vlevel, xlevel = [], [], [], []
+        for d, glist in enumerate(plan.groups):
+            row = []
+            for gi, g in enumerate(glist):
+                route = m2.lv_route[d][gi]
+                if route is None:
+                    row.append(None)
+                    continue
+                sr, co, ds = route
+                live = co >= 0
+                dst = ds.astype(np.int64)[:, None] * g.R + co
+                row.append((t64(sr[live]), t64(dst[live])))
+            fwd.append(row)
+            xpos.append([t64(m2.xpos[(d, gi)]) if (d, gi) in m2.xpos
+                         else None for gi in range(len(glist))])
+            vend = sum(g.B * max(g.R - g.C, 0) for g in glist)
+            xend = sum(g.B * g.C for g in glist)
+            vlevel.append((m2.lv_vbase[d], m2.lv_vbase[d] + vend))
+            xlevel.append((m2.lv_xbase[d], m2.lv_xbase[d] + xend))
+        rt.heap = MF2Routing(nv=m2.vrows, nx=m2.xrows, fwd=fwd, xpos=xpos,
+                             vlevel=vlevel, xlevel=xlevel)
+    return rt.heap
+
+
+def _mf2_solve_fn(dp: DevicePlan, rt: SolveRouting, mr: MF2Routing,
+                  pb: torch.Tensor, fwd, bwd) -> torch.Tensor:
+    """xcat (sum B*C, nrhs) from the permuted rhs ``pb`` (n+1, nrhs, last
+    row zero) by the classic sweep's level routing (the module docstring,
+    the reference's mf2 sweep); ``fwd`` and ``bwd`` are the classic
+    sweep's group steps. Within a level no group reads another's V or x,
+    so each level writes its own by one copy after its groups."""
+    plan = dp.plan
+    nrhs = pb.shape[1]
+    dtype, dev = pb.dtype, pb.device
+
+    vheap = torch.zeros(mr.nv, nrhs, dtype=dtype, device=dev)
+    yfwd: dict = {}
+    for d, glist in enumerate(plan.groups):
+        vparts = []
+        for gi, g in enumerate(glist):
+            B, R, C = g.B, g.R, g.C
+            w = torch.zeros(B * R, nrhs, dtype=dtype, device=dev)
+            route = mr.fwd[d][gi]
+            if route is not None:
+                w.index_add_(0, route[1], vheap.index_select(0, route[0]))
+            w = w.view(B, R, nrhs)
+            yc = pb[rt.col_idx[d][gi]].view(B, C, nrhs) - w[:, :C]
+            xc, v = fwd(d, gi, yc, w[:, C:] if R > C else None)
+            yfwd[(d, gi)] = xc
+            if v is not None:
+                vparts.append(v.reshape(-1, nrhs))
+        lo, hi = mr.vlevel[d]
+        if vparts:
+            torch.cat(vparts, out=vheap[lo:hi])
+
+    xheap = torch.zeros(mr.nx + 1, nrhs, dtype=dtype, device=dev)
+    for d in range(len(plan.groups) - 1, -1, -1):
+        xparts = []
+        for gi, g in enumerate(plan.groups[d]):
+            pos = mr.xpos[d][gi]
+            xb = None if pos is None else \
+                xheap.index_select(0, pos).view(g.B, g.R - g.C, nrhs)
+            xc = bwd(d, gi, yfwd.pop((d, gi)), xb)
+            xparts.append(xc.reshape(-1, nrhs))
+        lo, hi = mr.xlevel[d]
+        torch.cat(xparts, out=xheap[lo:hi])
+    return xheap[:mr.nx]
+
+
 def _w2_need(plan, dtype, config: Config) -> int:
     """Bytes the w2 state asks of the device: W2 (one more factor-sized
     buffer) plus the W2^T copies of the K5 groups, each counted twice (as
@@ -526,16 +944,19 @@ def _w2_need(plan, dtype, config: Config) -> int:
 
 def _w2_fits(F, dtype, config: Config) -> bool:
     """The reference's W2 capacity gate (``_winv_fits`` and
-    ``SSTPU_W2_MAX_CELLS``) on the card's memory: :func:`_w2_need` out of
-    the card's free memory (PyTorch's cached free blocks included). A CPU
-    factor always fits."""
+    ``SSTPU_W2_MAX_CELLS``) on the card's memory: :func:`_w2_need` on the
+    plan the solve takes (:func:`solve_ladder`), with the relayouted copy
+    of the coarse plan where it is still to be built, out of the card's
+    free memory (PyTorch's cached free blocks included). A CPU factor
+    always fits."""
     dev = F.Lx.device
     if dev.type != "cuda":
         return True
-    need = _w2_need(F.dplan.plan, dtype, config)
-    free, _total = torch.cuda.mem_get_info(dev)
-    return need <= free + torch.cuda.memory_reserved(dev) \
-        - torch.cuda.memory_allocated(dev)
+    if solve_ladder(F) == "fine":
+        need = _w2_need(F.dplan.plan, dtype, config)
+    else:
+        need = _w2_need(_coarse_plan(F.S), dtype, config) + _coarse_need(F)
+    return need <= _free_bytes(dev)
 
 
 def solve_mode(F, config: Config = DEFAULT) -> str:
@@ -555,55 +976,66 @@ def solve_mode(F, config: Config = DEFAULT) -> str:
     if mode in ("classic", "inv"):
         return mode
     dtype = compute_dtype(config)
-    if all(k in F._solve and F._solve[k][0] is F.Lx
-           for k in _w2_keys(dtype, config)):
+    ladder = solve_ladder(F)
+    src = F.Lx if ladder == "fine" else _coarse_copy(F)
+    if src is not None and all(k in F._solve and F._solve[k][0] is src
+                               for k in _w2_keys(dtype, config, ladder)):
         return "w2"
     return "w2" if _w2_fits(F, dtype, config) else "classic"
 
 
-def _w2_keys(dtype, config: Config) -> list:
-    """``F._solve`` keys of the w2 state: W2, and with ``solve_pmv`` the
-    W2^T copies, keyed on what picks their groups (the K5 threshold; K6
-    reads W2 as it is, so its threshold changes no state)."""
+def _on(key: tuple, ladder: str) -> tuple:
+    """A state key of the coarse solve plan, or with ``"fine"`` appended
+    of the factor's own plan (F3)."""
+    return key if ladder == "coarse" else key + (ladder,)
+
+
+def _w2_keys(dtype, config: Config, ladder: str = "coarse") -> list:
+    """``F._solve`` keys of the w2 state on ``ladder``'s plan: W2, and
+    with ``solve_pmv`` the W2^T copies, keyed on what picks their groups
+    (the K5 threshold; K6 reads W2 as it is, so its threshold changes no
+    state)."""
     keys = [("w2", dtype)]
     if config.solve_pmv:
         keys.append(("w2t", dtype, PMV_MIN_CELLS))
-    return keys
+    return [_on(k, ladder) for k in keys]
 
 
-def _inv_key(dtype, config: Config) -> tuple:
-    """``F._solve`` key of the inv state: the dtype and what picks the
-    groups whose L21 is copied for K6 (``solve_bmv`` and its batch
-    threshold; F3)."""
-    return ("inv", dtype, bool(config.solve_bmv), BMV_MIN_BATCH)
+def _inv_key(dtype, config: Config, ladder: str = "coarse") -> tuple:
+    """``F._solve`` key of the inv state on ``ladder``'s plan: the dtype
+    and what picks the groups whose L21 is copied for K6 (``solve_bmv``
+    and its batch threshold; F3)."""
+    return _on(("inv", dtype, bool(config.solve_bmv), BMV_MIN_BATCH), ladder)
 
 
-def _cached(F, key, build):
-    """``build()``, cached on ``F._solve[key]`` and tied to the factor
-    tensor."""
+def _cached(F, key, build, src: torch.Tensor):
+    """``build()``, cached on ``F._solve[key]`` and tied to the panels
+    ``src`` it was built from (``F.Lx``, or its relayouted copy)."""
     c = F._solve.get(key)
-    if c is None or c[0] is not F.Lx:
-        F._solve[key] = (F.Lx, build())
+    if c is None or c[0] is not src:
+        F._solve[key] = (src, build())
     return F._solve[key][1]
 
 
-def _solve_state(F, mode: str, dtype, splan: SolvePlan, config: Config):
-    """Per-factor state of a sweep, cached on ``F._solve``: for ``w2`` the
-    pair (W2, W2^T copies or None), for ``inv`` the (W, L21 copy or None)
-    of every group, for ``classic`` the identity-padded L11 copies. Every
-    nrhs reads the same state; the routes are picked per call."""
+def _solve_state(F, mode: str, dtype, splan: SolvePlan, config: Config,
+                 ladder: str, Lx: torch.Tensor):
+    """Per-factor state of a sweep on ``ladder``'s plan, built from its
+    panels ``Lx`` and cached on ``F._solve``: for ``w2`` the pair (W2,
+    W2^T copies or None), for ``inv`` the (W, L21 copy or None) of every
+    group, for ``classic`` the identity-padded L11 copies. Every nrhs
+    reads the same state; the routes are picked per call."""
     if mode == "inv":
-        return _cached(F, _inv_key(dtype, config),
-                       lambda: build_winv(splan, F.Lx, dtype, config))
+        return _cached(F, _inv_key(dtype, config, ladder),
+                       lambda: build_winv(splan, Lx, dtype, config), Lx)
     if mode == "classic":
-        return _cached(F, ("classic", dtype), lambda: [
-            [_group_panels(F.Lx, sg, dtype)[0].contiguous() for sg in sglist]
-            for sglist in splan.groups])
-    W2 = _cached(F, ("w2", dtype), lambda: build_w2(splan, F.Lx, dtype))
+        return _cached(F, _on(("classic", dtype), ladder), lambda: [
+            [_group_panels(Lx, sg, dtype)[0].contiguous() for sg in sglist]
+            for sglist in splan.groups], Lx)
+    keys = _w2_keys(dtype, config, ladder)
+    W2 = _cached(F, keys[0], lambda: build_w2(splan, Lx, dtype), Lx)
     W2t = None
     if config.solve_pmv:
-        W2t = _cached(F, _w2_keys(dtype, config)[1],
-                      lambda: build_w2t(splan, W2, config))
+        W2t = _cached(F, keys[1], lambda: build_w2t(splan, W2, config), Lx)
     return W2, W2t
 
 
@@ -677,10 +1109,7 @@ def build_px_plan(S: SupernodalSymbolic) -> PxPlan:
 def px_plan(S: SupernodalSymbolic) -> PxPlan:
     """:func:`build_px_plan`, built once and cached on
     ``S._solve_plans["px"]`` (as the reference caches it)."""
-    plans = getattr(S, "_solve_plans", None)
-    if plans is None:
-        plans = {}
-        S._solve_plans = plans
+    plans = _plans(S)
     if "px" not in plans:
         plans["px"] = build_px_plan(S)
     return plans["px"]
@@ -775,7 +1204,8 @@ def _px_dispatch(F, bb: np.ndarray, config: Config):
     plan = px_plan(S)
     dev = F.Lx.device
     routing = _px_routing(plan, dev)
-    panels = _cached(F, ("px", dtype), lambda: px_panels(plan, F.Lx, dtype))
+    panels = _cached(F, ("px", dtype), lambda: px_panels(plan, F.Lx, dtype),
+                     F.Lx)
     pbp = np.concatenate([bb[S.perm], np.zeros((1, bb.shape[1]))], axis=0)
     y = torch.as_tensor(pbp, device=dev).to(dtype)
 
@@ -787,24 +1217,32 @@ def _px_dispatch(F, bb: np.ndarray, config: Config):
 
 
 def _mf_dispatch(F, bb: np.ndarray, config: Config):
-    S, dp = F.S, F.dplan
+    S = F.S
     dtype = compute_dtype(config)
-    rt = _routing(S, dp)
     mode = solve_mode(F, config)
-    state = _solve_state(F, mode, dtype, rt.splan, config)
+    ladder = solve_ladder(F)
+    dp, Lx = _solve_target(F, ladder)
+    rt = _routing(S, dp)
+    state = _solve_state(F, mode, dtype, rt.splan, config, ladder, Lx)
     nrhs = bb.shape[1]
     if mode == "w2":
         steps = _w2_steps(rt.splan, *state, nrhs, config)
     elif mode == "inv":
-        steps = _inv_steps(rt.splan, F.Lx.to(dtype), state, nrhs, config)
+        steps = _inv_steps(rt.splan, Lx.to(dtype), state, nrhs, config)
     else:
-        steps = _classic_steps(rt.splan, F.Lx.to(dtype), state, dtype)
+        steps = _classic_steps(rt.splan, Lx.to(dtype), state, dtype)
     pbp = np.concatenate([bb[S.perm], np.zeros((1, nrhs))], axis=0)
     pb = torch.as_tensor(pbp, device=dp.device).to(dtype)
+    if mode == "classic":
+        heap = _heap_routing(S, dp, rt)
 
-    def fn(pb):
-        with fp32_precision(config.precision):
-            return _mf_solve_fn(dp, rt, pb, *steps)[rt.xmap]
+        def fn(pb):
+            with fp32_precision(config.precision):
+                return _mf2_solve_fn(dp, rt, heap, pb, *steps)[rt.xmap]
+    else:
+        def fn(pb):
+            with fp32_precision(config.precision):
+                return _mf_solve_fn(dp, rt, pb, *steps)[rt.xmap]
 
     return fn, (pb,)
 
@@ -814,9 +1252,10 @@ def solve_dispatch(F, b: np.ndarray, config: Config = DEFAULT):
     is the device part of the solve, and gives the permuted solution (n,
     nrhs) on the factor's device (x[S.perm] = that). Every cache the solve
     reads (routing, the sweep's per-factor state, the px plan and panels)
-    is filled before it returns, so that a caller who times ``fn`` times
-    the sweep alone (the reference's ``solve_dispatch``). ``fn`` leaves
-    its arguments as they were, so it can be called again."""
+    is filled before it returns (the coarse plan and its relayouted copy
+    of ``Lx`` among them), so that a caller who times ``fn`` times the
+    sweep alone (the reference's ``solve_dispatch``). ``fn`` leaves its
+    arguments as they were, so it can be called again."""
     if not F.ok:
         raise ValueError(f"solve_device: the factor failed at column "
                          f"{F.minor}")
@@ -876,15 +1315,18 @@ def _solve_rows(plan, nrhs: int = 1, bytes_per_elt: int = 4) -> list:
 
 
 def solve_report(S: SupernodalSymbolic, nrhs: int = 1,
-                 bytes_per_elt: int = 4) -> str:
+                 bytes_per_elt: int = 4, ladder: str = "fine") -> str:
     """Static accounting of the multifrontal solve (the counterpart of the
-    reference's ``solve_report``, without its TPU step floor and its
-    coarse mode): a level's sequential group steps, the bytes and flops of
-    one sweep (:func:`_solve_rows`) and the bound of the two sweeps on the
-    card; the TOTAL sums the levels. Needs a plan of ``S``."""
+    reference's ``solve_report``, without its TPU step floor): a level's
+    sequential group steps, the bytes and flops of one sweep
+    (:func:`_solve_rows`) and the bound of the two sweeps on the card; the
+    TOTAL sums the levels. ``ladder``: the factor's plan ("fine"; needs a
+    plan of ``S``) or the coarse solve plan ("coarse", the plan a solve
+    takes where its copy of the factor fits)."""
     from ..device import CARD, CARD_BYTES_S, CARD_FLOP_S
 
-    rows = _solve_rows(_cached_plan(S), nrhs, bytes_per_elt)
+    plan = _cached_plan(S) if ladder == "fine" else _coarse_plan(S)
+    rows = _solve_rows(plan, nrhs, bytes_per_elt)
     lines = [f"two sweeps at nrhs {nrhs}, bound: max(bytes / "
              f"{CARD_BYTES_S / 1e12:g} TB/s, flops / "
              f"{CARD_FLOP_S[bytes_per_elt] / 1e12:g} TFLOP/s) on the {CARD}",

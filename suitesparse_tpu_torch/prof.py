@@ -13,8 +13,9 @@ default; ``solve1``, ``solve64``) and through the classic sweep
 through the w2 sweep with its plain matmul (``solve8``) and with the K5 and
 K6 kernel routes (``solve_pmv=True, solve_bmv=True``; ``w2k1``, ``w2k8``),
 and at 1 and 8 through the inv sweep (``solve_mode="inv"``; ``inv1``,
-``inv8``); ``solve_profile()`` runs the model problem's solve phases
-alone.
+``inv8``), each on the plan the solve takes (the coarse solve plan,
+where its copy of the factor fits; the warm call builds that copy);
+``solve_profile()`` runs the model problem's solve phases alone.
 Then the multifrontal QR: a pattern-cached ``qrsol`` (b from seed 7) on
 ``local_coupling_ls(6000, 2000)`` (``qr_lc``) and on
 ``grid_gradient_3d(32)`` in fp32 (``qr_grid``) and fp64 (``qr_grid64``).

@@ -130,9 +130,11 @@ def test_auto_gives_w2_and_the_cache_keys_on_the_mode(factors, monkeypatch):
     b = _rhs(A.ncol, 1)
     assert supernodal_solve.solve_mode(F, sstt.DEFAULT) == "w2"
     x_auto = supernodal_solve.solve_device(F, b, sstt.DEFAULT)
-    assert set(F._solve) == {("w2", torch.float32)}
+    # beside the states, the factor's copy in the coarse solve plan
+    copy = ("relayout",)
+    assert set(F._solve) == {copy, ("w2", torch.float32)}
     x_classic = supernodal_solve.solve_device(F, b, CLASSIC)
-    assert set(F._solve) == {("w2", torch.float32),
+    assert set(F._solve) == {copy, ("w2", torch.float32),
                              ("classic", torch.float32)}
     W2 = F._solve[("w2", torch.float32)][1]
     assert np.abs(x_auto - x_classic).max() <= X_TOL * np.abs(x_auto).max()
@@ -145,12 +147,13 @@ def test_auto_gives_w2_and_the_cache_keys_on_the_mode(factors, monkeypatch):
                                             tile_rmin=32)
     assert supernodal_solve.solve_mode(F2, sstt.DEFAULT) == "classic"
     x2 = supernodal_solve.solve_device(F2, b, sstt.DEFAULT)
-    assert set(F2._solve) == {("classic", torch.float32)}
+    assert set(F2._solve) == {copy, ("classic", torch.float32)}
     # the same sweep on equal factors (CPU threads may sum in other orders)
     assert np.abs(x2 - x_classic).max() <= 1e-6 * np.abs(x_classic).max()
     assert F._solve[("w2", torch.float32)][1] is W2
-    # w2 is reached only through auto; the coarse plans are not ported
-    # ("inv" is a mode of its own since the W-only sweep landed)
+    # w2 is reached only through auto; the coarse plan is the plan every
+    # sweep takes where its copy fits, not a mode ("inv" is a mode of its
+    # own since the W-only sweep landed)
     for bad in ("coarse", "w2"):
         with pytest.raises(ValueError, match="solve_mode"):
             supernodal_solve.solve_mode(F, sstt.DEFAULT.replace(

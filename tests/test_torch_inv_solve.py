@@ -94,8 +94,11 @@ def test_inv_solve_matches_reference(problem, dtype, nrhs, bmv,
     col = (lambda v: v) if nrhs == 1 else (lambda v: v[:, -1])
     assert sstt.residual_norm(A, col(x), col(b)) < \
         (1e-12 if dtype == "float64" else RESID_TOL)
-    # K6 takes both panels of its groups, both ways, fp32 only
-    groups = [g for gl in Ft.dplan.plan.groups for g in gl]
+    # K6 takes both panels of its groups, both ways, fp32 only; the groups
+    # of the coarse solve plan, which the solve takes
+    assert supernodal_solve.solve_ladder(Ft) == "coarse"
+    groups = [g for gl in supernodal_solve._coarse_plan(Ft.S).groups
+              for g in gl]
     k6 = [g for g in groups
           if supernodal_solve.inv_route(g.B, g.C, g.R - g.C, nrhs, cfg)
           == "bmv"]
@@ -157,7 +160,8 @@ def test_inv_state_is_cached_and_keyed(problem, monkeypatch):
     b = _rhs(A.ncol, 1)
     supernodal_solve.solve_device(F, b, INV)
     key = ("inv", torch.float32, False, BMIN)
-    assert set(F._solve) == {key}
+    copy = ("relayout",)            # the factor relaid into the solve plan
+    assert set(F._solve) == {copy, key}
     W = F._solve[key][1]
     assert all(L21c is None for row in W for _w, L21c in row)
     supernodal_solve.solve_device(F, _rhs(A.ncol, 3), INV)
@@ -165,7 +169,7 @@ def test_inv_state_is_cached_and_keyed(problem, monkeypatch):
     on = INV.replace(solve_bmv=True)
     supernodal_solve.solve_device(F, b, on)
     key_on = ("inv", torch.float32, True, BMIN)
-    assert set(F._solve) == {key, key_on}
+    assert set(F._solve) == {copy, key, key_on}
     Won = F._solve[key_on][1]
     assert any(L21c is not None for row in Won for _w, L21c in row)
     for row, row_on in zip(W, Won):
@@ -175,11 +179,15 @@ def test_inv_state_is_cached_and_keyed(problem, monkeypatch):
     monkeypatch.setattr(supernodal_solve, "BMV_MIN_BATCH", 2 * BMIN)
     supernodal_solve.solve_device(F, b, on)
     assert ("inv", torch.float32, True, 2 * BMIN) in F._solve
-    # the W of each group is L11^-1 (identity on padding)
-    rt = supernodal_solve._routing(F.S, F.dplan)
+    # the W of each group of the solve plan is L11^-1 (identity on
+    # padding), from the factor's copy in that plan
+    dpc = supernodal_solve._coarse_entry(F.S, F.dplan)[0]
+    rt = supernodal_solve._routing(F.S, dpc)
+    lx2 = F._solve[copy][2]
+    assert F._solve[key][0] is lx2
     for sglist, row in zip(rt.splan.groups, W):
         for sg, (w, _) in zip(sglist, row):
-            L11, _L21 = supernodal_solve._group_panels(F.Lx, sg,
+            L11, _L21 = supernodal_solve._group_panels(lx2, sg,
                                                        torch.float64)
             eye = torch.eye(sg.C, dtype=torch.float64)
             assert torch.allclose(L11 @ w.double(), eye.expand_as(L11),

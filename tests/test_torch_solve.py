@@ -102,7 +102,10 @@ def test_w2_cached_per_factor(factors):
     Ft2 = supernodal_device.factorize_device(A, Ft.S, sstt.DEFAULT, "cpu",
                                              tile_rmin=32)
     supernodal_solve.solve_device(Ft2, b, sstt.DEFAULT)
-    assert Ft2._solve[key][0] is Ft2.Lx and Ft2._solve[key][1] is not W2
+    # W2 of the coarse solve plan, built from Ft2's copy in that plan
+    copy = Ft2._solve[("relayout",)]
+    assert copy[0] is Ft2.Lx and Ft2._solve[key][0] is copy[2]
+    assert Ft2._solve[key][1] is not W2
 
 
 def test_solve_refuses_a_failed_factor():

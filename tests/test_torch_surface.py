@@ -29,8 +29,6 @@ _TORCH_DIST = ("a jax mesh or device list; torch.distributed ranks and "
                "multihost.Topology take its place")
 _PX_FIELDS = ("a px-layout field of the reference's one solve plan; the "
               "port's px plan is PxPlan")
-_DEAD_MODE = ("the MF2 and coarse solve modes, opt-in modes that measured "
-              "dead (VERDICT r5 Weak #9)")
 _PLACEMENT = ("the reference's per-class placement routes (one-hot "
               "matmuls); K7 places every class on the card")
 
@@ -116,7 +114,6 @@ NOT_PORTED = {
     "numeric/supernodal_device.py:PairClass.strategy": _PLACEMENT,
     "numeric/supernodal_device.py:PairClass.T": _PLACEMENT,
     "numeric/supernodal_device.py:PairClass.B_c": _PLACEMENT,
-    "numeric/supernodal_device.py:build_plan(ladders)": _DEAD_MODE,
     "numeric/supernodal_device.py:plan_arrays":
         "flattened the index arrays into one jitted program's arguments",
     "numeric/supernodal_solve.py:build_winv(nrhs)":
@@ -125,10 +122,6 @@ NOT_PORTED = {
     "numeric/supernodal_solve.py:build_winv(w2)":
         "W2 is build_w2's and W build_winv's, one state for every nrhs; "
         "w2_route and inv_route pick the code per call",
-    "numeric/supernodal_solve.py:relayout_map": _DEAD_MODE,
-    "numeric/supernodal_solve.py:relayout_fn": _DEAD_MODE,
-    "numeric/supernodal_solve.py:MF2Plan": _DEAD_MODE,
-    "numeric/supernodal_solve.py:build_mf2_plan": _DEAD_MODE,
     "numeric/supernodal_solve.py:SolveGroup.panel_src": _PX_FIELDS,
     "numeric/supernodal_solve.py:SolveGroup.below_idx": _PX_FIELDS,
     "numeric/supernodal_solve.py:SolvePlan.n": _PX_FIELDS,

@@ -120,16 +120,19 @@ def test_alternating_nrhs_rebuilds_no_state(factors):
                                                  KERNELS)
         if nrhs == 1 and len(xs) == 1:
             state = {k: v[1] for k, v in F._solve.items()}
-    assert set(state) == {("w2", torch.float32),
+    assert set(state) == {("relayout",), ("w2", torch.float32),
                           ("w2t", torch.float32, 20000)}
     assert set(F._solve) == set(state)
     assert all(F._solve[k][1] is v for k, v in state.items())
-    # W2^T exactly for the K5 groups, and W2 shared with the plain w2 sweep;
-    # every panel contiguous, as the kernels take it
+    # W2^T exactly for the K5 groups of the coarse solve plan, which the
+    # solve takes, and W2 shared with the plain w2 sweep; every panel
+    # contiguous, as the kernels take it
     W2t = state[("w2t", torch.float32, 20000)]
     flat = [t for row in W2t for t in row]
-    assert [t is not None for t in flat] == [r == "pmv"
-                                             for r in _routes(F, 1)]
+    coarse = supernodal_solve._coarse_plan(F.S)
+    assert [t is not None for t in flat] == [
+        supernodal_solve.w2_route(g.B, g.R, g.C, 1, KERNELS) == "pmv"
+        for gl in coarse.groups for g in gl]
     W2 = state[("w2", torch.float32)]
     assert all(t.is_contiguous() for row in W2 for t in row)
     assert all(t.is_contiguous() for t in flat if t is not None)
@@ -154,8 +157,11 @@ def test_capacity_gate_counts_the_w2t_copies(factors, monkeypatch):
     assert supernodal_solve._w2_need(plan, torch.float32, KERNELS) == \
         w2 + 2 * 4 * pmv_cells
     # a card with exactly W2's room: w2 fits, W2 with its W2^T copies not
+    # (on the factor's own plan, which a solve takes where the copy in the
+    # coarse solve plan does not fit)
     card = types.SimpleNamespace(Lx=types.SimpleNamespace(
         device=torch.device("cuda", 0)), dplan=Ft.dplan)
+    monkeypatch.setattr(supernodal_solve, "solve_ladder", lambda F: "fine")
     monkeypatch.setattr(torch.cuda, "mem_get_info",
                         lambda device=None: (w2, 80 << 30))
     monkeypatch.setattr(torch.cuda, "memory_reserved", lambda device=None: 0)
