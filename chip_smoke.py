@@ -317,6 +317,33 @@
    ``Lx``, residual below 1e-5 (columns 0 and 63 at 64), x within 1e-4 *
    max|x| of the main path's w2 x. Its JSON line (``ladder``) comes
    before the kernel line; it drops the factor plan's states at its end.
+18. The solve routes (``route_phase``, after step 17, on the main path's
+   factor): the w2 and inv sweeps at 1, 8 and 64 right-hand sides on the
+   coarse plan, and w2 at 1 on the factor's own plan, each under the
+   three pass-up routings of ``supernodal_solve.ROUTES`` (class-sorted,
+   fused, the one the sweeps take: one placement a parent group, merged:
+   one an RU_c bucket with one rhs gather a sweep), through the private
+   ``supernodal_solve._mf_dispatch`` that ``solve_dispatch`` calls on
+   ``ROUTE``: the routing's
+   first call, the sweep's wall (min of 3 rounds, each round sorted,
+   fused, merged, merged, fused, sorted) and, at nrhs 1, its device ops
+   and busy time under the profiler (as ``prof.solve_profile`` counts
+   them); x within 1e-5 * max|x| of the sorted route's x, residual below
+   1e-5 (columns 0 and nrhs - 1). No kernel of K3-K7 runs in these
+   sweeps but K5 and K6 where routed (none here). JSON line ``route``.
+19. 256-wide tiles (``wide_tile_phase``, after step 18): the model
+   problem's plan with ``tile_big=2048`` (``WIDE_GROUPS`` groups with R >=
+   2048 get 256-wide manifests): its steps and tiles beside the default
+   plan's on those groups; K2 at T = 256 on its largest manifest against
+   its plain version (1e-6), two calls bit-equal, the two-piece form
+   (K2b at T = 256) bit-equal to it, the kernel, plain and bound ms; both
+   forms also off the plan (``K2_WIDE_OFF_PLAN``: an odd R whose F moves
+   by 4-byte copies, and R % 4 == 0); then the factor through
+   ``factorize_device(..., tile_big=2048)``: K2 at T = 256 once a wide
+   group, ``Lx`` within 1e-6 * max|Lx| of the main path's factor,
+   residual below 1e-5, its wall in turns with the default factor (min of
+   3) and K2's device time a factor on both sides (the profiler). JSON
+   line ``wide``; its K2 row joins the kernel line.
 
 Every kernel count is set to 0 just before each path and read just after.
 Any failure raises (exit code != 0). Without a CUDA device the script exits
@@ -382,6 +409,18 @@ SEG_LX_TOL = 1e-6      # segmented Lx against the one-piece Lx (fp32)
 PX_X_TOL = 1e-4        # the reloaded factor's px solve against the w2 x
 INV_X_TOL = 1e-4       # the inv sweep's x against the w2 and classic x
 LADDER_X_TOL = 1e-4    # every sweep on each plan against the main w2 x
+ROUTE_X_TOL = 1e-5     # each route's x against the sorted route's
+ROUTE_TURNS = ("sorted", "fused", "merged", "merged", "fused", "sorted")
+WIDE_BIG = 2048        # tile_big of the wide-tile factor (the reference's
+#                        benched SSTPU_TILE_BIG)
+WIDE_GROUPS = 11       # groups of the model plan with R >= WIDE_BIG: one
+#                        K2 launch at T = 256 each a factor
+WIDE_LX_TOL = 1e-6     # the wide-tile factor's Lx against the default's
+# (B, R, classes) of K2 at T = 256 off the plan: an odd R over two tile
+# rows whose F moves by 4-byte copies, a class wider than a tile; R % 4 ==
+# 0 (16-byte F traffic, two words a lane) over three tile rows
+K2_WIDE_OFF_PLAN = ((2, 301, ((3, 290), (2, 40))),
+                    (1, 600, ((4, 300), (3, 100))))
 BENCH_GATES = (1e-2, 1e-4)   # bench.py:122,144: residual, residual64
 QR_RANK = (6000, 2000, (5, 7))  # local_coupling_ls(6000, 2000), column 7
 #                                 made a copy of column 5 (F11)
@@ -1275,6 +1314,9 @@ def _counters() -> dict:
     return {"potrf_trsm": (potrf_trsm, "launches"),
             "extend_add_tiles": (extend_add_tiles, "launches"),
             "extend_add_tiles_pair": (extend_add_tiles, "pair_launches"),
+            "extend_add_tiles_wide": (extend_add_tiles, "wide_launches"),
+            "extend_add_tiles_pair_wide": (extend_add_tiles,
+                                           "wide_pair_launches"),
             "solve_step_fwd": (solve_step_fwd, "launches"),
             "solve_step_bwd": (solve_step_bwd, "launches"),
             "batched_trisolve": (batched_trisolve, "launches"),
@@ -2731,6 +2773,291 @@ def ladder_phase(A, S, F, refs: dict) -> dict:
     return out
 
 
+def _sweep_ops(fn) -> tuple[float, int]:
+    """(device busy seconds, device ops) of one call of ``fn`` under the
+    profiler, counted as ``prof.solve_profile`` counts them."""
+    import torch
+
+    from suitesparse_tpu_torch import prof
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as p:
+        fn()
+        torch.cuda.synchronize()
+    return prof._busy_s(p.events())
+
+
+def route_phase(A, F, rhs: dict) -> dict:
+    """The solve routes (module docstring, item 18) on the main path's
+    factor ``F`` of the model problem; ``rhs``: {nrhs: b}. Returns the
+    phase's numbers; every gate raises."""
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.numeric import supernodal_solve as ss
+
+    cfg = sstt.DEFAULT.replace(ordering=sstt.Ordering.METIS)
+    P = F.F
+    out: dict = {"card": _card()}
+    t_phase = time.perf_counter()
+    real = ss.solve_ladder
+    cells = [(sw, "coarse", nr) for sw in ("w2", "inv") for nr in sorted(rhs)]
+    cells.append(("w2", "fine", 1))
+    for sw, ladder, nr in cells:
+        c = cfg.replace(solve_mode="auto" if sw == "w2" else "inv")
+        b = rhs[nr]
+        key = f"{sw}_{ladder}_{nr}"
+        calls, xs, first = {}, {}, {}
+        for route in ss.ROUTES:
+            if ladder == "fine":
+                ss.solve_ladder = lambda _F: "fine"
+            try:
+                t0 = time.perf_counter()
+                fn, args = ss._mf_dispatch(P, ss._rhs(b)[0], c, route)
+                y = fn(*args)
+                torch.cuda.synchronize()
+                first[route] = time.perf_counter() - t0
+            finally:
+                ss.solve_ladder = real
+            calls[route] = (lambda fn=fn, args=args: fn(*args))
+            xs[route] = ss._finish(P, y, b.ndim == 1)
+        cell = {}
+        for route, x in xs.items():
+            cols = [(x, b)] if nr == 1 else \
+                [(x[:, j], b[:, j]) for j in (0, nr - 1)]
+            resid = max(sstt.residual_norm(A, xc, bc) for xc, bc in cols)
+            dx = np.abs(x - xs["sorted"]).max() / np.abs(xs["sorted"]).max()
+            assert np.isfinite(x).all() and resid < RESID_TOL and \
+                dx <= ROUTE_X_TOL, (key, route, resid, dx)
+            cell[route] = {"first_s": first[route], "residual": resid,
+                           "vs_sorted": dx}
+        best = {route: float("inf") for route in ss.ROUTES}
+        gc.disable()
+        try:
+            for _ in range(3):
+                for route in ROUTE_TURNS:
+                    start = torch.cuda.Event(enable_timing=True)
+                    end = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    calls[route]()
+                    end.record()
+                    torch.cuda.synchronize()
+                    best[route] = min(best[route],
+                                      start.elapsed_time(end) / 1e3)
+        finally:
+            gc.enable()
+        for route in ss.ROUTES:
+            cell[route]["wall_s"] = best[route]
+            if nr == 1:
+                busy, nops = _sweep_ops(calls[route])
+                cell[route].update(device_busy_s=busy, device_ops=nops)
+            print(f"route {key} {route}: wall {best[route]:.5f} s, first "
+                  f"{first[route]:.4f} s, "
+                  + (f"device ops {cell[route]['device_ops']}, busy "
+                     f"{cell[route]['device_busy_s']:.5f} s, " if nr == 1
+                     else "")
+                  + f"residual {cell[route]['residual']:.3e}, x vs sorted "
+                  f"{cell[route]['vs_sorted']:.3e}", flush=True)
+        out[key] = cell
+    # the rule for the default route: a route at or below sorted's wall in
+    # every w2 and inv cell of the coarse plan
+    coarse = [k for k in out if "_coarse_" in k]
+    out["at_or_below_sorted"] = {
+        route: all(out[k][route]["wall_s"] <= out[k]["sorted"]["wall_s"]
+                   for k in coarse) for route in ("fused", "merged")}
+    print(f"routes at or below sorted's wall in all {len(coarse)} coarse "
+          f"cells: {out['at_or_below_sorted']}", flush=True)
+    for key in [k for k in P._solve if k[-1] == "fine"]:
+        del P._solve[key]
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _k2_device_ms(fn) -> dict:
+    """K2's device milliseconds in one call of ``fn``, by tile width, from
+    the profiler."""
+    import torch
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as p:
+        fn()
+        torch.cuda.synchronize()
+    ms = {"128": 0.0, "256": 0.0}
+    for e in p.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA and \
+                "extend_add_tiles_kernel" in e.name:
+            width = "256" if "extend_add_tiles_kernel<256" in e.name \
+                else "128"
+            ms[width] += (e.time_range.end - e.time_range.start) / 1e3
+    return ms
+
+
+def wide_tile_phase(A, S, F, dev, rng) -> tuple[dict, dict, dict]:
+    """256-wide tiles (module docstring, item 19) on the model problem's
+    analysis ``S`` and the main path's factor ``F``. Returns (the phase's
+    numbers, K2's kernel row at T = 256, the wide factor's launches);
+    every gate raises."""
+    import torch
+
+    import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.kernels.extend_add_tiles import (
+        build_group_manifest, extend_add_tiles, extend_add_tiles_plain,
+        manifest_work, run_ptr, synthetic_group, tile_geometry)
+    from suitesparse_tpu_torch.numeric import supernodal_device as sd
+    from suitesparse_tpu_torch.numeric import supernodal_solve as ss
+
+    out: dict = {"card": _card()}
+    t_phase = time.perf_counter()
+    cfg = sstt.DEFAULT.replace(ordering=sstt.Ordering.METIS)
+    t0 = time.perf_counter()
+    dpw = sd.device_plan(A, S, dev, tile_big=WIDE_BIG)
+    out["plan_s"] = time.perf_counter() - t0
+    dp = F.F.dplan
+    pairs = [(g0, g) for g0, g in zip(
+        (g for gl in dp.plan.groups for g in gl),
+        (g for gl in dpw.plan.groups for g in gl))
+        if g._tile is not None and g._tile.rowmap.shape[-1] == 256]
+    assert len(pairs) == WIDE_GROUPS and \
+        all(g.R >= WIDE_BIG for _g0, g in pairs), len(pairs)
+    out["groups"] = [(g.B, g.R, g.C) for _g0, g in pairs]
+    for name, gs in (("t128", [g0 for g0, _g in pairs]),
+                     ("t256", [g for _g0, g in pairs])):
+        out[name] = {
+            "steps": sum(g._tile.man.shape[0] for g in gs),
+            "tiles": sum(len(g._tile_runs) - 1 for g in gs),
+            "ucat_cells": sum(max(g._tile.nslots, 1) * g._tile.RUp ** 2
+                              for g in gs),
+            # K2's bound on these groups, summed (ms)
+            "bound_ms": sum(_bound(*manifest_work(g._tile, g._tile_runs,
+                                                  g.R))[0] for g in gs)}
+    print(f"wide tiles on {out['card']}: {WIDE_GROUPS} groups with R >= "
+          f"{WIDE_BIG} {out['groups']}; T = 128 {out['t128']}, T = 256 "
+          f"{out['t256']}; plan_s {out['plan_s']:.2f}", flush=True)
+
+    # K2 at T = 256 on the largest wide manifest, its two-piece form
+    g = max((g for _g0, g in pairs), key=lambda g: g._tile.man.shape[0])
+    tm = g._tile
+    pm = build_group_manifest(g, T=256, ru_min_frac=0.0, npiece=2)
+    F0 = torch.as_tensor(rng.standard_normal((g.B, g.R, g.R),
+                                             dtype=np.float32), device=dev)
+    U = rng.standard_normal((max(tm.nslots, 1), tm.RUp, tm.RUp),
+                            dtype=np.float32)
+    U[(rng.random(U.shape, dtype=np.float32) < 0.05)
+      & np.triu(np.ones((tm.RUp, tm.RUp), bool), 1)] = np.nan
+    U = torch.as_tensor(U, device=dev)
+    args = {k: tuple(torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                     for a in (m.man, m.rowmap, m.colmap, run_ptr(m.man)))
+            for k, m in (("one", tm), ("pair", pm))}
+    got = [extend_add_tiles(F0.clone(), U, *args[k])
+           for k in ("one", "one", "pair")]
+    Fp = extend_add_tiles_plain(F0.clone(), U, *args["one"][:3])
+    torch.cuda.synchronize()
+    dabs, err = _rel_err(got[0], Fp)
+    assert np.isfinite(err) and err <= K2_TOL, f"K2 at T = 256: {err}"
+    assert torch.equal(got[0], got[1]), "K2 at T = 256: two calls differ"
+    assert torch.equal(got[0], got[2]), \
+        "K2b at T = 256 differs from K2 at T = 256"
+    ms = _cuda_ms(lambda F: extend_add_tiles(F, U, *args["one"]), 10,
+                  setup=lambda: (F0.clone(),))
+    pair_ms = _cuda_ms(lambda F: extend_add_tiles(F, U, *args["pair"]), 10,
+                       setup=lambda: (F0.clone(),))
+    plain_ms = _cuda_ms(lambda F: extend_add_tiles_plain(
+        F, U, *args["one"][:3]), 3, setup=lambda: (F0.clone(),))
+    pair_plain_ms = _cuda_ms(lambda F: extend_add_tiles_plain(
+        F, U, *args["pair"][:3]), 3, setup=lambda: (F0.clone(),))
+    bound_ms, bound_by = _bound(*manifest_work(tm, g._tile_runs, g.R))
+    pair_bound_ms = _bound(*manifest_work(pm, run_ptr(pm.man), g.R))[0]
+    nruns = len(g._tile_runs) - 1
+    geo = tile_geometry(nruns, g.R, tm.RUp, 1, T=256)
+    print(f"extend_add_tiles_wide (B,R)=({g.B},{g.R}) steps="
+          f"{tm.man.shape[0]} tiles={nruns} RUp={tm.RUp} {geo} "
+          f"rel_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+          f"bound_ms={bound_ms:.4f} ({bound_by}); two-piece "
+          f"steps={pm.man.shape[0]} kernel_ms={pair_ms:.4f} plain_ms="
+          f"{pair_plain_ms:.4f} bound_ms={pair_bound_ms:.4f}, bit-equal",
+          flush=True)
+    k2w = {"err": err, "abs": dabs, "ms": ms, "plain_ms": plain_ms,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "pair_ms": pair_ms, "pair_plain_ms": pair_plain_ms,
+           "pair_bound_ms": pair_bound_ms,
+           "shape": (g.B, g.R, tm.man.shape[0])}
+
+    # both forms off the plan
+    for B, R, classes in K2_WIDE_OFF_PLAN:
+        sg = synthetic_group(rng, B, R, classes)
+        ms_ = {k: build_group_manifest(sg, T=256, ru_min_frac=0.0,
+                                       npiece=n) for k, n in (("one", 1),
+                                                              ("pair", 2))}
+        m1 = ms_["one"]
+        G0 = torch.as_tensor(rng.standard_normal((B, R, R),
+                                                 dtype=np.float32),
+                             device=dev)
+        V = rng.standard_normal((m1.nslots, m1.RUp, m1.RUp),
+                                dtype=np.float32)
+        V[(rng.random(V.shape) < 0.05)
+          & np.triu(np.ones((m1.RUp, m1.RUp), bool), 1)] = np.nan
+        V = torch.as_tensor(V, device=dev)
+        res = []
+        for k in ("one", "one", "pair", "pair"):
+            m = ms_[k]
+            a = tuple(torch.as_tensor(np.ascontiguousarray(x), device=dev)
+                      for x in (m.man, m.rowmap, m.colmap, run_ptr(m.man)))
+            res.append(extend_add_tiles(G0.clone(), V, *a))
+        Vp = extend_add_tiles_plain(G0.clone(), V, *a[:3])
+        torch.cuda.synchronize()
+        d, e = _rel_err(res[0], Vp)
+        assert np.isfinite(e) and e <= K2_TOL, (B, R, e)
+        assert all(torch.equal(res[0], r) for r in res[1:]), (B, R)
+        k2w["err"], k2w["abs"] = max(k2w["err"], e), max(k2w["abs"], d)
+        runs = run_ptr(m1.man)
+        print(f"extend_add_tiles_wide off plan (B,R)=({B},{R}) classes="
+              f"{classes} steps={m1.man.shape[0]} tiles={len(runs) - 1} "
+              f"{tile_geometry(len(runs) - 1, R, m1.RUp, 1, T=256)} "
+              f"rel_err={e:.3e}; reruns and both forms bit-equal",
+              flush=True)
+
+    # the factor with tile_big, in turns with the default factor
+    n128 = sum(g._tile is not None and g._tile.rowmap.shape[-1] == 128
+               for gl in dpw.plan.groups for g in gl)
+    zero_counts()
+    Fw = sd.factorize_device(A, S, cfg, dev, tile_big=WIDE_BIG)
+    torch.cuda.synchronize()
+    launches = counts()
+    assert Fw.ok, f"wide-tile factor failed at column {Fw.minor}"
+    assert launches["extend_add_tiles_wide"] == WIDE_GROUPS and \
+        launches["extend_add_tiles"] == n128 and \
+        launches["extend_add_tiles_pair_wide"] == 0, launches
+    lx = F.F.Lx
+    lx_err = ((Fw.Lx - lx).abs().max() / lx.abs().max()).item()
+    assert lx_err <= WIDE_LX_TOL, lx_err
+    b = 1.0 + np.arange(A.ncol) / A.ncol
+    x = ss.solve_device(Fw, b, cfg)
+    resid = sstt.residual_norm(A, x, b)
+    assert np.isfinite(x).all() and resid < RESID_TOL, resid
+    walls = _turns_s({
+        "default": lambda: sd.factorize_device(A, S, cfg, dev),
+        "wide": lambda: sd.factorize_device(A, S, cfg, dev,
+                                            tile_big=WIDE_BIG)})
+    k2_ms = {"default": _k2_device_ms(
+        lambda: sd.factorize_device(A, S, cfg, dev)),
+        "wide": _k2_device_ms(lambda: sd.factorize_device(
+            A, S, cfg, dev, tile_big=WIDE_BIG))}
+    out.update(factor={"launches": launches, "lx_rel_err": lx_err,
+                       "lx_bit_equal": bool(torch.equal(Fw.Lx, lx)),
+                       "residual": resid, "wall_s": walls,
+                       "k2_device_ms": k2_ms},
+               phase_s=time.perf_counter() - t_phase)
+    print(f"wide-tile factor: launches={launches}, Lx vs default "
+          f"{lx_err:.3e} (bit-equal {out['factor']['lx_bit_equal']}), "
+          f"residual {resid:.3e}, wall default {walls['default']:.4f} s / "
+          f"wide {walls['wide']:.4f} s, K2 device ms a factor default "
+          f"{k2_ms['default']} / wide {k2_ms['wide']}", flush=True)
+    del Fw
+    return out, k2w, launches
+
+
 def mflu_sym_phase() -> dict:
     """The symmetric-strategy device LU (``numeric/mflu_device.py``) on
     the LU phase's ``fem_unsym(30)`` (module docstring, item 14): the
@@ -3858,6 +4185,12 @@ def main() -> int:
     ladder = ladder_phase(A, S, F, {1: (b, x), NRHS: (B64, x64)})
     ladder_phase_s = time.perf_counter() - t0
     print(f"ladder_phase {ladder_phase_s:.2f} s", flush=True)
+    # ---- the fused and merged solve routes beside the sorted one ----
+    route = route_phase(A, F, {1: b, NRHS_K: B8, NRHS: B64})
+    print(f"route_phase {route['phase_s']:.2f} s", flush=True)
+    # ---- 256-wide tile manifests (K2 at T = 256) ----
+    wide, k2w, wide_launches = wide_tile_phase(A, S, F, dev, rng)
+    print(f"wide_tile_phase {wide['phase_s']:.2f} s", flush=True)
     # ---- multifrontal QR through qrsol ----
     t0 = time.perf_counter()
     qr = qr_phase()
@@ -3954,6 +4287,9 @@ def main() -> int:
                      default=str), flush=True)
     print(json.dumps({"ladder": ladder, "ladder_phase_s": ladder_phase_s},
                      default=str), flush=True)
+    print(json.dumps({"route": route}, default=str), flush=True)
+    print(json.dumps({"wide": wide, "k2_wide": k2w}, default=str),
+          flush=True)
     print(json.dumps({"inv": inv, "inv_phase_s": inv_phase_s,
                       "mflu_sym": mflu_sym,
                       "mflu_sym_phase_s": mflu_sym_phase_s}, default=str),
@@ -3977,6 +4313,10 @@ def main() -> int:
               "suitesparse_tpu/kernels/extend_add_tiles.py:359",
               "extend_add_tiles.cu", k2b,
               pair_launches["extend_add_tiles_pair"]),
+        entry("extend_add_tiles_wide",
+              "suitesparse_tpu/kernels/extend_add_tiles.py:381",
+              "extend_add_tiles.cu", k2w,
+              wide_launches["extend_add_tiles_wide"]),
         entry("solve_step_fwd", "suitesparse_tpu/kernels/solve_step.py:96",
               "solve_step.cu", ks["solve_step_fwd"],
               classic_launches["solve_step_fwd"]),

@@ -49,12 +49,12 @@ _SIGNATURES = {
     "sst_potrf_trsm": [_vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _i,
                        _i, _i, _i, _vp],
     # F, Ucat, man, rowmap, colmap, run_ptr, nruns, R, RUp, then
-    # tile_geometry's split and vec; stream
+    # tile_geometry's T, split and vec; stream
     "sst_extend_add_tiles": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i,
-                             _vp],
+                             _i, _vp],
     # the same, two pieces per step
     "sst_extend_add_tiles_pair": [_vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i,
-                                  _i, _i, _vp],
+                                  _i, _i, _i, _vp],
     # F, host array of the classes' U, host array of their (RU, first
     # pair, npairs, first idx entry), ncls, idx, dst, src (or null), blocks
     # (or null), nblocks, B, R, then extend_add_geometry's rows and warps,

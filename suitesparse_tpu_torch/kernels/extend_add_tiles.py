@@ -14,10 +14,12 @@ or, with ``npiece=2`` (``_pair_manifest``), two pieces per step
     4 u0  5 br0  6 br20  7 bc0  8 bc20   9 u1  10 br1  11 br21  12 bc1  13 bc21
 
 where a dead second piece has all-(-1) maps. Each piece adds one child
-update into one lower 128 x 128 tile (slot, tr, tc) of the parent fronts F:
-tile row i takes Ucat row ``(rm[i] < 128 ? blkr : blkr2) * 128 + rm[i] % 128``
-of child slot ``uslot``, columns likewise; -1 in a map means no entry, and a
-non-finite child cell counts as zero. Steps of one tile are consecutive;
+update into one lower T x T tile (slot, tr, tc) of the parent fronts F:
+tile row i takes Ucat row ``(rm[i] < T ? blkr : blkr2) * T + rm[i] % T`` of
+child slot ``uslot``, columns likewise; -1 in a map means no entry, and a
+non-finite child cell counts as zero. The tile width T is the maps' last
+dimension: 128, or 256 for the groups ``build_plan(..., tile_big=)`` gives
+wide tiles (the reference's ``SSTPU_TILE_BIG``). Steps of one tile are consecutive;
 ``run_ptr`` holds the first step of each tile's run (``man[:, 3] == 1``)
 and, last, the step count. F is updated IN PLACE: unvisited tiles keep
 their content, which replaces the TPU kernel's input/output aliasing.
@@ -41,15 +43,19 @@ import torch
 from . import _build
 from .trisolve import SMEM_BYTES, SMS
 
-__all__ = ["TILE", "TileGeometry", "TileManifest", "build_group_manifest",
+__all__ = ["TILE", "TILES", "TileGeometry", "TileManifest", "build_group_manifest",
            "manifest_work", "run_ptr", "synthetic_group", "tile_geometry",
            "extend_add_tiles", "extend_add_tiles_plain"]
 
 TILE = 128
+TILES = (128, 256)     # tile widths the kernel is built for
 _PLAIN_CHUNK = 512     # manifest steps per gather in the plain version
 LANES = 32
 WARPS = 4              # warps of a block (kWarps in the kernel)
-SPLITS = (4, 8, 16)    # row slabs a tile: 8, 4 or 2 rows a warp
+SPLITS = (4, 8, 16)    # row slabs a 128-wide tile: 8, 4 or 2 rows a warp
+WIDE_SPLITS = (8, 16, 32)   # row slabs a 256-wide tile: 8, 4 or 2 rows a
+#                             warp, whose 8 x 8 sums stay in registers
+_SPLITS = {128: SPLITS, 256: WIDE_SPLITS}
 # blocks a grid should have, where the tiles allow: 8 an SM (32 warps);
 # ``tile_sweep`` on the H100 puts the split this picks within 10% of the
 # best one on every manifest of the model plan (PERF.md)
@@ -57,13 +63,13 @@ FILL_BLOCKS = 8 * SMS
 
 
 class TileGeometry(NamedTuple):
-    """Launch plan of ``csrc/extend_add_tiles.cu``: each tile's 128 rows
+    """Launch plan of ``csrc/extend_add_tiles.cu``: each tile's T rows
     are cut into ``split`` slabs, one a block of ``warps`` warps, and each
     warp takes ``rows`` neighbouring rows (slab ``b``'s warp ``w`` starts
     at tile row ``(b * warps + w) * rows``). ``vec``: the plan allows
     16-byte F traffic (R % 4 == 0; the wrapper also needs F 16-byte
     aligned). ``smem`` bytes of shared memory a block (the warps' rows of
-    F); ``blocks`` blocks of ``threads`` threads."""
+    F); ``blocks`` blocks of ``threads`` threads; ``T`` the tile width."""
     split: int
     rows: int
     warps: int
@@ -71,34 +77,40 @@ class TileGeometry(NamedTuple):
     smem: int
     blocks: int
     threads: int
+    T: int = TILE
 
 
 @functools.lru_cache(maxsize=1024)
 def tile_geometry(nruns: int, R: int, RUp: int, npiece: int,
-                  split: int | None = None) -> TileGeometry:
+                  split: int | None = None, T: int = TILE) -> TileGeometry:
     """The kernel's launch plan for ``nruns`` tile runs of fronts of R rows
-    and child blocks of RUp, ``npiece`` pieces a step. Cached: the factor
-    asks for the same manifests on every call.
+    and child blocks of RUp, ``npiece`` pieces a step, tiles T wide (128 or
+    256; RUp a multiple of T). Cached: the factor asks for the same
+    manifests on every call.
 
-    The least split of SPLITS that gives the grid FILL_BLOCKS blocks (the
-    largest where none does): a warp's rows share its pieces' maps, so
-    fewer, longer slabs read fewer maps, and more slabs put a small
-    manifest's tiles on more SMs. The kernel walks a two-piece step as two
-    pieces, so ``npiece`` and ``RUp`` are checked but do not move the plan.
-    ``split`` asks for that many slabs instead (``tile_sweep``)."""
-    if npiece not in (1, 2) or RUp < TILE or RUp % TILE:
+    The least split of the width's splits (SPLITS at 128, WIDE_SPLITS at
+    256: 8, 4 or 2 rows a warp either way) that gives the grid FILL_BLOCKS
+    blocks (the largest where none does): a warp's rows share its pieces'
+    maps, so fewer, longer slabs read fewer maps, and more slabs put a
+    small manifest's tiles on more SMs. The kernel walks a two-piece step
+    as two pieces, so ``npiece`` and ``RUp`` are checked but do not move
+    the plan. ``split`` asks for that many slabs instead (``tile_sweep``)."""
+    if T not in TILES:
+        raise ValueError(f"tile_geometry: tile width {T} not in {TILES}")
+    if npiece not in (1, 2) or RUp < T or RUp % T:
         raise ValueError(f"tile_geometry: npiece {npiece} must be 1 or 2 and "
-                         f"RUp {RUp} a multiple of {TILE}")
+                         f"RUp {RUp} a multiple of {T}")
+    splits = _SPLITS[T]
     if split is None:
-        split = next((s for s in SPLITS if nruns * s >= FILL_BLOCKS),
-                     SPLITS[-1])
-    elif split not in SPLITS:
-        raise ValueError(f"tile_geometry: split {split} not in {SPLITS}")
-    rows = TILE // (WARPS * split)
-    smem = 4 * WARPS * rows * TILE
-    assert smem <= SMEM_BYTES, (nruns, R, RUp, npiece, split)
+        split = next((s for s in splits if nruns * s >= FILL_BLOCKS),
+                     splits[-1])
+    elif split not in splits:
+        raise ValueError(f"tile_geometry: split {split} not in {splits}")
+    rows = T // (WARPS * split)
+    smem = 4 * WARPS * rows * T
+    assert smem <= SMEM_BYTES, (nruns, R, RUp, npiece, split, T)
     return TileGeometry(split, rows, WARPS, int(R % 4 == 0), smem,
-                        nruns * split, WARPS * LANES)
+                        nruns * split, WARPS * LANES, T)
 
 
 @dataclasses.dataclass
@@ -106,7 +118,7 @@ class TileManifest:
     man: np.ndarray        # (NS, 10 or 14) int32 step table (columns above)
     rowmap: np.ndarray     # (NS, npiece, T) int32 in-window row map, -1 none
     colmap: np.ndarray     # (NS, npiece, T) int32
-    RUp: int               # Ucat padded child size (TILE multiple)
+    RUp: int               # Ucat padded child size (multiple of T)
     nslots: int            # Ucat slots (total folded pairs)
     uslices: list          # [(class_i, k0, (src_level, src_gi), RU_c, src)]
     folded: list           # class indices handled by the kernel
@@ -244,47 +256,49 @@ def manifest_work(tm: TileManifest, runs: np.ndarray, R: int):
     piece reads its valid child cells and adds them once; each visited tile
     of F is read and written once; the step table and the maps are read
     once."""
+    T = tm.rowmap.shape[-1]
     cells = float(((tm.rowmap >= 0).sum(2) * (tm.colmap >= 0).sum(2)).sum())
     starts = tm.man[runs[:-1]]
-    tile_cells = float((np.minimum(TILE, R - starts[:, 1] * TILE)
-                        * np.minimum(TILE, R - starts[:, 2] * TILE)).sum())
+    tile_cells = float((np.minimum(T, R - starts[:, 1] * T)
+                        * np.minimum(T, R - starts[:, 2] * T)).sum())
     return (4.0 * cells + 8.0 * tile_cells + 4.0 * tm.man.size
             + 4.0 * (tm.rowmap.size + tm.colmap.size), cells)
 
 
-def _child_index(v, blk, blk2):
-    return torch.where(v < TILE, blk, blk2) * TILE + v % TILE
+def _child_index(v, blk, blk2, T):
+    return torch.where(v < T, blk, blk2) * T + v % T
 
 
 def _one_piece(man, rowmap, colmap):
     """A two-piece manifest as one piece per row (10 columns; a dead piece
     keeps its all-(-1) maps and adds nothing)."""
-    NS = man.shape[0]
+    NS, T = man.shape[0], rowmap.shape[-1]
     head = torch.cat([man[:, :4], torch.ones_like(man[:, :1])], dim=1)
     pieces = [torch.cat([head, man[:, 4 + 5 * p:9 + 5 * p]], dim=1)
               for p in range(2)]
     return (torch.stack(pieces, dim=1).reshape(2 * NS, 10),
-            rowmap.reshape(2 * NS, 1, TILE), colmap.reshape(2 * NS, 1, TILE))
+            rowmap.reshape(2 * NS, 1, T), colmap.reshape(2 * NS, 1, T))
 
 
 def extend_add_tiles_plain(F, Ucat, man, rowmap, colmap):
-    """The manifest's extend-add with index tensors, either form (in place;
-    returns F)."""
+    """The manifest's extend-add with index tensors, either form, tiles as
+    wide as the maps' last dimension (in place; returns F)."""
     if man.shape[1] == 14:
         man, rowmap, colmap = _one_piece(man, rowmap, colmap)
     B, R, _ = F.shape
     RUp = Ucat.shape[1]
+    T = rowmap.shape[-1]
     Ff = F.view(-1)
     Uf = Ucat.reshape(-1)
-    ar = torch.arange(TILE, device=F.device)
+    ar = torch.arange(T, device=F.device)
     for s0 in range(0, man.shape[0], _PLAIN_CHUNK):
         m = man[s0:s0 + _PLAIN_CHUNK].long()
         rm = rowmap[s0:s0 + _PLAIN_CHUNK, 0].long()
         cm = colmap[s0:s0 + _PLAIN_CHUNK, 0].long()
-        crow = _child_index(rm, m[:, 6:7], m[:, 7:8])
-        ccol = _child_index(cm, m[:, 8:9], m[:, 9:10])
-        prow = m[:, 1:2] * TILE + ar
-        pcol = m[:, 2:3] * TILE + ar
+        crow = _child_index(rm, m[:, 6:7], m[:, 7:8], T)
+        ccol = _child_index(cm, m[:, 8:9], m[:, 9:10], T)
+        prow = m[:, 1:2] * T + ar
+        pcol = m[:, 2:3] * T + ar
         rv = (rm >= 0) & (prow < R)
         cv = (cm >= 0) & (pcol < R)
         valid = (rv[:, :, None] & cv[:, None, :]
@@ -302,12 +316,16 @@ def extend_add_tiles_plain(F, Ucat, man, rowmap, colmap):
 def extend_add_tiles(F, Ucat, man, rowmap, colmap, runs):
     """F (B, R, R) += the manifest's pieces of Ucat (K, RUp, RUp), in place.
 
-    ``man`` (NS, 10) with ``rowmap``/``colmap`` (NS, 1, 128), or ``man``
-    (NS, 14) with maps (NS, 2, 128), and ``runs`` (the :func:`run_ptr`
-    offsets) are int32 tensors on F's device. A CPU F takes
-    :func:`extend_add_tiles_plain`; a CUDA F launches the one-piece or the
-    two-piece kernel with the launch plan :func:`tile_geometry` picks, or
-    raises."""
+    ``man`` (NS, 10) with ``rowmap``/``colmap`` (NS, 1, T), or ``man``
+    (NS, 14) with maps (NS, 2, T), T = 128 or 256, and ``runs`` (the
+    :func:`run_ptr` offsets) are int32 tensors on F's device. Maps of any
+    other width raise. A CPU F takes :func:`extend_add_tiles_plain`; a CUDA
+    F launches the one-piece or the two-piece kernel of width T with the
+    launch plan :func:`tile_geometry` picks, or raises."""
+    T = rowmap.shape[-1]
+    if T not in TILES:
+        raise ValueError(f"extend_add_tiles: maps of width {T}; the kernel "
+                         f"takes tiles of {TILES}")
     if F.device.type == "cpu":
         return extend_add_tiles_plain(F, Ucat, man, rowmap, colmap)
     NS, ncols = man.shape
@@ -317,18 +335,18 @@ def extend_add_tiles(F, Ucat, man, rowmap, colmap, runs):
             or Ucat.dtype != torch.float32:
         raise ValueError(f"extend_add_tiles: needs fp32 CUDA tensors, got F "
                          f"{F.dtype} on {F.device}, Ucat {Ucat.dtype}")
-    if R != R2 or RUp != RUp2 or RUp % TILE or not F.is_contiguous() \
+    if R != R2 or RUp != RUp2 or RUp % T or not F.is_contiguous() \
             or not Ucat.is_contiguous():
         raise ValueError(f"extend_add_tiles: F {tuple(F.shape)} and Ucat "
                          f"{tuple(Ucat.shape)} must be contiguous square "
-                         f"blocks, RUp a multiple of {TILE}")
+                         f"blocks, RUp a multiple of {T}")
     if ncols not in (10, 14):
         raise ValueError(f"extend_add_tiles: man has {ncols} columns, not 10 "
                          f"(one piece a step) or 14 (two)")
     npiece = 1 if ncols == 10 else 2
     for name, t, shape in (("man", man, (NS, ncols)),
-                           ("rowmap", rowmap, (NS, npiece, TILE)),
-                           ("colmap", colmap, (NS, npiece, TILE))):
+                           ("rowmap", rowmap, (NS, npiece, T)),
+                           ("colmap", colmap, (NS, npiece, T))):
         if t.dtype != torch.int32 or tuple(t.shape) != shape \
                 or not t.is_contiguous() or t.device != F.device:
             raise ValueError(f"extend_add_tiles: {name} must be contiguous "
@@ -344,17 +362,16 @@ def extend_add_tiles(F, Ucat, man, rowmap, colmap, runs):
     if nruns <= 0:
         return F
     _launch(F, Ucat, man, rowmap, colmap, runs,
-            tile_geometry(nruns, R, RUp, npiece))
-    if npiece == 1:
-        extend_add_tiles.launches += 1
-    else:
-        extend_add_tiles.pair_launches += 1
+            tile_geometry(nruns, R, RUp, npiece, T=T))
+    counter = ("" if T == TILE else "wide_") + \
+        ("launches" if npiece == 1 else "pair_launches")
+    setattr(extend_add_tiles, counter, getattr(extend_add_tiles, counter) + 1)
     return F
 
 
 def _launch(F, Ucat, man, rowmap, colmap, runs, g: TileGeometry) -> None:
-    """Launch the one- or two-piece kernel on checked tensors with launch
-    plan ``g``; 16-byte F traffic where the plan allows it and F's base is
+    """Launch the one- or two-piece kernel of width ``g.T`` on checked
+    tensors with launch plan ``g``; 16-byte F traffic where the plan allows it and F's base is
     16-byte aligned (then every row's is: R % 4 == 0)."""
     vec = int(bool(g.vec) and F.data_ptr() % 16 == 0)
     lib = _build.load()
@@ -363,10 +380,12 @@ def _launch(F, Ucat, man, rowmap, colmap, runs, g: TileGeometry) -> None:
     with torch.cuda.device(F.device):
         err = entry(F.data_ptr(), Ucat.data_ptr(), man.data_ptr(),
                     rowmap.data_ptr(), colmap.data_ptr(), runs.data_ptr(),
-                    runs.shape[0] - 1, F.shape[1], Ucat.shape[1], g.split,
-                    vec, torch.cuda.current_stream().cuda_stream)
+                    runs.shape[0] - 1, F.shape[1], Ucat.shape[1], g.T,
+                    g.split, vec, torch.cuda.current_stream().cuda_stream)
     _build.check_launch(err, "extend_add_tiles")
 
 
-extend_add_tiles.launches = 0        # one-piece kernel (K2)
-extend_add_tiles.pair_launches = 0   # two-piece kernel (K2b)
+extend_add_tiles.launches = 0             # one-piece kernel (K2), T = 128
+extend_add_tiles.pair_launches = 0        # two-piece kernel (K2b), T = 128
+extend_add_tiles.wide_launches = 0        # K2 at T = 256
+extend_add_tiles.wide_pair_launches = 0   # K2b at T = 256

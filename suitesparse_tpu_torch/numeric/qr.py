@@ -245,8 +245,11 @@ def apply_q(F: QRFactor, y: np.ndarray) -> np.ndarray:
 def qr_solve(F: QRFactor, b: np.ndarray) -> np.ndarray:
     """Least-squares solve min ||Ax-b|| for m >= n (cs_qrsol upper path).
 
-    Rank-deficient problems get the BASIC solution (dead pivots — columns
-    with |R[k,k]| <= tol — are fixed at zero), the SuiteSparseQR contract."""
+    Rank-deficient problems get the BASIC solution, the SuiteSparseQR
+    contract: the x of each dead pivot (a column with |R[k,k]| <= tol) is
+    fixed at zero and the live columns take their least-squares minimum
+    (:func:`_usolve_basic`). A full-rank R is solved by back substitution,
+    as the reference solves it."""
     S = F.S
     y = apply_qt(F, b)
     # row of R(i,:) in Q'A is the pivot row of Householder i
@@ -261,21 +264,58 @@ def qr_solve(F: QRFactor, b: np.ndarray) -> np.ndarray:
 
 
 def _usolve_basic(U: CSC, b: np.ndarray, tol: float) -> np.ndarray:
-    """Upper solve that zeroes dead pivots (|U[k,k]| <= tol) — the basic
-    least-squares solution for rank-deficient R (SuiteSparseQR.cpp rank
-    handling)."""
-    x = np.array(b, dtype=np.float64, copy=True)
+    """x minimizing ||U[:, live] x[live] - b|| with x = 0 on the dead
+    columns (|U[k,k]| <= tol): the basic least-squares solution of a
+    rank-deficient R, since ||A x - b|| and ||R x - Q'b|| differ by the
+    part of Q'b below R's rows, which no x reaches.
+
+    A dead column's row of R keeps its entries right of the pivot, and the
+    part of Q'b it carries, so dropping the row (the reference's upper
+    solve) leaves x above the least-squares minimum. Here, as SPQR gives a
+    dead column no row of R, each dead row, restricted to the live
+    columns, is rotated into the live rows by Givens rotations, one for
+    each entry it has left, leftmost first, against the row whose pivot
+    that column is (fill stays right of that pivot, so the live rows stay
+    upper triangular); the rotated live rows are then back-substituted.
+    The rows are kept sparse: the work follows R's entries and their fill,
+    and no dense block is formed."""
+    n = U.ncol
     Up, Ui, Ux = U.indptr, U.indices, U.data
-    for j in range(U.ncol - 1, -1, -1):
-        p0, p1 = Up[j], Up[j + 1]
-        d = Ux[p1 - 1] if p1 > p0 else 0.0
-        if abs(d) <= tol:
-            x[j] = 0.0
-            continue
-        x[j] = x[j] / d
-        if p1 - 1 > p0:
-            rows = Ui[p0:p1 - 1]
-            x[rows] -= Ux[p0:p1 - 1] * x[j]
+    diag = np.array([Ux[Up[j + 1] - 1] if Up[j + 1] > Up[j] else 0.0
+                     for j in range(n)])
+    dead = np.abs(diag) <= tol
+    y = np.array(b, dtype=np.float64, copy=True)
+    # the rows of U on the live columns, each sorted by column
+    cols = np.repeat(np.arange(n), np.diff(Up))
+    keep = ~dead[cols]
+    r, c, v = Ui[keep], cols[keep], Ux[keep]
+    order = np.lexsort((c, r))
+    r, c, v = r[order], c[order], v[order]
+    ptr = np.searchsorted(r, np.arange(n + 1))
+    rc = [c[ptr[i]:ptr[i + 1]] for i in range(n)]
+    rv = [v[ptr[i]:ptr[i + 1]] for i in range(n)]
+    for i in np.flatnonzero(dead):
+        ci, vi = rc[i], rv[i]
+        while ci.size:
+            j = ci[0]        # a live column right of i: row j is its pivot
+            cj, vj = rc[j], rv[j]
+            h = np.hypot(vj[0], vi[0])
+            cs, sn = vj[0] / h, vi[0] / h
+            u = np.union1d(cj, ci)
+            wj = np.zeros(u.size)
+            wj[np.searchsorted(u, cj)] = vj
+            wi = np.zeros(u.size)
+            wi[np.searchsorted(u, ci)] = vi
+            rc[j], rv[j] = u, cs * wj + sn * wi
+            ni = cs * wi - sn * wj
+            ni[0] = 0.0
+            nz = ni != 0.0
+            ci, vi = u[nz], ni[nz]
+            y[j], y[i] = cs * y[j] + sn * y[i], cs * y[i] - sn * y[j]
+    x = np.zeros(n)
+    for j in np.flatnonzero(~dead)[::-1]:
+        cj, vj = rc[j], rv[j]
+        x[j] = (y[j] - vj[1:] @ x[cj[1:]]) / vj[0]
     return x
 
 

@@ -13,7 +13,8 @@ in all), so the two factors compare entry by entry.
 
 Per group: A's values are scattered into the fronts F; child updates whose
 parent group has a tile manifest are added by the tiled extend-add kernel
-(one piece per manifest step, or two with ``Config.tile_pair``; fp32), the
+(one piece per manifest step, or two with ``Config.tile_pair``; fp32;
+128-wide tiles, or 256-wide on the groups of R >= ``tile_big``), the
 other pair classes by the extend-add kernel, one launch a group for all
 of them, each reading its children where they lie; the fronts are
 factored by the fused potrf+trsm kernel where its gate passes (B >= 32,
@@ -375,13 +376,18 @@ def _find_minor(S, plan, Lxdev) -> int:
 def build_plan(S: SupernodalSymbolic, C_low: CSC,
                tile_rmin: int = TILE_RMIN, tile_pair: bool = False,
                split_mask: np.ndarray | None = None,
-               ladders: tuple | None = None) -> Plan:
+               ladders: tuple | None = None, tile_big: int = 0,
+               tile_frac: float = 0.0) -> Plan:
     """The device plan, with tile manifests attached explicitly.
 
-    Groups with ``R >= tile_rmin`` get the manifest that folds every pair
-    class (the reference's defaults for its tile placement), one piece per
-    step, or two with ``tile_pair``; ``g._tile_runs`` holds the manifest's
-    :func:`run_ptr` offsets. ``split_mask`` (a bool or int a supernode)
+    Groups with ``R >= tile_rmin`` get a tile manifest (the reference's
+    tile placement), one piece per step, or two with ``tile_pair``;
+    ``g._tile_runs`` holds the manifest's :func:`run_ptr` offsets. Its
+    tiles are 128 wide, or 256 where ``tile_big`` is set and ``R >=
+    tile_big`` (the reference's ``SSTPU_TILE_BIG``); it folds the pair
+    classes with ``RU_c >= tile_frac * RUp`` or ``RU_c >= 2 T`` (the
+    reference's ``SSTPU_TILE_FRAC``; the default 0 folds every class), and
+    the rest go to K7. ``split_mask`` (a bool or int a supernode)
     puts supernodes of different values into different groups, as the
     reference's: the distributed planner keeps the separator crown (and,
     on a (host, chip) topology, the host-local MID supernodes) out of the
@@ -419,8 +425,9 @@ def build_plan(S: SupernodalSymbolic, C_low: CSC,
     for glist in plan.groups:
         for g in glist:
             if g.R >= tile_rmin:
-                g._tile = build_group_manifest(g, T=128, ru_min_frac=0.0,
-                                               npiece=2 if tile_pair else 1)
+                g._tile = build_group_manifest(
+                    g, T=256 if (tile_big and g.R >= tile_big) else 128,
+                    ru_min_frac=tile_frac, npiece=2 if tile_pair else 1)
                 if g._tile is not None:
                     g._tile_runs = run_ptr(g._tile.man)
     _mark_symmetrize(plan)
@@ -460,7 +467,11 @@ class DevicePlan:
     #                              bytes a group]
     schedule: tuple | None = None   # (key, segments) of the last segmented
     #                                 factor (numeric/segmented.py)
-    solve: object = None         # solve routing, built at the first solve
+    solve_base: object = None    # the solve's route-independent index
+    #                              tensors, built at the first solve
+    solve: dict = dataclasses.field(default_factory=dict)
+    #                              route -> w2/inv solve routing, built at
+    #                              the first solve on that route
     coarse: tuple | None = None  # (the coarse solve plan's DevicePlan, the
     #                              relayout of this plan's Lx into it),
     #                              built at the first solve that takes it
@@ -539,18 +550,22 @@ def _work_bytes(g: GroupPlan, dtype: torch.dtype,
 
 
 def _plan_entry(A: CSC, S: SupernodalSymbolic, device: torch.device,
-                tile_rmin: int, tile_pair: bool) -> DevicePlan:
+                tile_rmin: int, tile_pair: bool, tile_big: int = 0,
+                tile_frac: float = 0.0) -> DevicePlan:
     """The plan for ``S`` (the analysis of ``A``) and its host arrays,
     built once and cached on ``S._torch_plan``, keyed by everything that
-    changes it: the tile threshold, the manifest form and the device."""
+    changes it: the tile threshold, the manifest form, the wide-tile
+    threshold, the fold fraction and the device."""
     cache = getattr(S, "_torch_plan", None)
     if cache is None:
         cache = {}
         S._torch_plan = cache
-    key = (int(tile_rmin), bool(tile_pair), str(device))
+    key = (int(tile_rmin), bool(tile_pair), str(device), int(tile_big),
+           float(tile_frac))
     if key not in cache:
         C_low = A.symperm(S.perm).transpose()
-        plan = build_plan(S, C_low, tile_rmin, tile_pair)
+        plan = build_plan(S, C_low, tile_rmin, tile_pair, tile_big=tile_big,
+                          tile_frac=tile_frac)
         host = _host_arrays(plan)
         cache[key] = DevicePlan(plan=plan, device=device, groups=None,
                                 host=host, index_bytes=segmented.nbytes(host))
@@ -567,11 +582,12 @@ def _upload(dp: DevicePlan) -> DevicePlan:
 
 
 def device_plan(A: CSC, S: SupernodalSymbolic, device: torch.device,
-                tile_rmin: int = TILE_RMIN,
-                tile_pair: bool = False) -> DevicePlan:
+                tile_rmin: int = TILE_RMIN, tile_pair: bool = False,
+                tile_big: int = 0, tile_frac: float = 0.0) -> DevicePlan:
     """The plan for ``S`` (the analysis of ``A``) with every group's index
     arrays on ``device`` (:func:`_plan_entry`'s, uploaded once)."""
-    return _upload(_plan_entry(A, S, device, tile_rmin, tile_pair))
+    return _upload(_plan_entry(A, S, device, tile_rmin, tile_pair, tile_big,
+                               tile_frac))
 
 
 def _use_potrf_kernel(dtype: torch.dtype, B: int, C: int) -> bool:
@@ -717,9 +733,12 @@ def update_dtype(config: Config, dtype: torch.dtype) -> torch.dtype:
 
 
 def factorize_device(A: CSC, S: SupernodalSymbolic, config: Config = DEFAULT,
-                     device="cuda", tile_rmin: int = TILE_RMIN):
+                     device="cuda", tile_rmin: int = TILE_RMIN,
+                     tile_big: int = 0, tile_frac: float = 0.0):
     """A(p,p) = L L^T on ``device``; a TorchSupernodalFactor (device layout).
 
+    ``tile_rmin``, ``tile_big`` and ``tile_frac`` shape the tile manifests
+    (:func:`build_plan`; the defaults are the reference's);
     ``config.tile_pair`` picks the two-piece tile manifests;
     ``config.update_dtype`` the dtype of the child updates
     (:func:`update_dtype`); ``config.segment_bytes`` the budget past which
@@ -732,7 +751,8 @@ def factorize_device(A: CSC, S: SupernodalSymbolic, config: Config = DEFAULT,
     dev = resolve_device(device)
     dtype = compute_dtype(config)
     udtype = update_dtype(config, dtype)
-    dp = _plan_entry(A, S, dev, tile_rmin, config.tile_pair)
+    dp = _plan_entry(A, S, dev, tile_rmin, config.tile_pair, tile_big,
+                     tile_frac)
     plan = dp.plan
     costs = dp.costs.get((dtype, udtype))
     if costs is None:

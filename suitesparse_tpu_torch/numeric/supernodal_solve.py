@@ -32,15 +32,37 @@ and sweep:
   applies L21 (forward v = wb + L21 xc, backward y - L21^T xb).
 
 In the w2 and inv sweeps, contributions move child -> parent along the
-plan's pair classes in class-sorted pass-up buffers, after the
-reference's ``_sorted_route`` (its default at nrhs <= 8; the port takes
-it at every nrhs): forward, one ``index_select`` a child group lays its
-pass-up vectors out in consuming-class order, and each class adds a
-contiguous slice of them (a view, no launch) into the parent's vector
-with ``index_add_``; backward, each class gathers its rows of the
-parent's x straight into its slice of the child group's slab, and one
-``index_select`` a child group brings the slab back to batch order
-(slots no class feeds read the slab's zero pad row).
+plan's pair classes through a pass-up heap (:func:`_heap_route`), laid
+out by placement: each placement owns a contiguous span of heap rows, its
+classes' child slots one after another. Forward, one ``index_copy_`` a
+child group puts its pass-up vectors where the classes that read them
+lie, and one ``index_add_`` a placement adds its span into the parent's
+vector; backward, one ``index_select`` a placement gathers its rows of
+the parent's x into its span of a second heap, and one a child group
+takes its below rows from there (slots no class feeds read zero). The
+placements are flat-row ``index_add_``s, so classes of different RU_c
+need none of the reference's padding or one-hot matrices. The sweeps
+take ``ROUTE``, "fused": one placement a parent group, after the
+reference's ``_fused_route`` (``SSTPU_SOLVE_FUSE_ROUTE``); it ran at or
+below the class-sorted route's wall in every w2 and inv cell measured on
+the card. The reference's other two routings (``ROUTES``) stay as its
+parity builders, reached only through the private ``_mf_dispatch``:
+
+* ``"merged"``: one placement an exact-RU_c bucket, after the reference's
+  ``_merged_route`` (``SSTPU_SOLVE_MERGE``), with the right-hand side
+  gathered once a sweep (``_pb_pregather``; each group's rows a slice),
+  which the reference, too, takes only there;
+* ``"sorted"``: one a class, the reference's class-sorted route
+  (``_sorted_route``, its default at nrhs <= 8).
+
+Each route's index tensors are built once per device plan
+(``DevicePlan.solve[route]``), over the route-independent ones that every
+sweep reads (``DevicePlan.solve_base``); the sweeps' per-factor states
+(W2, inv's W) do not depend on the route. On the CPU the fused route gives
+the sorted route's bits (each row's sums in the same order); the merged
+route adds a group's classes bucket by bucket, and on the card
+``index_add_`` sums with atomics, so there the routes agree up to the
+order of the sums.
 
 The classic sweep routes a level at a time, after the reference's mf2
 sweep (``SSTPU_SOLVE_MF2``, ``build_mf2_plan``): forward, the pass-up
@@ -49,7 +71,8 @@ vectors by one slice copy, and each parent group takes its children's
 rows by one gather from the heap and one ``index_add_`` into its vector
 (the reference's one-hot placement matmul); backward, the solved x of
 every group lives in a second heap, and each group gathers its below
-rows from it once. No op is issued per pair class.
+rows from it once. No op is issued per pair class, so the routes above
+add nothing there, and the classic sweep reads none of them.
 
 A factor in the CHOLMOD px layout (``TorchPxFactor``, one that
 ``serialize.load_factor`` put on the device) takes the px sweep, the
@@ -97,7 +120,8 @@ from .supernodal_device import (_C_LADDER, _R_LADDER, DevicePlan, _bound_ms,
                                 _cached_plan, _pad_to, _ranges,
                                 _use_potrf_kernel, build_plan, compute_dtype)
 
-__all__ = ["BMV_MIN_BATCH", "MF2Plan", "PMV_MIN_CELLS", "PxPlan",
+__all__ = ["BMV_MIN_BATCH", "MF2Plan", "PMV_MIN_CELLS", "PxPlan", "ROUTE",
+           "ROUTES",
            "SolvePlan", "build_mf2_plan", "build_px_plan",
            "build_solve_plan", "build_w2", "build_winv", "classic_route",
            "inv_route", "px_panels", "px_plan", "px_route", "relayout_fn",
@@ -115,6 +139,11 @@ _SOLVE_R_LADDER = [16, 64, 256, 1024, 4096, 8192]
 _SOLVE_C_LADDER = [16, 64, 256, 512]
 _NO_TILES = 1 << 40       # tile_rmin no group reaches: a solve plan has no
 #                           tile manifest
+ROUTES = ("sorted", "fused", "merged")   # the reference's solve routings
+# the one the w2 and inv sweeps take: at or below the sorted route's wall
+# in every w2 and inv cell of ``chip_smoke.py``'s route_phase (nrhs 1, 8
+# and 64, on the card; PERF.md)
+ROUTE = "fused"
 
 
 @dataclasses.dataclass
@@ -353,18 +382,42 @@ def _solve_target(F, ladder: str):
 
 
 @dataclasses.dataclass
-class SolveRouting:
-    """Index tensors of the multifrontal solve, on the plan's device."""
+class SolveBase:
+    """The index tensors that every sweep of the multifrontal solve reads,
+    whatever its route, on the plan's device: built once per device plan
+    (``DevicePlan.solve_base``)."""
 
     splan: SolvePlan
     col_idx: list        # col_idx[d][gi]: (B*C,) rows of the permuted rhs
-    # classes[d][gi] = [(src key, off, hi, rows)]: the class reads rows
-    # off:hi of its child group's sorted buffer
-    classes: list
     xmap: torch.Tensor   # (n,) row of the concatenated xc holding column j
-    sorted: dict         # child key -> (cat, inv, ncat), :func:`_sorted_route`
     heap: object = None  # the classic sweep's level routing
     #                      (:class:`MF2Routing`), built at its first solve
+
+
+@dataclasses.dataclass
+class SolveRouting:
+    """Index tensors of the w2 and inv sweeps on one route, on the plan's
+    device; ``splan``, ``col_idx`` and ``xmap`` are the plan's
+    :class:`SolveBase`'s."""
+
+    splan: SolvePlan
+    col_idx: list
+    xmap: torch.Tensor
+    route: str
+    # places[d][gi] = [(lo, hi, rows)], one a placement: it adds rows
+    # lo:hi of the pass-up heap into the group's (B*R + 1) vector rows
+    # ``rows`` (forward) and gathers those rows of its x back into heap
+    # rows lo:hi (backward); hrows[child key]: the heap row of each of the
+    # child group's (B*RU) pass-up rows (rows no class reads: the heap's
+    # rows from ``ndata`` on, which the backward heap holds at zero);
+    # ``nheap`` heap rows in all (:func:`_heap_route`)
+    places: list
+    hrows: dict
+    ndata: int
+    nheap: int
+    # "merged": (the rhs rows of every group, concatenated; {(d, gi):
+    # offset of its rows}) from :func:`_pb_pregather`, else None
+    pregather: tuple | None = None
 
 
 def _sorted_route(plan) -> tuple[dict, dict]:
@@ -378,7 +431,9 @@ def _sorted_route(plan) -> tuple[dict, dict]:
     buffer; ``inv`` maps each slot to its row there, and a slot that no
     class reads to the zero pad row ``ncat``. The classes of one child
     group must read disjoint slots (the routing runs along tree edges);
-    a plan where they do not raises ``ValueError``."""
+    a plan where they do not raises ``ValueError``. The "sorted" route
+    lays the same classes out on the pass-up heap (:func:`_heap_route`);
+    the parity tests hold its spans to these maps."""
     order: dict = {}
     for d, glist in enumerate(plan.groups):
         for gi, g in enumerate(glist):
@@ -403,40 +458,186 @@ def _sorted_route(plan) -> tuple[dict, dict]:
     return groups_map, class_map
 
 
-def _routing(S, dp: DevicePlan) -> SolveRouting:
-    """Built once per device plan: ``rows`` flattens (dst, idx) into the
-    parent's (B*R + 1) vector rows, with idx < 0 sent to the last (dump)
-    row, and each class's slice of its child's sorted buffer
-    (:func:`_sorted_route`)."""
-    if dp.solve is None:
-        plan, dev = dp.plan, dp.device
+def _merged_route(fg):
+    """The pair classes of parent group ``fg`` bucketed by exact RU_c, the
+    reference's ``_merged_route`` (a copy, cached on ``fg._solve_merged``):
+    [(idxcat (npt, RU_c), dstcat (npt,), metas)] in order of each bucket's
+    first class, metas = [(src_level, src_gi, src, k0, k1)], the classes
+    of a bucket one after another along the pair axis."""
+    mr = getattr(fg, "_solve_merged", None)
+    if mr is None:
+        byru: dict = {}
+        for pc, (src, dst, idx) in zip(fg.pairs, fg._pair_arrays):
+            byru.setdefault(pc.RU_c, []).append((pc, src, dst, idx))
+        mr = []
+        for _ru, lst in byru.items():
+            k0, metas = 0, []
+            for (pc, src, dst, idx) in lst:
+                metas.append((pc.src_level, pc.src_gi, src, k0,
+                              k0 + src.size))
+                k0 += src.size
+            mr.append((np.concatenate([idx for (_p, _s, _d, idx) in lst],
+                                      axis=0),
+                       np.concatenate([d for (_p, _s, d, _i) in lst]),
+                       metas))
+        fg._solve_merged = mr
+    return mr
 
-        def t64(a):
-            return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
 
-        splan = build_solve_plan(S, plan)
-        smap, cmap = _sorted_route(plan)
-        col_idx, classes = [], []
-        for d, (glist, sglist) in enumerate(zip(plan.groups, splan.groups)):
-            col_idx.append([t64(sg.col_idx) for sg in sglist])
-            crow = []
-            for gi, g in enumerate(glist):
-                cl = []
-                for ci, (pc, (_src, dst, idx)) in enumerate(
-                        zip(g.pairs, g._pair_arrays)):
-                    rows = np.where(idx >= 0,
-                                    dst.astype(np.int64)[:, None] * g.R + idx,
-                                    g.B * g.R)
-                    cl.append(((pc.src_level, pc.src_gi),
-                               *cmap[(d, gi, ci)], t64(rows.ravel())))
-                crow.append(cl)
-            classes.append(crow)
-        dp.solve = SolveRouting(
-            splan=splan, col_idx=col_idx, classes=classes,
-            xmap=t64(_mf_xmap(S, plan)),
-            sorted={k: (t64(cat), t64(inv), ncat)
-                    for k, (cat, inv, ncat) in smap.items()})
-    return dp.solve
+def _pb_pregather(splan: SolvePlan):
+    """One gather of the right-hand side for a whole sweep, the
+    reference's ``_pb_pregather`` (a copy, cached on
+    ``splan._pb_pregather``): (every group's ``col_idx`` concatenated in
+    plan order, {(d, gi): offset of the group's rows})."""
+    pg = getattr(splan, "_pb_pregather", None)
+    if pg is None:
+        idxs, offs = [], {}
+        off = 0
+        for d, gl in enumerate(splan.groups):
+            for gi, sg in enumerate(gl):
+                idxs.append(sg.col_idx)
+                offs[(d, gi)] = off
+                off += sg.col_idx.size
+        pg = (np.concatenate(idxs) if idxs else np.empty(0, np.int64), offs)
+        splan._pb_pregather = pg
+    return pg
+
+
+def _fused_route(fg):
+    """All pair classes of parent group ``fg`` in one placement, the
+    reference's ``_fused_route`` (a copy, cached on ``fg._solve_fused``):
+    (idxcat (NP, RUmax) int32 padded with -1, dstcat (NP,), metas, RUmax),
+    metas = [(src_level, src_gi, src, k0, k1, RU_c)] in plan order; None
+    for a group without classes. The port reads each class's RU_c columns
+    of ``idxcat`` and builds no one-hot matrix."""
+    fr = getattr(fg, "_solve_fused", None)
+    if fr is None and fg.pairs:
+        RUmax = max(pc.RU_c for pc in fg.pairs)
+        idxs, dsts, metas = [], [], []
+        k0 = 0
+        for pc, (src, dst, idx) in zip(fg.pairs, fg._pair_arrays):
+            idxs.append(np.pad(idx, ((0, 0), (0, RUmax - idx.shape[1])),
+                               constant_values=-1))
+            dsts.append(dst)
+            metas.append((pc.src_level, pc.src_gi, src, k0, k0 + src.size,
+                          pc.RU_c))
+            k0 += src.size
+        fr = (np.concatenate(idxs, axis=0), np.concatenate(dsts),
+              metas, RUmax)
+        fg._solve_fused = fr
+    return fr
+
+
+def _placements(g, route: str) -> list:
+    """The placements of parent group ``g`` on ``route`` ("sorted": one a
+    class, in plan order; "fused": one, :func:`_fused_route`; "merged":
+    one an RU_c bucket, :func:`_merged_route`), each a list of its
+    classes as (child key, src, dst, idx) in the placement's order."""
+    if not g.pairs:
+        return []
+    if route == "sorted":
+        return [[((pc.src_level, pc.src_gi), src, dst, idx)]
+                for pc, (src, dst, idx) in zip(g.pairs, g._pair_arrays)]
+    if route == "fused":
+        idxcat, dstcat, metas, _RUmax = _fused_route(g)
+        return [[((sl, sgi), src, dstcat[k0:k1], idxcat[k0:k1, :ruc])
+                 for (sl, sgi, src, k0, k1, ruc) in metas]]
+    return [[((sl, sgi), src, dstcat[k0:k1], idxcat[k0:k1])
+             for (sl, sgi, src, k0, k1) in metas]
+            for (idxcat, dstcat, metas) in _merged_route(g)]
+
+
+def _heap_route(plan, route: str):
+    """The pass-up heap of ``route`` (one of :data:`ROUTES`) on the factor
+    plan ``plan``: (places, hrows, ndata, nheap) as :class:`SolveRouting`
+    holds them, in numpy.
+
+    Each placement owns a contiguous span of heap rows: its classes one
+    after another, each class its pairs, each pair the RU rows of its
+    child slot. A child group writes its pass-up vectors into the spans
+    of the classes that read them with one scatter (``index_copy_``), so
+    each placement reads its span as it lies; its rows no class reads go
+    to rows of their own after the data. The classes of one child group
+    must read disjoint slots (as :func:`_sorted_route`'s); a plan where
+    they do not raises ``ValueError``."""
+    places, hrows = [], {}
+    off = 0
+    for glist in plan.groups:
+        row = []
+        for g in glist:
+            pl = []
+            for members in _placements(g, route):
+                lo, rows = off, []
+                for key, src, dst, idx in members:
+                    cg = plan.groups[key[0]][key[1]]
+                    RU = cg.R - cg.C
+                    h = hrows.setdefault(key, np.full(cg.B * RU, -1,
+                                                      dtype=np.int64))
+                    at = (np.asarray(src, dtype=np.int64)[:, None] * RU
+                          + np.arange(RU)).ravel()
+                    if (h[at] >= 0).any():
+                        raise ValueError(f"_heap_route: the classes that "
+                                         f"read child group {key} share "
+                                         f"slots")
+                    h[at] = off + np.arange(at.size)
+                    off += at.size
+                    rows.append(np.where(
+                        idx >= 0, dst.astype(np.int64)[:, None] * g.R + idx,
+                        g.B * g.R).ravel())
+                pl.append((lo, off, np.concatenate(rows)))
+            row.append(pl)
+        places.append(row)
+    ndata = off
+    for h in hrows.values():
+        free = np.flatnonzero(h < 0)
+        h[free] = off + np.arange(free.size)
+        off += free.size
+    return places, hrows, ndata, off
+
+
+def _t64(a, dev) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+
+
+def _solve_base(S, dp: DevicePlan) -> SolveBase:
+    """The :class:`SolveBase` of ``dp``, built at its first solve and
+    cached on ``dp.solve_base``."""
+    if dp.solve_base is None:
+        splan = build_solve_plan(S, dp.plan)
+        dp.solve_base = SolveBase(
+            splan=splan,
+            col_idx=[[_t64(sg.col_idx, dp.device) for sg in sglist]
+                     for sglist in splan.groups],
+            xmap=_t64(_mf_xmap(S, dp.plan), dp.device))
+    return dp.solve_base
+
+
+def _routing(S, dp: DevicePlan, route: str = ROUTE) -> SolveRouting:
+    """The routing of ``route`` (one of :data:`ROUTES`), built once per
+    device plan and route and cached on ``dp.solve[route]`` (F3): the
+    pass-up heap of :func:`_heap_route`, each placement's ``rows``
+    flattening (dst, idx) into the parent's (B*R + 1) vector rows with
+    idx < 0 sent to the last (dump) row, and for "merged" the rhs
+    pre-gather (:func:`_pb_pregather`). The routes share the plan's
+    :class:`SolveBase`."""
+    if route not in ROUTES:
+        raise ValueError(f"route must be one of {ROUTES}, got {route!r}")
+    if route in dp.solve:
+        return dp.solve[route]
+    base = _solve_base(S, dp)
+    dev = dp.device
+    places, hrows, ndata, nheap = _heap_route(dp.plan, route)
+    pregather = None
+    if route == "merged":
+        idx, offs = _pb_pregather(base.splan)
+        pregather = (_t64(idx, dev), offs)
+    dp.solve[route] = SolveRouting(
+        splan=base.splan, col_idx=base.col_idx, xmap=base.xmap, route=route,
+        places=[[[(lo, hi, _t64(rows, dev)) for lo, hi, rows in pl]
+                 for pl in row] for row in places],
+        hrows={k: _t64(h, dev) for k, h in hrows.items()}, ndata=ndata,
+        nheap=nheap, pregather=pregather)
+    return dp.solve[route]
 
 
 def _split_panels(P: torch.Tensor, nc: np.ndarray):
@@ -668,65 +869,77 @@ def _classic_steps(splan: SolvePlan, Lx: torch.Tensor, L11s: list, dtype):
     return fwd, bwd
 
 
+def _rhs_reader(rt: SolveRouting, pb: torch.Tensor):
+    """``rhs(d, gi)``: the rows of ``pb`` that group (d, gi) reads. With
+    ``rt.pregather`` (the merged route) every group's rows are gathered
+    here at once and each group's are a slice; else one gather a group."""
+    if rt.pregather is None:
+        return lambda d, gi: pb[rt.col_idx[d][gi]]
+    idx, offs = rt.pregather
+    pbcat = pb.index_select(0, idx)
+    return lambda d, gi: pbcat[
+        offs[(d, gi)]:offs[(d, gi)] + rt.col_idx[d][gi].numel()]
+
+
 def _mf_solve_fn(dp: DevicePlan, rt: SolveRouting, pb: torch.Tensor,
                  fwd, bwd) -> torch.Tensor:
     """xcat (sum B*C, nrhs) from the permuted rhs ``pb`` (n+1, nrhs) whose
-    last row is zero (the dump row that padded columns read).
+    last row is zero (the dump row that padded columns read), the pass-up
+    vectors moving through the heap of ``rt``'s route (:func:`_heap_route`).
 
     ``fwd(d, gi, yc, wb) -> (xc, v)`` and ``bwd(d, gi, yc, xb) -> xc`` are
-    one group's steps (wb, xb, v are None for a group without below rows)."""
+    one group's steps (wb, xb, v are None for a group without below rows).
+    Forward, each group adds its placements' heap spans into its vector
+    (one ``index_add_`` a placement) and scatters its own pass-up vectors
+    into the heap (one ``index_copy_``); each group reads its rhs rows
+    through :func:`_rhs_reader`.
+    Backward, each placement gathers its rows of the group's x into its
+    span of a second heap (one ``index_select``), and each child group
+    gathers its below rows out of it (one ``index_select``; rows no class
+    feeds read zero)."""
     plan = dp.plan
     nrhs = pb.shape[1]
     dtype, dev = pb.dtype, pb.device
 
-    up: dict = {}      # (level, gi) -> pass-up vectors (B, RU, nrhs)
-    yfwd: dict = {}    # (level, gi) -> forward solution (B, C, nrhs)
+    rhs = _rhs_reader(rt, pb)
+    vheap = torch.empty(rt.nheap, nrhs, dtype=dtype, device=dev)
+    yfwd: dict = {}
     for d, glist in enumerate(plan.groups):
         for gi, g in enumerate(glist):
             B, R, C = g.B, g.R, g.C
             w = torch.zeros(B * R + 1, nrhs, dtype=dtype, device=dev)
-            for key, off, hi, rows in rt.classes[d][gi]:
-                w.index_add_(0, rows, up[key][off:hi].reshape(-1, nrhs))
+            for lo, hi, rows in rt.places[d][gi]:
+                w.index_add_(0, rows, vheap[lo:hi])
             w = w[:-1].view(B, R, nrhs)
-            yc = pb[rt.col_idx[d][gi]].view(B, C, nrhs) - w[:, :C]
+            yc = rhs(d, gi).view(B, C, nrhs) - w[:, :C]
             xc, v = fwd(d, gi, yc, w[:, C:] if R > C else None)
             yfwd[(d, gi)] = xc
-            if (d, gi) in rt.sorted:
-                # consuming-class order: each class reads a slice
-                up[(d, gi)] = v.index_select(0, rt.sorted[(d, gi)][0])
+            if (d, gi) in rt.hrows:
+                vheap.index_copy_(0, rt.hrows[(d, gi)], v.reshape(-1, nrhs))
 
-    xb: dict = {}      # (level, gi) -> x on the group's below rows
+    xheap = torch.empty(rt.nheap, nrhs, dtype=dtype, device=dev)
+    if rt.nheap > rt.ndata:
+        xheap[rt.ndata:].zero_()
     xcs: dict = {}
     for d in range(len(plan.groups) - 1, -1, -1):
         for gi in range(len(plan.groups[d]) - 1, -1, -1):
             g = plan.groups[d][gi]
             B, R, C = g.B, g.R, g.C
             RU = R - C
-            below = xb.pop((d, gi), None)
-            if below is None and RU > 0:
+            below = None
+            if (d, gi) in rt.hrows:
+                below = xheap.index_select(0, rt.hrows[(d, gi)]).view(
+                    B, RU, nrhs)
+            elif RU > 0:
                 below = torch.zeros(B, RU, nrhs, dtype=dtype, device=dev)
-            elif below is not None:
-                # the sorted slab back to batch order
-                below = below.index_select(0, rt.sorted[(d, gi)][1])
             xc = bwd(d, gi, yfwd.pop((d, gi)), below)
             xcs[(d, gi)] = xc
-            if not rt.classes[d][gi]:
+            if not rt.places[d][gi]:
                 continue
             fx = torch.cat([xc, below], dim=1) if RU > 0 else xc
-            fx = torch.cat([fx.reshape(B * R, nrhs),
-                            fx.new_zeros(1, nrhs)])
-            for key, off, hi, rows in rt.classes[d][gi]:
-                buf = xb.get(key)
-                if buf is None:
-                    # every row but the pad is some class's slice
-                    cg = plan.groups[key[0]][key[1]]
-                    ncat = rt.sorted[key][2]
-                    buf = torch.empty(ncat + 1, cg.R - cg.C, nrhs,
-                                      dtype=dtype, device=dev)
-                    buf[ncat].zero_()
-                    xb[key] = buf
-                torch.index_select(fx, 0, rows,
-                                   out=buf[off:hi].view(-1, nrhs))
+            fx = torch.cat([fx.reshape(B * R, nrhs), fx.new_zeros(1, nrhs)])
+            for lo, hi, rows in rt.places[d][gi]:
+                torch.index_select(fx, 0, rows, out=xheap[lo:hi])
     return torch.cat([xcs[(d, gi)].reshape(-1, nrhs)
                       for d in range(len(plan.groups))
                       for gi in range(len(plan.groups[d]))])
@@ -851,17 +1064,17 @@ class MF2Routing:
     xlevel: list         # xlevel[d]: (first, end) heap rows of level d's x
 
 
-def _heap_routing(S, dp: DevicePlan, rt: SolveRouting) -> MF2Routing:
-    """Built once per device plan (``rt.heap``, beside the plan's other
-    routing ``rt``): :func:`build_mf2_plan`, each route's padded entries
-    (front coordinate -1) dropped and the rest flattened to (heap row,
-    parent row) pairs."""
-    if rt.heap is None:
+def _heap_routing(S, dp: DevicePlan, base: SolveBase) -> MF2Routing:
+    """Built once per device plan (``base.heap``, on the plan's
+    :class:`SolveBase`): :func:`build_mf2_plan`, each route's padded
+    entries (front coordinate -1) dropped and the rest flattened to (heap
+    row, parent row) pairs."""
+    if base.heap is None:
         plan, dev = dp.plan, dp.device
         m2 = build_mf2_plan(S, plan)
 
         def t64(a):
-            return torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
+            return _t64(a, dev)
 
         fwd, xpos, vlevel, xlevel = [], [], [], []
         for d, glist in enumerate(plan.groups):
@@ -882,12 +1095,12 @@ def _heap_routing(S, dp: DevicePlan, rt: SolveRouting) -> MF2Routing:
             xend = sum(g.B * g.C for g in glist)
             vlevel.append((m2.lv_vbase[d], m2.lv_vbase[d] + vend))
             xlevel.append((m2.lv_xbase[d], m2.lv_xbase[d] + xend))
-        rt.heap = MF2Routing(nv=m2.vrows, nx=m2.xrows, fwd=fwd, xpos=xpos,
-                             vlevel=vlevel, xlevel=xlevel)
-    return rt.heap
+        base.heap = MF2Routing(nv=m2.vrows, nx=m2.xrows, fwd=fwd,
+                               xpos=xpos, vlevel=vlevel, xlevel=xlevel)
+    return base.heap
 
 
-def _mf2_solve_fn(dp: DevicePlan, rt: SolveRouting, mr: MF2Routing,
+def _mf2_solve_fn(dp: DevicePlan, base: SolveBase, mr: MF2Routing,
                   pb: torch.Tensor, fwd, bwd) -> torch.Tensor:
     """xcat (sum B*C, nrhs) from the permuted rhs ``pb`` (n+1, nrhs, last
     row zero) by the classic sweep's level routing (the module docstring,
@@ -909,7 +1122,7 @@ def _mf2_solve_fn(dp: DevicePlan, rt: SolveRouting, mr: MF2Routing,
             if route is not None:
                 w.index_add_(0, route[1], vheap.index_select(0, route[0]))
             w = w.view(B, R, nrhs)
-            yc = pb[rt.col_idx[d][gi]].view(B, C, nrhs) - w[:, :C]
+            yc = pb[base.col_idx[d][gi]].view(B, C, nrhs) - w[:, :C]
             xc, v = fwd(d, gi, yc, w[:, C:] if R > C else None)
             yfwd[(d, gi)] = xc
             if v is not None:
@@ -1216,33 +1429,38 @@ def _px_dispatch(F, bb: np.ndarray, config: Config):
     return fn, (y,)
 
 
-def _mf_dispatch(F, bb: np.ndarray, config: Config):
+def _mf_dispatch(F, bb: np.ndarray, config: Config, route: str = ROUTE):
+    """:func:`solve_dispatch` of a device-layout factor on the w2 and inv
+    sweeps' pass-up ``route`` (:data:`ROUTES`): the sweeps take
+    :data:`ROUTE`, and the parity checks reach the others here."""
     S = F.S
     dtype = compute_dtype(config)
     mode = solve_mode(F, config)
     ladder = solve_ladder(F)
     dp, Lx = _solve_target(F, ladder)
-    rt = _routing(S, dp)
-    state = _solve_state(F, mode, dtype, rt.splan, config, ladder, Lx)
+    base = _solve_base(S, dp)
+    state = _solve_state(F, mode, dtype, base.splan, config, ladder, Lx)
     nrhs = bb.shape[1]
     if mode == "w2":
-        steps = _w2_steps(rt.splan, *state, nrhs, config)
+        steps = _w2_steps(base.splan, *state, nrhs, config)
     elif mode == "inv":
-        steps = _inv_steps(rt.splan, Lx.to(dtype), state, nrhs, config)
+        steps = _inv_steps(base.splan, Lx.to(dtype), state, nrhs, config)
     else:
-        steps = _classic_steps(rt.splan, Lx.to(dtype), state, dtype)
+        steps = _classic_steps(base.splan, Lx.to(dtype), state, dtype)
     pbp = np.concatenate([bb[S.perm], np.zeros((1, nrhs))], axis=0)
     pb = torch.as_tensor(pbp, device=dp.device).to(dtype)
     if mode == "classic":
-        heap = _heap_routing(S, dp, rt)
+        heap = _heap_routing(S, dp, base)
 
         def fn(pb):
             with fp32_precision(config.precision):
-                return _mf2_solve_fn(dp, rt, heap, pb, *steps)[rt.xmap]
+                return _mf2_solve_fn(dp, base, heap, pb, *steps)[base.xmap]
     else:
+        rt = _routing(S, dp, route)
+
         def fn(pb):
             with fp32_precision(config.precision):
-                return _mf_solve_fn(dp, rt, pb, *steps)[rt.xmap]
+                return _mf_solve_fn(dp, rt, pb, *steps)[base.xmap]
 
     return fn, (pb,)
 

@@ -6,8 +6,8 @@ mode: ``SSTPU_SOLVE_INV=0`` (no inverse panels), ``SSTPU_SOLVE_SORT=0``
 that its solve-step (K3) and trisolve (K4) kernels run in interpret mode.
 The port analyzes the same matrix itself with the reference's ordering and
 factors on the CPU, where its K3/K4 wrappers take their plain versions; it
-routes by its default, the class-sorted buffers at nrhs <= 8, which give
-the unsorted sweep's bits on the CPU (``tests/test_torch_sorted_route.py``).
+routes a level at a time (the reference's mf2 routing, whatever the w2 and
+inv sweeps' route).
 Both sweeps solve with fp32 factors and sum in other orders, so x is held to
 1e-4 * max|x| and the residual to 1e-5 (the factor's own accuracy).
 

@@ -20,7 +20,16 @@ reference's ``build_group_manifest(..., npiece=2)`` bit for bit, its plain
 extend-add equals the one-piece one, and the port's factor with
 ``tile_pair=True`` matches the reference's with ``SSTPU_TILE_PAIR=1``
 within 2e-6 * max|Lx|, the reference's own tolerance for that form
-(``tests/test_extend_add_tiles.py``)."""
+(``tests/test_extend_add_tiles.py``).
+
+256-wide tiles (``build_plan(..., tile_big=, tile_frac=)``, the
+reference's ``SSTPU_TILE_BIG`` and ``SSTPU_TILE_FRAC``): the manifests equal
+the reference's at T = 256 in both forms and two fold fractions; the plain
+version matches the Pallas kernel at T = 256 (1e-6, both forms, off the
+plans); the port's factor matches the reference's under its switches
+(1e-5 * max|Lx|) and, where a 256-wide group hands its update to a class
+no manifest folds, the factor without tiles; the launch plan at T = 256
+covers every row once; maps of another width raise."""
 
 import numpy as np
 import pytest
@@ -42,9 +51,9 @@ import suitesparse_tpu_torch as sstt
 from suitesparse_tpu_torch.ordering import nested_dissection_order
 from suitesparse_tpu_torch.symbolic.supernodes import analyze_supernodal
 from suitesparse_tpu_torch.kernels.extend_add_tiles import (
-    FILL_BLOCKS, SPLITS, TILE, build_group_manifest, extend_add_tiles,
-    extend_add_tiles_plain, manifest_work, run_ptr, synthetic_group,
-    tile_geometry)
+    FILL_BLOCKS, SPLITS, TILE, WIDE_SPLITS, build_group_manifest,
+    extend_add_tiles, extend_add_tiles_plain, manifest_work, run_ptr,
+    synthetic_group, tile_geometry)
 from suitesparse_tpu_torch.kernels.trisolve import SMEM_BYTES
 from suitesparse_tpu_torch.numeric import supernodal_device
 from suitesparse_tpu_torch.numeric.supernodal_device import build_plan
@@ -288,3 +297,154 @@ def test_plain_matches_pallas_off_the_plans(B, R, classes, npiece):
     ones = extend_add_tiles_plain(torch.zeros(B, R, R),
                                   torch.ones(U.shape), *args[1:])
     assert ones.sum().item() == manifest_work(tm, runs, R)[1]
+
+
+WIDE = 256
+WIDE_BIG = 96      # tile_big of the small plans: their largest groups
+
+
+def _wide_groups(nx, frac, tile_pair=False):
+    A = sstt.fixtures.laplacian_3d(nx)
+    S = analyze_supernodal(A, nested_dissection_order(A, sstt.DEFAULT))
+    plan = build_plan(S, A.symperm(S.perm).transpose(), tile_rmin=32,
+                      tile_pair=tile_pair, tile_big=WIDE_BIG, tile_frac=frac)
+    return [g for gl in plan.groups for g in gl if g.R >= 32]
+
+
+@pytest.mark.parametrize("tile_pair", [False, True])
+@pytest.mark.parametrize("frac", [0.0, 0.6])
+def test_wide_manifests_equal_the_reference(frac, tile_pair):
+    groups = _wide_groups(12, frac, tile_pair)
+    assert any(g.R >= WIDE_BIG and g._tile is not None for g in groups)
+    for g in groups:
+        T = WIDE if g.R >= WIDE_BIG else TILE
+        ref = build_group_manifest_ref(g, T=T, ru_min_frac=frac,
+                                       npiece=2 if tile_pair else 1)
+        tm = g._tile
+        assert (tm is None) == (ref is None)
+        if tm is None:
+            continue
+        assert tm.rowmap.shape[1:] == (2 if tile_pair else 1, T)
+        for field in ("man", "rowmap", "colmap"):
+            got, want = getattr(tm, field), getattr(ref, field)
+            assert got.dtype == want.dtype and np.array_equal(got, want)
+        assert (tm.RUp, tm.nslots, tm.folded) == (ref.RUp, ref.nslots,
+                                                  ref.folded)
+        assert tm.RUp % T == 0
+
+
+@pytest.mark.parametrize("npiece", [1, 2])
+def test_wide_plain_matches_pallas(npiece):
+    """An odd R over two 256-wide tile rows, a class wider than a tile:
+    pieces that span two child blocks."""
+    rng = np.random.default_rng(256 + npiece)
+    B, R = 2, 301
+    g = synthetic_group(rng, B, R, ((3, 290), (2, 40)))
+    tm = build_group_manifest(g, T=WIDE, ru_min_frac=0.0, npiece=npiece)
+    runs = run_ptr(tm.man)
+    assert tm.RUp == 2 * WIDE and (tm.man[:, 1] == 1).any()
+    F = rng.standard_normal((B, R, R)).astype(np.float32)
+    U = rng.standard_normal((tm.nslots, tm.RUp, tm.RUp)).astype(np.float32)
+    upper = np.triu(np.ones((tm.RUp, tm.RUp), bool), 1)
+    U[(rng.random(U.shape) < 0.05) & upper] = np.nan
+    ref = np.asarray(extend_add_tiles_pallas(
+        jnp.asarray(F), jnp.asarray(U), tm.man, tm.rowmap, tm.colmap,
+        interpret=True))
+    args = [torch.from_numpy(a) for a in (U, tm.man, tm.rowmap, tm.colmap)]
+    before = (extend_add_tiles.wide_launches,
+              extend_add_tiles.wide_pair_launches)
+    got = extend_add_tiles(torch.from_numpy(F.copy()), *args,
+                           torch.from_numpy(runs)).numpy()
+    assert (extend_add_tiles.wide_launches,
+            extend_add_tiles.wide_pair_launches) == before
+    t = np.arange(R) // WIDE
+    low = (t[:, None] >= t[None, :])[None].repeat(B, 0)
+    assert np.isfinite(got[low]).all()
+    assert np.abs(got[low] - ref[low]).max() <= RTOL * np.abs(ref[low]).max()
+    assert np.array_equal(got[~low], F[~low])
+    ones = extend_add_tiles_plain(torch.zeros(B, R, R),
+                                  torch.ones(U.shape), *args[1:])
+    assert ones.sum().item() == manifest_work(tm, runs, R)[1]
+
+
+def test_wrapper_refuses_other_widths():
+    rng = np.random.default_rng(3)
+    g = synthetic_group(rng, 1, 100, ((2, 50),))
+    tm = build_group_manifest(g, T=64, ru_min_frac=0.0)
+    F = torch.zeros(1, 100, 100)
+    U = torch.zeros(tm.nslots, tm.RUp, tm.RUp)
+    args = [torch.from_numpy(a) for a in (tm.man, tm.rowmap, tm.colmap,
+                                          run_ptr(tm.man))]
+    with pytest.raises(ValueError, match="width 64"):
+        extend_add_tiles(F, U, *args)
+
+
+def test_wide_factor_matches_reference(monkeypatch):
+    for k, v in (("SSTPU_PALLAS", "1"), ("SSTPU_PLACE", "tile"),
+                 ("SSTPU_TILE_RMIN", "32"), ("SSTPU_TILE_BIG", "96"),
+                 ("SSTPU_TILE_FRAC", "0.3")):
+        monkeypatch.setenv(k, v)
+    Aj = sst.io.fixtures.laplacian_3d(10)
+    Sj = ref_analyze_supernodal(Aj, ref_nested_dissection_order(
+        Aj, sst.DEFAULT))
+    Fj = ref_device.factorize_device(Aj, Sj, sst.DEFAULT)
+    A = sstt.fixtures.laplacian_3d(10)
+    S = analyze_supernodal(A, Sj.perm)
+    F = supernodal_device.factorize_device(A, S, sstt.DEFAULT, "cpu",
+                                           tile_rmin=32, tile_big=96,
+                                           tile_frac=0.3)
+    groups = [g for gl in F.dplan.plan.groups for g in gl
+              if g._tile is not None]
+    widths = {g._tile.rowmap.shape[-1] for g in groups}
+    assert widths == {TILE, WIDE}
+    assert any(len(g._tile.folded) < len(g.pairs) for g in groups)
+    assert Fj.ok and F.ok
+    lj = np.asarray(Fj.Lx, dtype=np.float64)
+    lt = F.Lx.numpy().astype(np.float64)
+    assert lt.shape == lj.shape
+    assert np.abs(lt - lj).max() <= 1e-5 * np.abs(lj).max()
+
+
+def test_wide_tiles_symmetrize_for_full_readers():
+    """F8 at T = 256: ``_mark_symmetrize`` flags a 256-wide group whose
+    update a class outside its parent's manifest reads whole, and the
+    factor with those manifests equals the one without tiles."""
+    A = sstt.fixtures.laplacian_3d(12)
+    S = analyze_supernodal(A, nested_dissection_order(A, sstt.DEFAULT))
+    F = supernodal_device.factorize_device(A, S, sstt.DEFAULT, "cpu",
+                                           tile_rmin=32, tile_big=WIDE_BIG,
+                                           tile_frac=0.6)
+    wide = [g for gl in F.dplan.plan.groups for g in gl
+            if g._tile is not None and g._tile.rowmap.shape[-1] == WIDE]
+    assert any(g._symm_u for g in wide)
+    F0 = supernodal_device.factorize_device(A, S, sstt.DEFAULT, "cpu",
+                                            tile_rmin=1 << 40)
+    assert F.ok and F0.ok
+    l0 = F0.Lx.double()
+    assert (F.Lx.double() - l0).abs().max() <= 1e-5 * l0.abs().max()
+
+
+def test_wide_tile_geometry():
+    rng = np.random.default_rng(7)
+    g = synthetic_group(rng, 3, 600, ((4, 300), (3, 100)))
+    tm = build_group_manifest(g, T=WIDE, ru_min_frac=0.0)
+    nruns = len(run_ptr(tm.man)) - 1
+    plan = tile_geometry(nruns, g.R, tm.RUp, 1, T=WIDE)
+    assert plan.split in WIDE_SPLITS and plan.T == WIDE
+    for geo in [plan] + [tile_geometry(nruns, g.R, tm.RUp, 1, s, T=WIDE)
+                         for s in WIDE_SPLITS]:
+        owner = np.zeros(WIDE, int)
+        for b in range(geo.split):
+            for w in range(geo.warps):
+                r0 = (b * geo.warps + w) * geo.rows
+                owner[r0:r0 + geo.rows] += 1
+        assert (owner == 1).all(), geo
+        assert geo.rows in (8, 4, 2)
+        assert geo.smem == 4 * geo.warps * geo.rows * WIDE <= SMEM_BYTES
+        assert geo.blocks == nruns * geo.split
+    assert tile_geometry(5000, 2712, 2048, 1, T=WIDE).split == WIDE_SPLITS[0]
+    assert tile_geometry(6, 600, 512, 2, T=WIDE).split == WIDE_SPLITS[-1]
+    for bad in ((10, 600, 512, 1, None, 192), (10, 600, 384, 1, None, WIDE),
+                (10, 600, 512, 1, 4, WIDE)):
+        with pytest.raises(ValueError):
+            tile_geometry(*bad)

@@ -3,9 +3,9 @@ reference's ``solve_device`` in the same mode.
 
 The reference runs with ``SSTPU_SOLVE_INV=1 SSTPU_SOLVE_W2=0`` (W = L11^-1
 a group, two matvecs a step) and unsorted routing (``SSTPU_SOLVE_SORT=0``),
-its ``jnp.matmul`` on every group. The port routes by its default, the
-class-sorted buffers at nrhs <= 8 (on the CPU the unsorted sweep's bits,
-``tests/test_torch_sorted_route.py``), and applies W and L21 through
+its ``jnp.matmul`` on every group. The port routes by its default route
+(fused: one placement a parent group; on the CPU the unsorted sweep's
+bits, ``tests/test_torch_solve_routes.py``), and applies W and L21 through
 ``torch.matmul``, or with ``solve_bmv`` through K6 (``kernels/bmatvec``),
 whose CPU tensors take its plain version; ``BMV_MIN_BATCH`` is lowered so
 that the small problem's groups reach it. Both sides solve with the same

@@ -82,7 +82,7 @@ def test_cholesky_segmented_equals_one_piece_and_the_reference(dtype,
     assert np.abs(lt - lj).max() <= TOL[dtype] * np.abs(lj).max()
     # the plan's cache does not keep the one-piece upload of a plan that
     # ran segmented; a one-piece factor uploads it again
-    dp = St._torch_plan[(sd.TILE_RMIN, False, "cpu")]
+    dp = St._torch_plan[(sd.TILE_RMIN, False, "cpu", 0, 0.0)]
     assert dp.groups is None and dp.schedule[0][-1] == CHOL_BYTES
     # groups assembled through tile manifests (fp32: K2 and K7 on the
     # unfolded classes) take their arrays a segment at a time too

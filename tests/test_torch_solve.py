@@ -1,9 +1,10 @@
 """Port's w2 multifrontal solve vs the reference's ``solve_device``.
 
 The reference runs its stacked-inverse (w2) sweep with unsorted routing
-(``SSTPU_SOLVE_SORT=0``); the port takes its default, the class-sorted
-buffers at nrhs <= 8, which give the unsorted sweep's bits on the CPU
-(``tests/test_torch_sorted_route.py``). Both sweeps apply the same W2
+(``SSTPU_SOLVE_SORT=0``); the port takes its default route (fused: one
+placement a parent group), which gives the class-sorted and the unsorted
+sweeps' bits on the CPU (``tests/test_torch_solve_routes.py``,
+``tests/test_torch_sorted_route.py``). Both sweeps apply the same W2
 panels in fp32 with sums in another order, so x is held to 1e-4 * max|x|
 and the residual to 1e-5 (the factor's own fp32 accuracy bounds both)."""
 

@@ -1,16 +1,19 @@
 """Class-sorted pass-up buffers in the port's multifrontal solve sweeps.
 
-Every multifrontal sweep (w2, classic, inv) moves its pass-up vectors
-through the class-sorted buffers of ``_sorted_route``, after the
-reference's: one gather a child group lays them out in consuming-class
-order, each class reads a slice.
+The reference's "sorted" route of the w2 and inv sweeps (the sweeps take
+``supernodal_solve.ROUTE``; the private ``_mf_dispatch`` reaches this
+one) moves the pass-up vectors through the class-sorted buffers of
+``_sorted_route``, after the reference's: one gather a child group lays
+them out in consuming-class order, each class reads a slice. The classic
+sweep routes by levels whatever the route.
 
 - **Maps.** On ``laplacian_3d(9)``, a forest of 6 ``laplacian_3d(4)``
   blocks and the embedded plan of a magnetic Laplacian (k = 5): each
   child group's ``cat`` is unique and ``ncat`` long, ``inv[cat]`` is the
   range and every other slot points at the pad row, the classes' spans
   partition ``[0, ncat)`` in plan order and each holds its class's
-  ``src``; the tensors and spans on ``SolveRouting`` hold the same. On
+  ``src``; the sorted routing's heap spans (one a class) hold the slots
+  in that order, and the slots no class reads lie past the data. On
   ``laplacian_3d(9)`` the maps equal the reference's ``_sorted_route`` on
   its plan of the same analysis.
 - **Against the px sweep.** The w2, classic and inv sweeps at nrhs 1, 8
@@ -76,6 +79,14 @@ def _plan(name):
     return A, S, supernodal_device.device_plan(A, S, CPU, 32)
 
 
+def _solve_sorted(F, b, cfg):
+    """x of ``solve_device(F, b, cfg)`` with the w2 and inv sweeps on the
+    sorted route."""
+    bb, one_d = ss._rhs(b)
+    fn, args = ss._mf_dispatch(F, bb, cfg, "sorted")
+    return ss._finish(F, fn(*args), one_d)
+
+
 @pytest.mark.parametrize("name", ["laplacian_3d_9", "forest_6x4",
                                   "complex_embedded"])
 def test_sorted_route_maps(name):
@@ -105,15 +116,26 @@ def test_sorted_route_maps(name):
             assert lo == off and np.array_equal(cat[lo:hi], src)
             off = hi
         assert off == ncat
-    rt = ss._routing(S, dp)
-    for key, (cat, inv, ncat) in smap.items():
-        tc, ti, tn = rt.sorted[key]
-        assert tn == ncat and np.array_equal(tc.numpy(), cat) \
-            and np.array_equal(ti.numpy(), inv)
+    # the sorted routing on the heap: one placement a class, whose span
+    # holds its child slots in the maps' order, and the rows no class reads
+    # past the data, as the maps' pad row
+    rt = ss._routing(S, dp, "sorted")
     for d, gl in enumerate(plan.groups):
         for gi, g in enumerate(gl):
-            assert [(off, hi) for _k, off, hi, _r in rt.classes[d][gi]] == \
-                [cmap[(d, gi, ci)] for ci in range(len(g.pairs))]
+            assert len(rt.places[d][gi]) == len(g.pairs)
+            for ci, (lo, hi, _rows) in enumerate(rt.places[d][gi]):
+                pc = g.pairs[ci]
+                key = (pc.src_level, pc.src_gi)
+                cg = plan.groups[key[0]][key[1]]
+                h = rt.hrows[key].numpy().reshape(cg.B, cg.R - cg.C)
+                cat = smap[key][0]
+                off, end = cmap[(d, gi, ci)]
+                assert np.array_equal(h[cat[off:end]].ravel(),
+                                      np.arange(lo, hi))
+    for key, (cat, inv, ncat) in smap.items():
+        h = rt.hrows[key].numpy().reshape(len(inv), -1)
+        assert (h[inv == ncat] >= rt.ndata).all()
+        assert (h[cat] < rt.ndata).all()
 
 
 @pytest.mark.parametrize("name", ["laplacian_3d_9", "forest_6x4",
@@ -124,7 +146,7 @@ def test_sorted_sweep_solves_the_map_fixtures(name):
         A, S, sstt.DEFAULT.replace(compute_dtype="float64"), "cpu")
     assert F.ok
     b = np.random.default_rng(3).standard_normal((A.ncol, 3))
-    x = ss.solve_device(F, b, sstt.DEFAULT.replace(compute_dtype="float64"))
+    x = _solve_sorted(F, b, sstt.DEFAULT.replace(compute_dtype="float64"))
     xd = np.linalg.solve(A.to_dense(), b)
     assert np.abs(x - xd).max() <= X64_TOL * np.abs(xd).max()
 
@@ -175,7 +197,7 @@ def test_sorted_sweep_matches_the_px_sweep(problem, mode, nrhs):
     Fp = TorchPxFactor(S=F.S, Lx=torch.as_tensor(F.lx_host()),
                        minor=F.minor)
     b = _rhs(A.ncol, nrhs)
-    x = ss.solve_device(F, b, cfg)
+    x = _solve_sorted(F, b, cfg)
     xp = ss.solve_device(Fp, b, cfg)
     assert ss.solve_mode(F, cfg) == ("w2" if mode == "auto" else mode)
     assert np.abs(x - xp).max() <= X64_TOL * np.abs(xp).max()

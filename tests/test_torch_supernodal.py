@@ -208,12 +208,20 @@ def test_plan_cache_keys_on_tile_threshold_and_device():
     p256 = supernodal_device.device_plan(A, S, cpu)
     assert p256 is not p32
     assert p256.device == p32.device == cpu
-    assert set(S._torch_plan) == {(32, False, "cpu"), (256, False, "cpu")}
+    assert set(S._torch_plan) == {(32, False, "cpu", 0, 0.0),
+                                  (256, False, "cpu", 0, 0.0)}
     assert not any(g._tile is not None and g.R < 256
                    for gl in p256.plan.groups for g in gl)
     # the manifest form is part of the key: two-piece steps, same layout
     pair = supernodal_device.device_plan(A, S, cpu, 32, tile_pair=True)
-    assert pair is not p32 and (32, True, "cpu") in S._torch_plan
+    assert pair is not p32 and (32, True, "cpu", 0, 0.0) in S._torch_plan
     assert pair.plan.dev_size == p32.plan.dev_size
     assert {g._tile.man.shape[1] for gl in pair.plan.groups for g in gl
             if g._tile is not None} == {14}
+    # so are the wide-tile threshold and the fold fraction (F7)
+    wide = supernodal_device.device_plan(A, S, cpu, 32, tile_big=192,
+                                         tile_frac=0.5)
+    assert wide is not p32 and (32, False, "cpu", 192, 0.5) in S._torch_plan
+    assert wide.plan.dev_size == p32.plan.dev_size
+    assert {g._tile.rowmap.shape[-1] for gl in wide.plan.groups for g in gl
+            if g._tile is not None} == {128, 256}

@@ -37,8 +37,9 @@ and COLAMD knobs in the port, against the JAX package on the CPU.
   1e-5 (max|Hx - b| / max|b|), the refined x within 1e-6 of the
   reference's.
 - **Knobs.** ``qr_tol`` changes ``rank_est`` and x alike in both
-  packages (host QR, host multifrontal QR), and the device QR's tolerance
-  follows it; non-default COLAMD dense cuts give the reference's
+  packages (host QR, host multifrontal QR; x bit-equal at full rank, and
+  at the reduced rank the port's host x least squares on the live columns,
+  F17), and the device QR's tolerance follows it; non-default COLAMD dense cuts give the reference's
   permutation. The port's ``Config`` lacks exactly the reference's fields
   that no reference code reads. The roofline's bytes under bfloat16
   updates fall below the fp32 report's by exactly the update cells.
@@ -403,7 +404,21 @@ def test_qr_tol_changes_rank_and_x_alike():
         assert F.rank_est == Fj.rank_est == rank
         assert F.tol == Fj.tol and (tol < 0 or F.tol == tol)
         xs[tol] = x = sstt.qrsol(A, b, cfg, device="cpu")
-        assert np.array_equal(x, sst.qrsol(Aj, b, cfgj))
+        xj = sst.qrsol(Aj, b, cfgj)
+        if rank == n:
+            assert np.array_equal(x, xj)
+        else:
+            # F17: the same dead column, and the port's x is least squares
+            # on the live ones where the reference's drops the dead
+            # pivot's row of R
+            D = A.to_dense()
+            live = x != 0.0
+            assert np.array_equal(live, xj != 0.0) and live.sum() == rank
+            xl = np.linalg.lstsq(D[:, live], b, rcond=None)[0]
+            rl = np.linalg.norm(D[:, live] @ xl - b)
+            r = np.linalg.norm(D @ x - b)
+            assert abs(r - rl) <= 1e-10 * rl
+            assert r <= np.linalg.norm(D @ xj - b) * (1 + 1e-12)
         SQ = mfqr.analyze_mfqr(A, cfg)
         SQj = ref_mfqr.analyze_mfqr(Aj, cfgj)
         Fm = mfqr.factorize_qr_host(A, SQ, b, cfg)
