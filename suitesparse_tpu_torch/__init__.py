@@ -64,7 +64,7 @@ from .numeric.simplicial import Factor, SymbolicChol, chol_solve
 from .numeric.supernodal import (SupernodalFactorAdapter, TorchPxFactor,
                                  TorchSupernodalFactor)
 from .sparse import CSC, eye, from_dense, from_triplets, residual_norm
-from .stats import GLOBAL_STATS, timed
+from .stats import GLOBAL_STATS, span, timed
 
 __all__ = [
     "CSC", "Config", "DEFAULT", "Factor", "FactorKind", "Ordering",
@@ -104,8 +104,10 @@ def analyze(A: CSC, config: Config = DEFAULT,
         raise ValueError("analyze expects upper-stored symmetric (sym=1)")
     with timed("analyze"):
         if perm is None:
-            perm = _fill_reducing_perm(A, config)
-        S = simplicial.symbolic_cholesky(A, perm)
+            with span("analyze.order"):
+                perm = _fill_reducing_perm(A, config)
+        with span("analyze.symbolic"):
+            S = simplicial.symbolic_cholesky(A, perm)
     if config.record_stats:
         GLOBAL_STATS.record("lnz", S.lnz)
         GLOBAL_STATS.record("fl", S.fl)

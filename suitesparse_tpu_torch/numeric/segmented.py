@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..stats import count, span
 
 __all__ = ["AUTO_SHARE", "budget", "one_piece_bytes", "schedule",
            "segments", "uploads", "nbytes", "to_device"]
@@ -133,11 +134,14 @@ def uploads(host: list, segs: list, device: torch.device, part=None,
     """Yield (position, arrays on ``device``) of every group, segment by
     segment (both in reverse for a backward sweep): a segment's arrays
     (``part(host[pos])``, or all of them) go up when it starts and are let
-    go when it ends."""
+    go when it ends (each upload a span ``factor.index_upload``, its bytes
+    counted in ``h2d_bytes.index``)."""
     for seg in (reversed(segs) if reverse else segs):
         order = seg[::-1] if reverse else seg
-        arrays = [to_device(part(host[p]) if part else host[p], device)
-                  for p in order]
+        with span("factor.index_upload"):
+            arrays = [to_device(part(host[p]) if part else host[p], device)
+                      for p in order]
+            count("h2d_bytes.index", nbytes(arrays))
         yield from zip(order, arrays)
         del arrays
 

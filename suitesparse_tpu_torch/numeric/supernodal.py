@@ -20,6 +20,7 @@ import torch
 from ..config import DEFAULT, Config
 from ..device import resolve_device
 from ..sparse import CSC
+from ..stats import span
 from ..symbolic.supernodes import SupernodalSymbolic, analyze_supernodal
 from . import supernodal_device
 
@@ -251,7 +252,8 @@ def factorize(A: CSC, S_or_simpl, config: Config = DEFAULT,
             "takes cholsol (the 2x2 real embedding on the device, the host "
             "LL^H below its size) or factorize (the host LL^H)")
     dev = resolve_device(device)
-    S = supernodal_symbolic(A, S_or_simpl, config)
+    with span("factor.symbolic"):
+        S = supernodal_symbolic(A, S_or_simpl, config)
     if _should_use_device(S, config):
         F = supernodal_device.factorize_device(A, S, config, dev)
     else:

@@ -51,6 +51,7 @@ from ..kernels.extend_add_tiles import build_group_manifest, extend_add_tiles, \
     run_ptr
 from ..kernels.potrf import MAX_C, potrf_trsm
 from ..sparse import CSC
+from ..stats import OFF, count, span, tracing
 from ..symbolic.supernodes import SupernodalSymbolic
 from . import segmented
 
@@ -563,6 +564,7 @@ def _plan_entry(A: CSC, S: SupernodalSymbolic, device: torch.device,
     key = (int(tile_rmin), bool(tile_pair), str(device), int(tile_big),
            float(tile_frac))
     if key not in cache:
+        count("plan.build")
         C_low = A.symperm(S.perm).transpose()
         plan = build_plan(S, C_low, tile_rmin, tile_pair, tile_big=tile_big,
                           tile_frac=tile_frac)
@@ -575,7 +577,9 @@ def _plan_entry(A: CSC, S: SupernodalSymbolic, device: torch.device,
 def _upload(dp: DevicePlan) -> DevicePlan:
     """The one-piece upload: every group's arrays on the device."""
     if dp.groups is None:
-        flat = segmented.to_device(dp.host, dp.device)
+        with span("factor.index_upload"):
+            flat = segmented.to_device(dp.host, dp.device)
+            count("h2d_bytes.index", dp.index_bytes)
         it = iter(flat)
         dp.groups = [[next(it) for _g in glist] for glist in dp.plan.groups]
     return dp
@@ -690,6 +694,19 @@ def _group_compute(g, ix: GroupArrays, Cdata: torch.Tensor, updates: dict,
     return torch.cat([L11, L21], dim=1), U.to(udtype)
 
 
+def _group_args(g, ix: GroupArrays, d: int, gi: int, dtype: torch.dtype,
+                udtype: torch.dtype | None) -> dict:
+    """The arguments of a group's span: where it sits, its shape and the
+    route :func:`_group_compute` takes (K1 or the library's potrf, a K2
+    manifest, the pair classes K7 places)."""
+    k2 = ix.tile is not None and _tiled(dtype, udtype)
+    work = ix.k7 if k2 else ix.k7_all
+    return {"level": d, "index": gi, "B": g.B, "R": g.R, "C": g.C,
+            "potrf": "K1" if _use_potrf_kernel(dtype, g.B, g.C) else
+            "library", "K2": int(k2),
+            "K7_classes": 0 if work is None else len(work.keys)}
+
+
 def _run_plan(plan: Plan, arrays, Cdata: torch.Tensor, dtype: torch.dtype,
               udtype: torch.dtype | None = None):
     """Every group in plan order; returns the padded factor (dev_size,).
@@ -706,12 +723,16 @@ def _run_plan(plan: Plan, arrays, Cdata: torch.Tensor, dtype: torch.dtype,
         free_after.setdefault(pos, []).append(key)
     Lx = torch.empty(plan.dev_size, dtype=dtype, device=Cdata.device)
     updates: dict = {}
+    traced = tracing()
     for pos, ix in arrays:
         d, gi = keys[pos]
         g = plan.groups[d][gi]
-        panel, U = _group_compute(g, ix, Cdata, updates, dtype,
-                                  udtype=udtype)
-        Lx[g.panel_base:g.panel_base + panel.numel()] = panel.reshape(-1)
+        with span("factor.group", _group_args(g, ix, d, gi, dtype, udtype)) \
+                if traced else OFF:
+            panel, U = _group_compute(g, ix, Cdata, updates, dtype,
+                                      udtype=udtype)
+            Lx[g.panel_base:g.panel_base + panel.numel()] = \
+                panel.reshape(-1)
         if U is not None and (d, gi) in last:
             updates[(d, gi)] = U
         for key in free_after.get(pos, ()):
@@ -751,30 +772,37 @@ def factorize_device(A: CSC, S: SupernodalSymbolic, config: Config = DEFAULT,
     dev = resolve_device(device)
     dtype = compute_dtype(config)
     udtype = update_dtype(config, dtype)
-    dp = _plan_entry(A, S, dev, tile_rmin, config.tile_pair, tile_big,
-                     tile_frac)
-    plan = dp.plan
-    costs = dp.costs.get((dtype, udtype))
-    if costs is None:
-        dp.costs[dtype, udtype] = costs = [
-            (segmented.nbytes(_select(ix, dtype, udtype)),
-             _work_bytes(g, dtype, udtype))
-            for ix, g in zip(dp.host, (g for gl in plan.groups for g in gl))]
-    segs = segmented.segments(
-        dp, (id(plan), str(dtype), str(udtype), str(dev)), costs, config,
-        dev, plan.dev_size * dtype.itemsize)
+    with span("factor.plan"):
+        dp = _plan_entry(A, S, dev, tile_rmin, config.tile_pair, tile_big,
+                         tile_frac)
+        plan = dp.plan
+        costs = dp.costs.get((dtype, udtype))
+        if costs is None:
+            dp.costs[dtype, udtype] = costs = [
+                (segmented.nbytes(_select(ix, dtype, udtype)),
+                 _work_bytes(g, dtype, udtype))
+                for ix, g in zip(dp.host,
+                                 (g for gl in plan.groups for g in gl))]
+        segs = segmented.segments(
+            dp, (id(plan), str(dtype), str(udtype), str(dev)), costs, config,
+            dev, plan.dev_size * dtype.itemsize)
     if segs is None:
         groups = _upload(dp).groups
         arrays = enumerate(ix for il in groups for ix in il)
     else:
         arrays = segmented.uploads(dp.host, segs, dev,
                                    lambda ix: _select(ix, dtype, udtype))
-    Cdata = torch.as_tensor(_clow_data(A, S), device=dev).to(dtype)
-    with fp32_precision(config.precision):
+    with span("factor.gather"):
+        values = _clow_data(A, S)
+    with span("factor.upload"):
+        Cdata = torch.as_tensor(values, device=dev).to(dtype)
+        count("h2d_bytes.values", values.nbytes)
+    with span("factor.groups"), fp32_precision(config.precision):
         Lx = _run_plan(plan, arrays, Cdata, dtype, udtype)
     minor = S.n
-    if not bool(torch.isfinite(Lx).all()):
-        minor = _find_minor(S, plan, Lx.cpu().numpy())
+    with span("factor.check"):
+        if not bool(torch.isfinite(Lx).all()):
+            minor = _find_minor(S, plan, Lx.cpu().numpy())
     return TorchSupernodalFactor(S=S, Lx=Lx, minor=minor, dplan=dp,
                                  segments=1 if segs is None else len(segs))
 

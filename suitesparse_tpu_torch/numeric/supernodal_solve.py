@@ -114,6 +114,7 @@ from ..kernels.pmatvec import pmatvec_t
 from ..kernels.solve_step import solve_step_bwd, solve_step_fwd, step_fits
 from ..kernels.trisolve import batched_trisolve, trisolve_fits
 from ..sparse import CSC
+from ..stats import OFF, count, span
 from ..symbolic.supernodes import SupernodalSymbolic
 from .supernodal import TorchPxFactor
 from .supernodal_device import (_C_LADDER, _R_LADDER, DevicePlan, _bound_ms,
@@ -316,9 +317,11 @@ def _coarse_entry(S: SupernodalSymbolic, dp: DevicePlan):
     the relayout of ``dp``'s layout into it), built once per (factor
     plan, coarse plan) and cached on ``dp.coarse``."""
     if dp.coarse is None:
-        plan2 = _coarse_plan(S)
-        dp.coarse = (DevicePlan(plan=plan2, device=dp.device, groups=None),
-                     relayout_fn(S, dp.plan, plan2))
+        with span("solve.plan"):
+            plan2 = _coarse_plan(S)
+            dp.coarse = (DevicePlan(plan=plan2, device=dp.device,
+                                    groups=None),
+                         relayout_fn(S, dp.plan, plan2))
     return dp.coarse
 
 
@@ -339,7 +342,10 @@ def _coarse_lx(F) -> torch.Tensor:
     lx2 = _coarse_copy(F)
     if lx2 is None:
         F._solve.pop(("relayout",), None)     # let the old copy go
-        lx2 = _coarse_entry(F.S, F.dplan)[1](F.Lx)
+        relayout = _coarse_entry(F.S, F.dplan)[1]
+        with span("solve.relayout"):
+            lx2 = relayout(F.Lx)
+        count("relayout.build")
         F._solve[("relayout",)] = (F.Lx, F.dplan, lx2)
     return lx2
 
@@ -1226,7 +1232,9 @@ def _cached(F, key, build, src: torch.Tensor):
     ``src`` it was built from (``F.Lx``, or its relayouted copy)."""
     c = F._solve.get(key)
     if c is None or c[0] is not src:
-        F._solve[key] = (src, build())
+        with span("solve.state"):
+            F._solve[key] = (src, build())
+        count("solve_state.build")
     return F._solve[key][1]
 
 
@@ -1411,6 +1419,16 @@ def _rhs(b: np.ndarray):
     return (b.reshape(-1, 1) if b.ndim == 1 else b), b.ndim == 1
 
 
+def _upload_rhs(bb: np.ndarray, perm: np.ndarray, dev: torch.device,
+                dtype: torch.dtype) -> torch.Tensor:
+    """b permuted on the host, a zero row appended (the sweeps' dump
+    row), on ``dev`` in ``dtype``."""
+    with span("solve.rhs"):
+        pbp = np.concatenate([bb[perm], np.zeros((1, bb.shape[1]))], axis=0)
+        count("h2d_bytes.rhs", pbp.nbytes)
+        return torch.as_tensor(pbp, device=dev).to(dtype)
+
+
 def _px_dispatch(F, bb: np.ndarray, config: Config):
     S = F.S
     dtype = compute_dtype(config)
@@ -1419,8 +1437,7 @@ def _px_dispatch(F, bb: np.ndarray, config: Config):
     routing = _px_routing(plan, dev)
     panels = _cached(F, ("px", dtype), lambda: px_panels(plan, F.Lx, dtype),
                      F.Lx)
-    pbp = np.concatenate([bb[S.perm], np.zeros((1, bb.shape[1]))], axis=0)
-    y = torch.as_tensor(pbp, device=dev).to(dtype)
+    y = _upload_rhs(bb, S.perm, dev, dtype)
 
     def fn(y):
         with fp32_precision(config.precision):
@@ -1435,10 +1452,12 @@ def _mf_dispatch(F, bb: np.ndarray, config: Config, route: str = ROUTE):
     :data:`ROUTE`, and the parity checks reach the others here."""
     S = F.S
     dtype = compute_dtype(config)
-    mode = solve_mode(F, config)
-    ladder = solve_ladder(F)
+    with span("solve.route"):
+        mode = solve_mode(F, config)
+        ladder = solve_ladder(F)
     dp, Lx = _solve_target(F, ladder)
-    base = _solve_base(S, dp)
+    with span("solve.plan") if dp.solve_base is None else OFF:
+        base = _solve_base(S, dp)
     state = _solve_state(F, mode, dtype, base.splan, config, ladder, Lx)
     nrhs = bb.shape[1]
     if mode == "w2":
@@ -1447,16 +1466,17 @@ def _mf_dispatch(F, bb: np.ndarray, config: Config, route: str = ROUTE):
         steps = _inv_steps(base.splan, Lx.to(dtype), state, nrhs, config)
     else:
         steps = _classic_steps(base.splan, Lx.to(dtype), state, dtype)
-    pbp = np.concatenate([bb[S.perm], np.zeros((1, nrhs))], axis=0)
-    pb = torch.as_tensor(pbp, device=dp.device).to(dtype)
+    pb = _upload_rhs(bb, S.perm, dp.device, dtype)
     if mode == "classic":
-        heap = _heap_routing(S, dp, base)
+        with span("solve.plan") if base.heap is None else OFF:
+            heap = _heap_routing(S, dp, base)
 
         def fn(pb):
             with fp32_precision(config.precision):
                 return _mf2_solve_fn(dp, base, heap, pb, *steps)[base.xmap]
     else:
-        rt = _routing(S, dp, route)
+        with span("solve.plan") if route not in dp.solve else OFF:
+            rt = _routing(S, dp, route)
 
         def fn(pb):
             with fp32_precision(config.precision):
@@ -1484,11 +1504,14 @@ def solve_dispatch(F, b: np.ndarray, config: Config = DEFAULT):
 
 
 def _finish(F, yz: torch.Tensor, one_d: bool) -> np.ndarray:
-    """x on the host from the permuted device solution ``yz``."""
-    yz = yz.cpu().numpy().astype(np.float64)
-    x = np.empty_like(yz)
-    x[F.S.perm] = yz
-    return x[:, 0] if one_d else x
+    """x on the host from the permuted device solution ``yz`` (the copy
+    waits for the sweep)."""
+    with span("solve.finish"):
+        count("d2h_bytes.x", yz.numel() * yz.element_size())
+        yz = yz.cpu().numpy().astype(np.float64)
+        x = np.empty_like(yz)
+        x[F.S.perm] = yz
+        return x[:, 0] if one_d else x
 
 
 def solve_px(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
@@ -1500,7 +1523,9 @@ def solve_px(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
         raise ValueError(f"solve_px: the factor failed at column {F.minor}")
     bb, one_d = _rhs(b)
     fn, args = _px_dispatch(F, bb, config)
-    return _finish(F, fn(*args), one_d)
+    with span("solve.sweep"):
+        yz = fn(*args)
+    return _finish(F, yz, one_d)
 
 
 def solve_device(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
@@ -1511,7 +1536,9 @@ def solve_device(F, b: np.ndarray, config: Config = DEFAULT) -> np.ndarray:
     if isinstance(F, TorchPxFactor):
         return solve_px(F, b, config)
     fn, args = solve_dispatch(F, b, config)
-    return _finish(F, fn(*args), np.asarray(b).ndim == 1)
+    with span("solve.sweep"):
+        yz = fn(*args)
+    return _finish(F, yz, np.asarray(b).ndim == 1)
 
 
 def _solve_rows(plan, nrhs: int = 1, bytes_per_elt: int = 4) -> list:

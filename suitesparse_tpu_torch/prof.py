@@ -30,8 +30,9 @@ Per phase it prints one JSON line:
 
 - ``wall_s``: the unprofiled minimum; ``prof_wall_s``: the profiled call;
 - ``device_busy_s``: the union of the device intervals (kernels, copies,
-  memsets) of the profiled call; ``device_idle_share`` = 1 - busy /
-  prof_wall_s;
+  memsets) of the profiled call, without the device-side rows the
+  profiler files for a user annotation (a ``record_function`` range);
+  ``device_idle_share`` = 1 - busy / prof_wall_s;
 - ``n_device_ops`` and ``top``: the 8 largest rows of ``key_averages()``
   by self device time, as (name, ms, calls);
 - ``hand_kernels``: device ms and launches of each hand-written kernel of
@@ -90,12 +91,19 @@ def _sync_wall(fn) -> float:
     return time.perf_counter() - t0
 
 
+def _device_work(e) -> bool:
+    """Whether a profiler event is device work: a device row that is not
+    CUPTI's bookkeeping and not a user annotation's device-side row."""
+    return e.device_type == torch.autograd.DeviceType.CUDA \
+        and e.name not in _NOT_DEVICE_WORK \
+        and not getattr(e, "is_user_annotation", False)
+
+
 def _busy_s(events) -> tuple[float, int]:
     """Seconds covered by the device intervals of ``events`` and their
     number."""
     spans = sorted((e.time_range.start, e.time_range.end) for e in events
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name not in _NOT_DEVICE_WORK)
+                   if _device_work(e))
     busy, end = 0.0, -np.inf
     for s, e in spans:
         if e > end:
