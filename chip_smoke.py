@@ -189,9 +189,11 @@
    call with its parts (the n-node and
    the embedded analysis, the plan, the factor, the solve; the sweep
    ``solve_mode="auto"`` picked), the steady ``cholsol_complex_device``
-   (analysis cached, min of 3), one classic solve (K3 must launch, below
-   1e-5) and one fp64 call (K7's double instance, below 1e-12, the fp32
-   x within 1e-4 of its x);
+   (analysis cached, min of 3), whose factor must replay its captured
+   group loop bit-equal to the eager loop (``replay_check``), one classic
+   solve (K3 must launch, below 1e-5) and one fp64 call (K7's double
+   instance, below 1e-12, the fp32 x within 1e-4 of its x), then two
+   more fp64 factors, the second a replay bit-equal to the eager loop;
    ``upwind_unsym(30)`` with its values times e^{i theta}, theta ~
    U(-pi/4, pi/4) from seed 5, through ``multifrontal_lu.mflusol`` (the
    unsymmetric strategy on the embedding, n = 54,000 real) under the auto
@@ -1265,15 +1267,44 @@ def small_check(dev):
           f"x_rel_err_vs_host={x_err:.3e} indefinite_minor={mg}", flush=True)
 
 
+def replay_check(M, S, cfg, dev, calls: int = 1) -> dict:
+    """``calls`` factors of ``M`` on the analysis ``S`` under ``cfg``, the
+    last a replay of the key's captured group loop (a key's second factor
+    captures, later ones replay): its factor bit-equal to the eager loop
+    on the same values."""
+    import torch
+
+    from suitesparse_tpu_torch import stats
+    from suitesparse_tpu_torch.device import fp32_precision
+    from suitesparse_tpu_torch.numeric import supernodal_device as sd
+
+    for _ in range(calls):
+        before = stats.GLOBAL_STATS.counters.get("factor.graph.replay", 0)
+        F = sd.factorize_device(M, S, cfg, dev)
+    replays = stats.GLOBAL_STATS.counters.get("factor.graph.replay", 0) \
+        - before
+    dtype = sd.compute_dtype(cfg)
+    Cdata = torch.as_tensor(sd._clow_data(M, S), device=dev).to(dtype)
+    with fp32_precision(cfg.precision):
+        eager = sd._run_plan(
+            F.dplan.plan, enumerate(ix for il in F.dplan.groups for ix in il),
+            Cdata, dtype, sd.update_dtype(cfg, dtype))
+    equal = bool(torch.equal(F.Lx, eager))
+    assert replays == 1 and equal, (replays, equal)
+    return {"replayed": replays, "bit_equal": equal}
+
+
 def auto_fallback(F) -> None:
     """solve_mode="auto" on a card factor with no W2 built yet: w2 with the
     card's real free memory, classic once the free memory reported by
     ``torch.cuda.mem_get_info`` leaves no room for the coarse plan's W2 and
     the factor's copy relaid into it (the capacity gate's own arithmetic,
-    PyTorch's cached blocks included); the coarse plan either way."""
+    PyTorch's cached blocks included, less the free blocks of live graphs'
+    pools); the coarse plan either way."""
     import torch
 
     import suitesparse_tpu_torch as sstt
+    from suitesparse_tpu_torch.device import free_bytes
     from suitesparse_tpu_torch.numeric import supernodal_solve
 
     dev_F = F.F if isinstance(F, sstt.SupernodalFactorAdapter) else F
@@ -1283,8 +1314,8 @@ def auto_fallback(F) -> None:
     need = supernodal_solve._w2_need(
         supernodal_solve._coarse_plan(dev_F.S), torch.float32,
         sstt.DEFAULT) + supernodal_solve._coarse_need(dev_F)
-    cached = torch.cuda.memory_reserved() - torch.cuda.memory_allocated()
     real = torch.cuda.mem_get_info
+    cached = free_bytes(dev_F.Lx.device) - real(dev_F.Lx.device)[0]
     short = max(need - 1 - cached, 0)     # one byte short of W2's room
     torch.cuda.mem_get_info = lambda device=None: (short, real(device)[1])
     try:
@@ -1300,33 +1331,15 @@ def auto_fallback(F) -> None:
 
 
 def _counters() -> dict:
-    """kernel -> (wrapper, attribute holding its launch count)."""
-    from suitesparse_tpu_torch.kernels.bmatvec import bmatvec
-    from suitesparse_tpu_torch.kernels.extend_add import extend_add
-    from suitesparse_tpu_torch.kernels.extend_add_tiles import \
-        extend_add_tiles
-    from suitesparse_tpu_torch.kernels.pmatvec import pmatvec_t
-    from suitesparse_tpu_torch.kernels.potrf import potrf_trsm
-    from suitesparse_tpu_torch.kernels.solve_step import (solve_step_bwd,
-                                                          solve_step_fwd)
-    from suitesparse_tpu_torch.kernels.trisolve import batched_trisolve
+    """kernel -> (wrapper, attribute holding its launch count): every
+    kernel module's ``COUNTERS``."""
+    import importlib
 
-    return {"potrf_trsm": (potrf_trsm, "launches"),
-            "extend_add_tiles": (extend_add_tiles, "launches"),
-            "extend_add_tiles_pair": (extend_add_tiles, "pair_launches"),
-            "extend_add_tiles_wide": (extend_add_tiles, "wide_launches"),
-            "extend_add_tiles_pair_wide": (extend_add_tiles,
-                                           "wide_pair_launches"),
-            "solve_step_fwd": (solve_step_fwd, "launches"),
-            "solve_step_bwd": (solve_step_bwd, "launches"),
-            "batched_trisolve": (batched_trisolve, "launches"),
-            "pmatvec_t": (pmatvec_t, "launches"),
-            "bmatvec": (bmatvec, "launches"),
-            "bmatvec_t": (bmatvec, "transposed_launches"),
-            "extend_add": (extend_add, "launches"),
-            "extend_add_f64": (extend_add, "fp64_launches"),
-            "extend_add_bf16": (extend_add, "bf16_launches"),
-            "extend_add_f64_bf16": (extend_add, "f64_bf16_launches")}
+    return {name: c for mod in ("potrf", "extend_add_tiles", "solve_step",
+                                "trisolve", "pmatvec", "bmatvec",
+                                "extend_add")
+            for name, c in importlib.import_module(
+                f"suitesparse_tpu_torch.kernels.{mod}").COUNTERS.items()}
 
 
 def zero_counts() -> None:
@@ -1988,6 +2001,9 @@ def complex_phase() -> dict:
             with _step(steps, "steady_cholsol"):
                 chol_s = _best_s(lambda: ce.cholsol_complex_device(
                     H, b, perm=perm))
+            with _step(steps, "replay_check"):
+                replay = replay_check(ce.embed_matrix(H), S, sstt.DEFAULT,
+                                      dev)
             zero_counts()
             classic = sstt.DEFAULT.replace(solve_mode="classic")
             with _step(steps, "classic_cholsol"):
@@ -2003,6 +2019,9 @@ def complex_phase() -> dict:
                 x64 = ce.cholsol_complex_device(H, b, cfg64, perm=perm)
             chol64_s = steps["fp64_cholsol"]
             launches64 = counts()
+            with _step(steps, "replay_check64"):
+                replay64 = replay_check(ce.embed_matrix(H), S, cfg64, dev,
+                                        calls=2)
             resid64 = sstt.residual_norm(H, x64, b)
             gate64 = np.abs(H.matvec(x64) - b).max() / np.abs(b).max()
             assert np.isfinite(x64).all() and launches64["extend_add_f64"] > 0
@@ -2025,6 +2044,7 @@ def complex_phase() -> dict:
                 "residual64": resid64, "gate64": gate64,
                 "fp32_vs_fp64": dx, "peak_mem_gb": peak,
                 "kernel_check": kernel_check, "small_check": small,
+                "replay_check": replay, "replay_check64": replay64,
                 "launches": launches, "classic_launches": classic_launches,
                 "launches64": launches64}
             print(f"complex chol: {out['chol']}", flush=True)

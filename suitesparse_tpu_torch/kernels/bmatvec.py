@@ -28,8 +28,8 @@ import torch
 from . import _build
 from .trisolve import SMEM_BYTES, SMS
 
-__all__ = ["MAX_NR", "BmvGeometry", "bmatvec", "bmatvec_plain", "bmv_fits",
-           "bmv_geometry"]
+__all__ = ["COUNTERS", "MAX_NR", "BmvGeometry", "bmatvec", "bmatvec_plain",
+           "bmv_fits", "bmv_geometry"]
 
 MAX_NR = 8               # right-hand sides the kernel keeps in registers
 THREADS = 256            # threads of one block (csrc/bmatvec.cu)
@@ -210,5 +210,9 @@ def _launch(M: torch.Tensor, X: torch.Tensor, Z: torch.Tensor,
     _build.check_launch(err, "bmatvec")
 
 
-bmatvec.launches = 0               # forward kernel
-bmatvec.transposed_launches = 0    # transposed kernel
+# the launch counters, by the name a count is reported under: (wrapper,
+# attribute), each set to 0 here
+COUNTERS = {"bmatvec": (bmatvec, "launches"),              # forward kernel
+            "bmatvec_t": (bmatvec, "transposed_launches")}  # transposed
+for _fn, _attr in COUNTERS.values():
+    setattr(_fn, _attr, 0)

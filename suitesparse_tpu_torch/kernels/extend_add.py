@@ -45,7 +45,7 @@ import torch
 from . import _build
 from .trisolve import SMS
 
-__all__ = ["BANDS", "BLOCK_CELLS", "FILL_BLOCKS", "MAX_CLASSES",
+__all__ = ["COUNTERS", "BANDS", "BLOCK_CELLS", "FILL_BLOCKS", "MAX_CLASSES",
            "ExtendAddGeometry", "ExtendAddWork", "build_work", "class_maps",
            "class_work", "extend_add", "extend_add_geometry",
            "extend_add_group", "extend_add_group_plain", "extend_add_library",
@@ -429,7 +429,15 @@ def extend_add(F, U, idx, dst, src=None):
     return F
 
 
-extend_add.launches = 0         # fp32 instance, group and one-class launches
-extend_add.fp64_launches = 0    # fp64 instance
-extend_add.bf16_launches = 0    # fp32 fronts, bfloat16 updates
-extend_add.f64_bf16_launches = 0   # fp64 fronts, bfloat16 updates
+# the launch counters, by the name a count is reported under: (wrapper,
+# attribute), each set to 0 here
+COUNTERS = {
+    # fp32 instance, group and one-class launches
+    "extend_add": (extend_add, "launches"),
+    "extend_add_f64": (extend_add, "fp64_launches"),    # fp64 instance
+    # fp32 fronts, bfloat16 updates
+    "extend_add_bf16": (extend_add, "bf16_launches"),
+    # fp64 fronts, bfloat16 updates
+    "extend_add_f64_bf16": (extend_add, "f64_bf16_launches")}
+for _fn, _attr in COUNTERS.values():
+    setattr(_fn, _attr, 0)

@@ -43,9 +43,10 @@ import torch
 from . import _build
 from .trisolve import SMEM_BYTES, SMS
 
-__all__ = ["TILE", "TILES", "TileGeometry", "TileManifest", "build_group_manifest",
-           "manifest_work", "run_ptr", "synthetic_group", "tile_geometry",
-           "extend_add_tiles", "extend_add_tiles_plain"]
+__all__ = ["COUNTERS", "TILE", "TILES", "TileGeometry", "TileManifest",
+           "build_group_manifest", "manifest_work", "run_ptr",
+           "synthetic_group", "tile_geometry", "extend_add_tiles",
+           "extend_add_tiles_plain"]
 
 TILE = 128
 TILES = (128, 256)     # tile widths the kernel is built for
@@ -385,7 +386,16 @@ def _launch(F, Ucat, man, rowmap, colmap, runs, g: TileGeometry) -> None:
     _build.check_launch(err, "extend_add_tiles")
 
 
-extend_add_tiles.launches = 0             # one-piece kernel (K2), T = 128
-extend_add_tiles.pair_launches = 0        # two-piece kernel (K2b), T = 128
-extend_add_tiles.wide_launches = 0        # K2 at T = 256
-extend_add_tiles.wide_pair_launches = 0   # K2b at T = 256
+# the launch counters, by the name a count is reported under: (wrapper,
+# attribute), each set to 0 here
+COUNTERS = {
+    # one-piece kernel (K2), T = 128
+    "extend_add_tiles": (extend_add_tiles, "launches"),
+    # two-piece kernel (K2b), T = 128
+    "extend_add_tiles_pair": (extend_add_tiles, "pair_launches"),
+    # K2 at T = 256
+    "extend_add_tiles_wide": (extend_add_tiles, "wide_launches"),
+    # K2b at T = 256
+    "extend_add_tiles_pair_wide": (extend_add_tiles, "wide_pair_launches")}
+for _fn, _attr in COUNTERS.values():
+    setattr(_fn, _attr, 0)

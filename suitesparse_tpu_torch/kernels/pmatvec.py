@@ -23,8 +23,8 @@ import torch
 from . import _build
 from .trisolve import SMEM_BYTES, SMS
 
-__all__ = ["MAX_B", "MAX_NR", "PmvGeometry", "pmatvec_t", "pmatvec_t_plain",
-           "pmv_geometry"]
+__all__ = ["COUNTERS", "MAX_B", "MAX_NR", "PmvGeometry", "pmatvec_t",
+           "pmatvec_t_plain", "pmv_geometry"]
 
 MAX_NR = 8          # right-hand sides the kernel keeps in registers
 MAX_B = 65535       # batch elements on the kernel's second grid axis
@@ -181,4 +181,8 @@ def _launch(M: torch.Tensor, X: torch.Tensor, Z: torch.Tensor,
     _build.check_launch(err, "pmatvec_t")
 
 
-pmatvec_t.launches = 0
+# the launch counters, by the name a count is reported under: (wrapper,
+# attribute), each set to 0 here
+COUNTERS = {"pmatvec_t": (pmatvec_t, "launches")}
+for _fn, _attr in COUNTERS.values():
+    setattr(_fn, _attr, 0)

@@ -26,8 +26,8 @@ import torch
 from . import _build
 from .trisolve import SMEM_BYTES, SMS
 
-__all__ = ["MAX_C", "PotrfGeometry", "potrf_geometry", "potrf_trsm",
-           "potrf_trsm_plain"]
+__all__ = ["COUNTERS", "MAX_C", "PotrfGeometry", "potrf_geometry",
+           "potrf_trsm", "potrf_trsm_plain"]
 
 MAX_C = 96   # the kernel keeps a C x C tile's columns in shared memory
 # the kernel's instances: C is rounded up to one of these and masked
@@ -233,4 +233,8 @@ def _launch(f11, f21, L11, L21, g: PotrfGeometry) -> None:
     _build.check_launch(err, "potrf_trsm")
 
 
-potrf_trsm.launches = 0
+# the launch counters, by the name a count is reported under: (wrapper,
+# attribute), each set to 0 here
+COUNTERS = {"potrf_trsm": (potrf_trsm, "launches")}
+for _fn, _attr in COUNTERS.values():
+    setattr(_fn, _attr, 0)

@@ -27,8 +27,8 @@ from . import _build
 from .trisolve import (MAX_C, SMEM_BYTES, SMS, WIDE, _odd_stride,
                        batched_trisolve_plain)
 
-__all__ = ["SolveStepGeometry", "solve_step_fwd", "solve_step_bwd",
-           "solve_step_fwd_plain", "solve_step_bwd_plain",
+__all__ = ["COUNTERS", "SolveStepGeometry", "solve_step_fwd",
+           "solve_step_bwd", "solve_step_fwd_plain", "solve_step_bwd_plain",
            "solve_step_geometry", "step_fits"]
 
 CHUNK = 64     # L21 rows of step_fits's shared-memory rule
@@ -321,5 +321,9 @@ def _launch_bwd(L11, L21, Y, XB, xc, g: SolveStepGeometry) -> None:
     _build.check_launch(err, "solve_step_bwd")
 
 
-solve_step_fwd.launches = 0
-solve_step_bwd.launches = 0
+# the launch counters, by the name a count is reported under: (wrapper,
+# attribute), each set to 0 here
+COUNTERS = {"solve_step_fwd": (solve_step_fwd, "launches"),
+            "solve_step_bwd": (solve_step_bwd, "launches")}
+for _fn, _attr in COUNTERS.values():
+    setattr(_fn, _attr, 0)

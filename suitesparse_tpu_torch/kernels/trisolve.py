@@ -25,8 +25,9 @@ import torch
 
 from . import _build
 
-__all__ = ["MAX_C", "SMEM_BYTES", "TrisolveGeometry", "batched_trisolve",
-           "batched_trisolve_plain", "trisolve_fits", "trisolve_geometry"]
+__all__ = ["COUNTERS", "MAX_C", "SMEM_BYTES", "TrisolveGeometry",
+           "batched_trisolve", "batched_trisolve_plain", "trisolve_fits",
+           "trisolve_geometry"]
 
 MAX_C = 96               # a lane holds at most 3 rows of 32
 SMEM_BYTES = 232448      # shared memory one block can take on the H100
@@ -174,4 +175,8 @@ def _launch(L: torch.Tensor, Y: torch.Tensor, X: torch.Tensor,
     _build.check_launch(err, "batched_trisolve")
 
 
-batched_trisolve.launches = 0
+# the launch counters, by the name a count is reported under: (wrapper,
+# attribute), each set to 0 here
+COUNTERS = {"batched_trisolve": (batched_trisolve, "launches")}
+for _fn, _attr in COUNTERS.values():
+    setattr(_fn, _attr, 0)

@@ -18,11 +18,13 @@ front, the update or panel, the library's workspace; the Cholesky's
 update at its own itemsize, 2 bytes under
 ``Config.update_dtype="bfloat16"``), and a segment holds the sum of its
 groups' index arrays and the largest working set among them. The
-Cholesky's schedule is cached per (compute dtype, update dtype). The switch, ``Config.segment_bytes``: 0 (auto) gives a budget of
-:data:`AUTO_SHARE` of the device's free memory at call time (none on the
-CPU); a positive value is the budget itself. A factor runs in segments
-when its one-piece estimate (every group's index arrays and the largest
-working set) passes the budget.
+Cholesky's schedule is cached per (compute dtype, update dtype). The
+switch, ``Config.segment_bytes``: 0 (auto) gives a budget of
+:data:`AUTO_SHARE` of the device's free memory at call time
+(:func:`..device.free_bytes`, which leaves out the free blocks of live
+CUDA graphs' pools; none on the CPU); a positive value is the budget
+itself. A factor runs in segments when its one-piece estimate (every
+group's index arrays and the largest working set) passes the budget.
 
 What crosses a segment boundary stays where the one-piece factor keeps it:
 the Cholesky's child updates are freed after their last consumer group, as
@@ -47,6 +49,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..device import free_bytes
 from ..stats import count, span
 
 __all__ = ["AUTO_SHARE", "budget", "one_piece_bytes", "schedule",
@@ -76,10 +79,8 @@ def budget(config: Config, device: torch.device, out_bytes: int,
         return int(config.segment_bytes)
     if device.type != "cuda":
         return 0
-    free, _total = torch.cuda.mem_get_info(device)
-    free += torch.cuda.memory_reserved(device) \
-        - torch.cuda.memory_allocated(device)
-    return max(1, int(AUTO_SHARE * (free + held_bytes - out_bytes)))
+    return max(1, int(AUTO_SHARE * (free_bytes(device) + held_bytes
+                                    - out_bytes)))
 
 
 def one_piece_bytes(index_bytes: int, costs) -> int:

@@ -34,18 +34,40 @@ factor uploads them all once and keeps them; past ``Config.segment_bytes``
 (or its auto budget on the card) a factor uploads them a segment at a time
 (:mod:`.segmented`), with the same kernels, the same carried updates and
 the same bits.
+
+On a CUDA device the one-piece group loop is captured as a CUDA graph
+(:class:`FactorGraph`, cached on the :class:`DevicePlan` per compute
+dtype, update dtype and ``Config.precision``): the first factor of such a
+key runs eagerly and warms up the library's handles and the kernels, the
+second runs the loop on a side stream (its factor is the one returned) and
+captures it there, and every later one replays it, the same launches on
+the same addresses, so the card and not the host's launches paces the
+factor. A replay reads A's values from the graph's own input buffer and
+writes the graph's own padded factor, which each call copies out, so every
+factor returned owns its values. The graph's pool keeps the loop's
+working set reserved between calls; its free blocks count as held
+(:func:`..device.free_bytes`), so the budget of another key's factor and
+the solve's memory gates leave them out, and a replay under the auto
+budget runs in one piece in them. The segmented factor, a factor under
+``torch.profiler`` before its key has a graph, a CPU factor and one whose
+capture would not fit in the card's free memory run eagerly; the counters
+``factor.graph.capture``, ``.replay`` and ``.eager`` (CUDA factors only)
+and ``graph_pool_bytes`` say which ran.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 
 import numpy as np
 import torch
 
 from ..config import DEFAULT, Config
 from ..device import (CARD, CARD_BYTES_S, CARD_FLOP_S, fp32_precision,
-                      resolve_device)
+                      free_bytes, hold_graph_bytes, resolve_device)
+from ..kernels import extend_add as extend_add_k, \
+    extend_add_tiles as tiles_k, potrf as potrf_k
 from ..kernels.extend_add import build_work, extend_add_group
 from ..kernels.extend_add_tiles import build_group_manifest, extend_add_tiles, \
     run_ptr
@@ -466,6 +488,11 @@ class DevicePlan:
     costs: dict = dataclasses.field(default_factory=dict)
     #                              (dtype, update dtype) -> [(index, work)
     #                              bytes a group]
+    graphs: dict = dataclasses.field(default_factory=dict)
+    #                              :func:`_graph_key` -> None after the
+    #                              key's first (eager) factor, then its
+    #                              FactorGraph, or False where the capture
+    #                              did not fit
     schedule: tuple | None = None   # (key, segments) of the last segmented
     #                                 factor (numeric/segmented.py)
     solve_base: object = None    # the solve's route-independent index
@@ -740,6 +767,162 @@ def _run_plan(plan: Plan, arrays, Cdata: torch.Tensor, dtype: torch.dtype,
     return Lx
 
 
+# the factor's kernels' launch counters, (wrapper, attribute): a replay
+# adds the launches its capture recorded, as the eager loop adds its own
+_LAUNCH_COUNTERS = tuple(c for k in (potrf_k, tiles_k, extend_add_k)
+                         for c in k.COUNTERS.values())
+
+
+@dataclasses.dataclass
+class FactorGraph:
+    """The one-piece group loop of one :func:`_graph_key`, captured as a
+    CUDA graph. A replay reads A's values from ``Cdata`` and writes the
+    padded factor into ``Lx``; ``groups`` holds the index arrays it reads
+    (alive while the graph is), ``launches`` the launches of one run by
+    counter of :data:`_LAUNCH_COUNTERS`."""
+
+    graph: torch.cuda.CUDAGraph
+    Cdata: torch.Tensor
+    Lx: torch.Tensor
+    groups: list
+    launches: dict
+
+    def replay(self) -> torch.Tensor:
+        """One run of the loop on the values in ``Cdata``; returns a copy
+        of its factor, which the next replay leaves alone."""
+        self.graph.replay()
+        for (fn, name), n in self.launches.items():
+            setattr(fn, name, getattr(fn, name) + n)
+        count("factor.graph.replay")
+        return self.Lx.clone()
+
+
+def _graph_key(config: Config, dtype: torch.dtype,
+               udtype: torch.dtype) -> tuple:
+    """What a captured loop depends on beside its plan (the
+    :class:`DevicePlan` it is cached on): the fronts' and the updates'
+    dtypes, and the precision (``fp32_precision`` sets the library's TF32
+    mode when the loop is captured)."""
+    return dtype, udtype, config.precision
+
+
+def _graph_mode(dp: DevicePlan, key: tuple, device: torch.device,
+                segmented: bool) -> str:
+    """How a factor's group loop runs: ``"replay"`` of the key's graph,
+    ``"capture"`` at the key's second factor, else ``"eager"``: off CUDA,
+    in segments, at the key's first factor (which warms up the library's
+    handles and the kernels), under ``torch.profiler`` while the key has
+    no graph, and for good where its capture did not fit."""
+    if device.type != "cuda" or segmented:
+        return "eager"
+    if key not in dp.graphs:
+        dp.graphs[key] = None
+        return "eager"
+    state = dp.graphs[key]
+    if state:
+        return "replay"
+    return "capture" if state is None and not tracing() else "eager"
+
+
+def _loop_bytes(plan: Plan, costs, udtype: torch.dtype) -> int:
+    """The group loop's largest live set in bytes: a group's working set
+    (the work bytes of ``costs``, :func:`_work_bytes`) and the child
+    updates held across it, each from the group that makes it to the last
+    that reads it, as :func:`_run_plan` holds them."""
+    _order, last = _update_consumers(plan)
+    ends: dict = {}
+    live = peak = pos = 0
+    for d, glist in enumerate(plan.groups):
+        for gi, g in enumerate(glist):
+            peak = max(peak, live + costs[pos][1])
+            if (d, gi) in last:
+                u = g.B * (g.R - g.C) ** 2 * udtype.itemsize
+                live += u
+                ends[last[d, gi]] = ends.get(last[d, gi], 0) + u
+            live -= ends.pop(pos, 0)
+            pos += 1
+    return peak
+
+
+def _pool_free(graph: torch.cuda.CUDAGraph) -> int:
+    """Free bytes in the segments of ``graph``'s private memory pool."""
+    pool = tuple(graph.pool())
+    return sum(seg["total_size"] - seg["allocated_size"]
+               for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == pool)
+
+
+def _capture(dp: DevicePlan, key: tuple, Cdata: torch.Tensor,
+             dtype: torch.dtype, udtype: torch.dtype,
+             costs) -> torch.Tensor | None:
+    """The key's second factor: the group loop on ``Cdata`` run on a side
+    stream, whose factor it returns, then captured on that stream as the
+    key's graph, kept on ``dp.graphs``; the free blocks its pool keeps
+    count as held (:func:`..device.hold_graph_bytes`) while the graph
+    lives. The key stays eager for good where the capture runs out of
+    memory, or where the estimate (the padded factor twice, the graph's
+    and this factor's, and :func:`_loop_bytes`) passes the card's free
+    memory: then None, before any run."""
+    plan, dev = dp.plan, Cdata.device
+    dp.graphs[key] = False
+    need = 2 * plan.dev_size * dtype.itemsize \
+        + _loop_bytes(plan, costs, udtype)
+    if need > free_bytes(dev):
+        return None
+    arrays = list(enumerate(ix for il in dp.groups for ix in il))
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        Lx = _run_plan(plan, arrays, Cdata, dtype, udtype)
+    # the caller reads this factor on its own stream
+    Lx.record_stream(torch.cuda.current_stream(dev))
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    torch.cuda.synchronize(dev)
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    before = {c: getattr(*c) for c in _LAUNCH_COUNTERS}
+    graph, out = torch.cuda.CUDAGraph(), None
+    try:
+        with span("factor.capture"), torch.cuda.device(dev), \
+                torch.cuda.graph(graph, stream=stream):
+            out = _run_plan(plan, arrays, Cdata, dtype, udtype)
+    except torch.cuda.OutOfMemoryError:
+        pass
+    finally:
+        # the capture recorded its launches without running them
+        launches = {c: getattr(*c) - n for c, n in before.items()}
+        for (fn, name), n in before.items():
+            setattr(fn, name, n)
+    if out is None:
+        del graph
+        torch.cuda.empty_cache()
+        return Lx
+    pool = torch.cuda.memory_reserved(dev) - reserved
+    fg = FactorGraph(graph=graph, Cdata=Cdata, Lx=out, groups=dp.groups,
+                     launches={c: n for c, n in launches.items() if n})
+    gc.collect()        # the capture's garbage, which may hold pool blocks
+    hold_graph_bytes(fg, dev, _pool_free(graph))
+    count("factor.graph.capture")
+    count("graph_pool_bytes", pool)
+    dp.graphs[key] = fg
+    return Lx
+
+
+def _costs(dp: DevicePlan, dtype: torch.dtype,
+           udtype: torch.dtype) -> list:
+    """[(index, work) bytes a group] of the plan's factor in ``dtype``
+    with updates in ``udtype`` (:mod:`.segmented`), cached on
+    ``dp.costs``."""
+    costs = dp.costs.get((dtype, udtype))
+    if costs is None:
+        dp.costs[dtype, udtype] = costs = [
+            (segmented.nbytes(_select(ix, dtype, udtype)),
+             _work_bytes(g, dtype, udtype))
+            for ix, g in zip(dp.host,
+                             (g for gl in dp.plan.groups for g in gl))]
+    return costs
+
+
 def compute_dtype(config: Config) -> torch.dtype:
     """The factor's and the solve's dtype under ``config``."""
     return torch.float64 if config.compute_dtype == "float64" \
@@ -764,41 +947,55 @@ def factorize_device(A: CSC, S: SupernodalSymbolic, config: Config = DEFAULT,
     ``config.update_dtype`` the dtype of the child updates
     (:func:`update_dtype`); ``config.segment_bytes`` the budget past which
     the groups run in segments (:mod:`.segmented`; the same kernels, the
-    same layout and the same bits). ``minor`` follows the cholmod contract:
-    the first column of the first supernode whose panel is not finite, or n
-    on success."""
+    same layout and the same bits). On CUDA a one-piece factor replays its
+    group loop from a CUDA graph from the second factor of a plan on
+    (:func:`_graph_mode`). ``minor`` follows the cholmod contract: the
+    first column of the first supernode whose panel is not finite, or n on
+    success."""
     from .supernodal import TorchSupernodalFactor
 
     dev = resolve_device(device)
     dtype = compute_dtype(config)
     udtype = update_dtype(config, dtype)
+    key = _graph_key(config, dtype, udtype)
     with span("factor.plan"):
         dp = _plan_entry(A, S, dev, tile_rmin, config.tile_pair, tile_big,
                          tile_frac)
         plan = dp.plan
-        costs = dp.costs.get((dtype, udtype))
-        if costs is None:
-            dp.costs[dtype, udtype] = costs = [
-                (segmented.nbytes(_select(ix, dtype, udtype)),
-                 _work_bytes(g, dtype, udtype))
-                for ix, g in zip(dp.host,
-                                 (g for gl in plan.groups for g in gl))]
-        segs = segmented.segments(
-            dp, (id(plan), str(dtype), str(udtype), str(dev)), costs, config,
-            dev, plan.dev_size * dtype.itemsize)
+        costs = _costs(dp, dtype, udtype)
+        # under the auto budget a replay runs in the memory its graph's
+        # pool holds: one piece
+        segs = None if dp.graphs.get(key) and not config.segment_bytes \
+            else segmented.segments(
+                dp, (id(plan), str(dtype), str(udtype), str(dev)), costs,
+                config, dev, plan.dev_size * dtype.itemsize)
     if segs is None:
         groups = _upload(dp).groups
         arrays = enumerate(ix for il in groups for ix in il)
     else:
+        # a segmented factor lets the one-piece upload go, which the
+        # graphs read
+        dp.graphs.clear()
         arrays = segmented.uploads(dp.host, segs, dev,
                                    lambda ix: _select(ix, dtype, udtype))
+    mode = _graph_mode(dp, key, dev, segs is not None)
     with span("factor.gather"):
         values = _clow_data(A, S)
     with span("factor.upload"):
-        Cdata = torch.as_tensor(values, device=dev).to(dtype)
+        src = torch.as_tensor(values, device=dev)
+        Cdata = dp.graphs[key].Cdata.copy_(src) if mode == "replay" \
+            else src.to(dtype)
         count("h2d_bytes.values", values.nbytes)
     with span("factor.groups"), fp32_precision(config.precision):
-        Lx = _run_plan(plan, arrays, Cdata, dtype, udtype)
+        Lx = None
+        if mode == "replay":
+            Lx = dp.graphs[key].replay()
+        elif mode == "capture":
+            Lx = _capture(dp, key, Cdata, dtype, udtype, costs)
+        if Lx is None:
+            Lx = _run_plan(plan, arrays, Cdata, dtype, udtype)
+        if dev.type == "cuda" and not dp.graphs.get(key):
+            count("factor.graph.eager")
     minor = S.n
     with span("factor.check"):
         if not bool(torch.isfinite(Lx).all()):

@@ -108,7 +108,7 @@ import numpy as np
 import torch
 
 from ..config import DEFAULT, SOLVE_MODES, Config
-from ..device import fp32_precision
+from ..device import fp32_precision, free_bytes
 from ..kernels.bmatvec import bmatvec, bmv_fits
 from ..kernels.pmatvec import pmatvec_t
 from ..kernels.solve_step import solve_step_bwd, solve_step_fwd, step_fits
@@ -350,13 +350,6 @@ def _coarse_lx(F) -> torch.Tensor:
     return lx2
 
 
-def _free_bytes(dev: torch.device) -> int:
-    """The card's free memory, PyTorch's cached free blocks included."""
-    free, _total = torch.cuda.mem_get_info(dev)
-    return free + torch.cuda.memory_reserved(dev) \
-        - torch.cuda.memory_allocated(dev)
-
-
 def _coarse_need(F) -> int:
     """Bytes the relayouted copy of ``F.Lx`` still asks of the device
     (0 where it is built)."""
@@ -373,7 +366,7 @@ def solve_ladder(F) -> str:
     as :func:`_w2_fits`; a CPU factor always fits), else ``"fine"`` (the
     factor's own plan)."""
     dev = F.Lx.device
-    if dev.type != "cuda" or _coarse_need(F) <= _free_bytes(dev):
+    if dev.type != "cuda" or _coarse_need(F) <= free_bytes(dev):
         return "coarse"
     return "fine"
 
@@ -1166,8 +1159,8 @@ def _w2_fits(F, dtype, config: Config) -> bool:
     ``SSTPU_W2_MAX_CELLS``) on the card's memory: :func:`_w2_need` on the
     plan the solve takes (:func:`solve_ladder`), with the relayouted copy
     of the coarse plan where it is still to be built, out of the card's
-    free memory (PyTorch's cached free blocks included). A CPU factor
-    always fits."""
+    free memory (:func:`..device.free_bytes`). A CPU factor always
+    fits."""
     dev = F.Lx.device
     if dev.type != "cuda":
         return True
@@ -1175,7 +1168,7 @@ def _w2_fits(F, dtype, config: Config) -> bool:
         need = _w2_need(F.dplan.plan, dtype, config)
     else:
         need = _w2_need(_coarse_plan(F.S), dtype, config) + _coarse_need(F)
-    return need <= _free_bytes(dev)
+    return need <= free_bytes(dev)
 
 
 def solve_mode(F, config: Config = DEFAULT) -> str:

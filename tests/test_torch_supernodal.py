@@ -23,6 +23,7 @@ import suitesparse_tpu_torch as sstt
 from suitesparse_tpu_torch.numeric import supernodal_device
 from suitesparse_tpu_torch.symbolic.supernodes import \
     analyze_supernodal as port_analyze_supernodal
+from test_torch_host import _reference_native
 
 # each fixture built by both packages' generators (same matrix)
 FIXTURES = {
@@ -89,7 +90,11 @@ SCAN_FIXTURES = {"laplacian_3d_12"}
 
 def _both_placed(name, dtype, route, monkeypatch):
     """Reference factor under SSTPU_PLACE=route (no tile manifests, XLA's
-    Cholesky) and the port's at the default tile threshold."""
+    Cholesky) and the port's at the default tile threshold. The ordering
+    is the reference's C++ nested dissection: a worker that lost the race
+    to build the reference's library orders by its Python fallback, whose
+    larger fronts reach the tile kernel at that threshold."""
+    _reference_native()
     monkeypatch.setenv("SSTPU_PLACE", route)
     if route == "gather":
         # the one-hot matmul loses the reference's cost model, so every
